@@ -1,0 +1,952 @@
+"""Physical operators: dataframe algebra over partitioned frames (paper §4).
+
+Each logical operator picks a partitioning scheme per the paper's §4.2 table:
+
+  MAP / SELECTION / RENAME      → embarrassingly parallel, any partitioning
+  GROUPBY(n)                    → row-parallel partial aggregation (the
+                                  ``segment_reduce`` kernel) + small combine
+  GROUPBY(1)                    → same with G = 1 (pure reduction)
+  TRANSPOSE                     → per-block kernel transpose + grid swap
+  JOIN                          → the serial whole-frame path
+
+Column data stays on the frames' device.  What still goes through the host:
+the general key factorization (``_row_keys`` / ``_keys_to_ids``: string and
+multi-column group keys, join keys), the serial join's match indices, the
+coded (string) transpose, and the row filters' index (a keep mask is
+brought to the host once to index the row labels).
+
+Left out of this slice, each raising ``NotImplementedError`` that names its
+ROADMAP item: WINDOW (M4), the fused operators (M5), DIFFERENCE and
+DROP-DUPLICATES (M6), SORT and the shuffled JOIN (M7).
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Sequence
+
+import numpy as np
+import torch
+
+from . import algebra as alg
+from .dtypes import Domain, common_storage, parse_column, to_device, torch_dtype
+from .frame import Column, Frame, as_tensor, host, infer_domain
+from .labels import IntLabels, RangeLabels, labels_from_values
+from .partition import PartitionedFrame
+from .schedule import (GRID_PREFS, dispatch_blocks, output_row_parts,
+                       preferred_row_parts)
+from .store import as_handle, pinned, resolve
+from ..kernels import ops as kops
+
+__all__ = ["run_node", "eval_expr", "NULL_CODE"]
+
+NULL_CODE = -1
+
+
+# =============================================================================
+# Expression evaluation (structured predicates / scalar exprs)
+# =============================================================================
+def _is_int(t: torch.Tensor) -> bool:
+    return not t.dtype.is_floating_point and t.dtype != torch.bool
+
+
+def _lit_full(shape, value, device) -> torch.Tensor:
+    """Literal arrays: in-range int literals in int32 (identical wrap
+    semantics to int32 columns), float literals in float32; only
+    out-of-int32-range literals take int64."""
+    if isinstance(value, bool):
+        return torch.full(shape, value, dtype=torch.bool, device=device)
+    if isinstance(value, int):
+        dt = torch.int32 if -2 ** 31 <= value < 2 ** 31 else torch.int64
+        return torch.full(shape, value, dtype=dt, device=device)
+    if isinstance(value, float):
+        return torch.full(shape, value, dtype=torch.float32, device=device)
+    raise TypeError(f"literal {value!r} cannot meet a numeric column")
+
+
+def _eval_expr_core(expr: alg.Expr, getcol: Callable, nrows: int, device,
+                    bin_hook: Callable | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The expression interpreter.  ``getcol(name) → (values, mask)``;
+    ``bin_hook(BinExpr) → result | None`` lets the frame path intercept
+    coded-column comparisons (host code-table translation)."""
+    if isinstance(expr, alg.ColRef):
+        return getcol(expr.name)
+    if isinstance(expr, alg.Lit):
+        return (_lit_full((nrows,), expr.value, device),
+                torch.ones((nrows,), dtype=torch.bool, device=device))
+    if isinstance(expr, alg.UnaryExpr):
+        v, mask = _eval_expr_core(expr.operand, getcol, nrows, device, bin_hook)
+        if expr.op == "~":
+            return ~v.to(torch.bool), mask
+        if expr.op == "isna":
+            return ~mask, torch.ones_like(mask)
+        if expr.op == "notna":
+            return mask, torch.ones_like(mask)
+        raise ValueError(expr.op)
+    if isinstance(expr, alg.BinExpr):
+        if bin_hook is not None:
+            hit = bin_hook(expr)
+            if hit is not None:
+                return hit
+        lv, lm = _eval_expr_core(expr.left, getcol, nrows, device, bin_hook)
+        rv, rm = _eval_expr_core(expr.right, getcol, nrows, device, bin_hook)
+        return _bin_numeric(expr.op, lv, lm, rv, rm)
+    raise TypeError(expr)
+
+
+def eval_expr(expr: alg.Expr, frame: Frame) -> tuple[torch.Tensor, torch.Tensor]:
+    """Vectorized evaluation → (values, valid_mask) tensors."""
+    dev = frame.device
+
+    def getcol(name):
+        c = frame.col(name)
+        data = c.data if isinstance(c.data, torch.Tensor) else torch.from_numpy(c.data).to(dev)
+        return data, c.valid_mask().to(dev)
+
+    def bin_hook(e: alg.BinExpr):
+        # coded-column vs literal comparisons translate to code-space
+        if isinstance(e.left, alg.ColRef) and isinstance(e.right, alg.Lit):
+            c = frame.col(e.left.name)
+            if c.domain.is_coded and e.op in ("==", "!="):
+                code = _lit_to_code(c, e.right.value)
+                v = c.data == code if e.op == "==" else c.data != code
+                return v, c.valid_mask()
+        return None
+
+    return _eval_expr_core(expr, getcol, frame.nrows, dev, bin_hook)
+
+
+def _lit_to_code(column: Column, value: Any) -> int:
+    table = column.dictionary or ()
+    key = str(value)
+    return table.index(key) if key in table else -2  # -2 never matches
+
+
+def _bin_numeric(op: str, lv, lm, rv, rm) -> tuple[torch.Tensor, torch.Tensor]:
+    """Binary op over (values, mask) pairs.  int⊕int stays in integer dtypes
+    for ``+ - * % //`` and comparisons — a float32 round-trip corrupts values
+    above 2²⁴.  Like numpy/pandas integer dtypes, ``+ - *`` wrap on int32
+    overflow; ``% //`` by zero yield null.  An int64 operand promotes the
+    pair to int64 (and to float64 against a float)."""
+    mask = lm & rm
+    if op in ("&", "|"):
+        lb, rb = lv.to(torch.bool), rv.to(torch.bool)
+        return (lb & rb if op == "&" else lb | rb), mask
+    both_int = _is_int(lv) and _is_int(rv)
+    if op in ("+", "-", "*", "%", "//") and both_int:
+        if op == "+":
+            return lv + rv, mask
+        if op == "-":
+            return lv - rv, mask
+        if op == "*":
+            return lv * rv, mask
+        # int division by 0: mark those rows null instead of surfacing a
+        # plausible integer; feed the masked slots a dummy 1
+        mask = mask & (rv != 0)
+        rv = torch.where(rv == 0, torch.ones_like(rv), rv)
+        return (torch.remainder(lv, rv) if op == "%"
+                else torch.div(lv, rv, rounding_mode="floor")), mask
+    if op in ("+", "-", "*", "/", "%", "//"):
+        lf, rf = _as_float_pair(lv, rv)
+        if op == "%":
+            out = torch.remainder(lf, rf)
+        elif op == "//":
+            out = torch.div(lf, rf, rounding_mode="floor")
+        else:
+            out = {"+": lf + rf, "-": lf - rf, "*": lf * rf, "/": lf / rf}[op]
+        return out, mask
+    if both_int:
+        lf, rf = lv, rv
+    else:
+        lf, rf = _as_float_pair(lv, rv)
+    out = {
+        "==": lf == rf, "!=": lf != rf, "<": lf < rf,
+        "<=": lf <= rf, ">": lf > rf, ">=": lf >= rf,
+    }[op]
+    return out, mask
+
+
+def _as_float_pair(lv, rv):
+    """Float substrate for a mixed binary op: float32 unless either operand
+    carries 64-bit storage — then float64, the promotion numpy/pandas apply
+    to int64⊕float."""
+    if lv.element_size() > 4 or rv.element_size() > 4:
+        return lv.to(torch.float64), rv.to(torch.float64)
+    return lv.to(torch.float32), rv.to(torch.float32)
+
+
+def _predicate_mask(frame: Frame, predicate) -> torch.Tensor:
+    if isinstance(predicate, alg.Udf):
+        out = predicate.fn({n: c for n, c in zip(frame.col_labels.to_list(), frame.columns)}, frame)
+        return as_tensor(out, frame.device).to(torch.bool)
+    v, mask = eval_expr(predicate, frame)
+    return v.to(torch.bool) & mask  # null comparisons → False
+
+
+# =============================================================================
+# Per-operator physical implementations
+# =============================================================================
+def _selection(pf: PartitionedFrame, predicate) -> PartitionedFrame:
+    if pf.col_parts == 1:
+        return pf.map_blockwise(lambda f: f.filter_rows(_predicate_mask(f, predicate)))
+    # predicate may span column blocks: evaluate per row-stripe, filter blocks
+    def stripe(i: int) -> list[Frame]:
+        full = pf.parts[i][0]
+        for j in range(1, pf.col_parts):
+            full = full.concat_cols(pf.parts[i][j])
+        keep = host(_predicate_mask(full, predicate))
+        return [blk.filter_rows(keep) for blk in pf.parts[i]]
+    rows = dispatch_blocks(stripe, range(pf.row_parts))
+    return PartitionedFrame(rows)
+
+
+def _project_block(frame: Frame, cols: Sequence[Any]) -> Frame:
+    return frame.take_cols(frame.col_labels.positions_of(cols))
+
+
+def _projection(pf: PartitionedFrame, cols: Sequence[Any]) -> PartitionedFrame:
+    f = pf.repartition(col_parts=1)
+    return f.map_blockwise(lambda frame: _project_block(frame, cols))
+
+
+def _union(left: PartitionedFrame, right: PartitionedFrame) -> PartitionedFrame:
+    l = left.repartition(col_parts=1)
+    r = right.repartition(col_parts=1)
+    # handle-level stack: pure metadata
+    return PartitionedFrame(l.handles + r.handles)
+
+
+def _output_pf(out: Frame | PartitionedFrame) -> PartitionedFrame:
+    """Re-grid a blocking operator's output to the pool width
+    (``schedule.output_row_parts``); small results stay single-partition."""
+    if isinstance(out, PartitionedFrame):
+        return out.repartition(row_parts=output_row_parts(out.nrows),
+                               col_parts=1)
+    return PartitionedFrame.from_frame(out,
+                                       row_parts=output_row_parts(out.nrows))
+
+
+# ---- equality keys (host) ----------------------------------------------------
+_HASH_MASK = (1 << 52) - 1  # exactly-representable ints in float64
+_WIDE_INT_LIMIT = 1 << 53   # |v| beyond this, float64 merges distinct int64s
+
+
+def _fnv64(s: str) -> int:
+    h = 0xCBF29CE484222325
+    for ch in s.encode():
+        h ^= ch
+        h = (h * 0x100000001B3) & 0xFFFFFFFFFFFFFFFF
+    return h
+
+
+def _hash_wide_ints(v: np.ndarray) -> np.ndarray:
+    """splitmix64-style mix of int64 key values, masked into the float64-exact
+    range (a plain cast would collide 2**53 with 2**53 + 1)."""
+    z = v.astype(np.int64).view(np.uint64).copy()
+    z += np.uint64(0x9E3779B97F4A7C15)
+    z ^= z >> np.uint64(30)
+    z *= np.uint64(0xBF58476D1CE4E5B9)
+    z ^= z >> np.uint64(27)
+    z *= np.uint64(0x94D049BB133111EB)
+    z ^= z >> np.uint64(31)
+    return (z & np.uint64(_HASH_MASK)).astype(np.float64)
+
+
+def _wide_key_values(arr: np.ndarray) -> np.ndarray:
+    """Key values for a column at a wide-flagged position: integer storage
+    hashes directly; a float column hashes only its integral in-range
+    values (``5.0`` must still equal int ``5``)."""
+    if arr.dtype.kind in "iub":
+        return _hash_wide_ints(arr)
+    f = np.asarray(arr, dtype=np.float64)
+    intlike = np.isfinite(f) & (np.floor(f) == f) & (np.abs(f) < 2.0 ** 63)
+    hashed = _hash_wide_ints(np.where(intlike, f, 0.0).astype(np.int64))
+    return np.where(intlike, hashed, f)
+
+
+def _wide_int_flags(frame: Frame, subset: Sequence[Any] | None) -> np.ndarray:
+    """Per-key-column bool: INT column holding values outside ±2**53 (only
+    possible with int64 storage).  Callers OR the flags across frames."""
+    cols = frame.columns if subset is None else [frame.col(n) for n in subset]
+    out = np.zeros(len(cols), dtype=bool)
+    for i, c in enumerate(cols):
+        # dtype check first: int32 storage can never be wide, and copying it
+        # to the host just to skip it would cost a device transfer
+        if c.domain is not Domain.INT or c.data.dtype.itemsize <= 4:
+            continue
+        v = host(c.data)
+        if c.mask is not None:
+            v = v[host(c.mask)]
+        if v.size and bool(((v > _WIDE_INT_LIMIT) | (v < -_WIDE_INT_LIMIT)).any()):
+            out[i] = True
+    return out
+
+
+def _row_keys(frame: Frame, subset: Sequence[Any] | None,
+              wide: np.ndarray | None = None) -> np.ndarray:
+    """Normalized per-row key matrix (host) for equality (join / groupby).
+    Coded (Σ*) columns map through a *value* hash so keys compare correctly
+    across frames with different dictionaries; numerics are their float64
+    values; nulls are NaN (never equal a valid key)."""
+    cols = frame.columns if subset is None else [frame.col(n) for n in subset]
+    mats = []
+    for i, c in enumerate(cols):
+        if c.domain.is_coded:
+            table = c.dictionary or ()
+            lut = np.asarray([float(_fnv64(str(v)) & _HASH_MASK) for v in table]
+                             or [0.0], dtype=np.float64)
+            codes = host(c.data)
+            v = lut[np.clip(codes, 0, len(lut) - 1)]
+            v = np.where(codes >= 0, v, np.nan)
+        elif wide is not None and bool(wide[i]):
+            v = _wide_key_values(host(c.data))
+        else:
+            v = host(c.data).astype(np.float64)
+        if c.mask is not None:
+            v = np.where(host(c.mask), v, np.nan)
+        mats.append(v)
+    return np.stack(mats, axis=1) if mats else np.zeros((frame.nrows, 0))
+
+
+def _keys_to_ids(*key_mats: np.ndarray) -> list[np.ndarray]:
+    """Jointly factorize row-key matrices → dense ids (NaN-safe)."""
+    all_rows = np.concatenate(key_mats, axis=0)
+    # use bit-view so NaN == NaN for grouping purposes
+    view = all_rows.view(np.int64).reshape(all_rows.shape)
+    n, ncols = view.shape
+    if ncols == 0:
+        inv = np.zeros(n, dtype=np.int64)
+    elif ncols == 1:
+        _, inv = np.unique(view[:, 0], return_inverse=True)
+    else:
+        # multi-key: column-wise factorization, then a mixed-radix combine
+        def col_inv(j: int):
+            _, invj = np.unique(view[:, j], return_inverse=True)
+            return (invj.astype(np.int64),
+                    int(invj.max()) + 1 if invj.size else 1)
+
+        per_col = dispatch_blocks(col_inv, range(ncols), attribute=False)
+        invs = [p[0] for p in per_col]
+        cards = [p[1] for p in per_col]
+        space = 1
+        for c in cards:
+            space *= c
+        if space < 2 ** 62:
+            code = invs[0]
+            for invj, c in zip(invs[1:], cards[1:]):
+                code = code * np.int64(c) + invj
+            _, inv = np.unique(code, return_inverse=True)
+        else:
+            inv = invs[0]
+            for invj, c in zip(invs[1:], cards[1:]):
+                _, inv = np.unique(inv * np.int64(c) + invj,
+                                   return_inverse=True)
+                inv = inv.astype(np.int64)
+    out, off = [], 0
+    for m in key_mats:
+        out.append(inv[off:off + m.shape[0]].astype(np.int64))
+        off += m.shape[0]
+    return out
+
+
+# ---- JOIN (serial whole-frame path) -----------------------------------------
+def _match_ids(lids: np.ndarray, rids: np.ndarray, how: str):
+    """Vectorized equality matching over factorized key ids: left-major,
+    right order breaking ties, unmatched-left rows interleaved in place
+    (left/outer), unmatched-right rows appended in right order
+    (right/outer).  Returns (lidx, ridx, lvalid, rvalid)."""
+    nl, nr = int(lids.shape[0]), int(rids.shape[0])
+    order_r = np.argsort(rids, kind="stable")
+    srids = rids[order_r]
+    order_l = np.argsort(lids, kind="stable")
+    slids = lids[order_l]
+    starts = np.empty(nl, dtype=np.int64)
+    ends = np.empty(nl, dtype=np.int64)
+    starts[order_l] = np.searchsorted(srids, slids, side="left")
+    ends[order_l] = np.searchsorted(srids, slids, side="right")
+    counts = (ends - starts).astype(np.int64)
+    matched = counts > 0
+    if how in ("left", "outer"):
+        out_counts = np.where(matched, counts, 1)
+    else:
+        out_counts = counts
+    total = int(out_counts.sum())
+    lidx = np.repeat(np.arange(nl, dtype=np.int64), out_counts)
+    offs = np.cumsum(out_counts) - out_counts
+    within = np.arange(total, dtype=np.int64) - np.repeat(offs, out_counts)
+    rvalid = np.repeat(matched, out_counts)
+    pos = np.repeat(starts.astype(np.int64), out_counts) + within
+    if nr:
+        gather = order_r[np.minimum(pos, nr - 1)].astype(np.int64)
+    else:
+        gather = np.zeros(total, dtype=np.int64)
+    ridx = np.where(rvalid, gather, 0)
+    lvalid = np.ones(total, dtype=bool)
+    if how in ("right", "outer"):
+        rpos = np.nonzero(~np.isin(rids, lids))[0].astype(np.int64)
+        lidx = np.concatenate([lidx, np.zeros(rpos.shape[0], dtype=np.int64)])
+        ridx = np.concatenate([ridx, rpos])
+        lvalid = np.concatenate([lvalid,
+                                 np.zeros(rpos.shape[0], dtype=bool)])
+        rvalid = np.concatenate([rvalid, np.ones(rpos.shape[0], dtype=bool)])
+    return lidx, ridx, lvalid, rvalid
+
+
+def _join_indices(lf: Frame, rf: Frame, params: dict):
+    """Build the match indices: (lidx, ridx, lvalid, rvalid, drop_right)."""
+    how = params["how"]
+    on = params["on"]
+    left_on = params["left_on"] or on
+    right_on = params["right_on"] or on
+
+    if left_on is None:  # CROSS-PRODUCT: nested order, left outer (Table 1 †)
+        ml, mr = lf.nrows, rf.nrows
+        lidx = np.repeat(np.arange(ml), mr)
+        ridx = np.tile(np.arange(mr), ml)
+        return lidx, ridx, None, None, ()
+
+    flags = _wide_int_flags(lf, left_on) | _wide_int_flags(rf, right_on)
+    lids, rids = _keys_to_ids(_row_keys(lf, left_on, flags),
+                              _row_keys(rf, right_on, flags))
+    lidx, ridx, lvalid, rvalid = _match_ids(lids, rids, how)
+    drop_right = tuple(right_on) if on is not None else ()
+    return lidx, ridx, lvalid, rvalid, drop_right
+
+
+def _join_serial(left: PartitionedFrame, right: PartitionedFrame, params: dict,
+                 stats=None) -> PartitionedFrame:
+    """The whole-frame join: host match indices, device payload gather."""
+    lf, rf = left.to_frame().induce(), right.to_frame().induce()
+    lidx, ridx, lvalid, rvalid, drop_right = _join_indices(lf, rf, params)
+    if stats is not None:
+        stats.gather_rows += int(lidx.shape[0])
+    out = _assemble_join(lf, rf, lidx, ridx, lvalid, rvalid, drop_right)
+    return _output_pf(out)
+
+
+def _assemble_join(lf: Frame, rf: Frame, lidx, ridx, lvalid, rvalid,
+                   drop_right) -> Frame:
+    lpart = lf.take_rows(lidx)
+    keep_r = [j for j, n in enumerate(rf.col_labels.to_list()) if n not in drop_right]
+    rpart = rf.take_cols(keep_r).take_rows(ridx)
+    lpart = _mask_all(lpart, lvalid)
+    rpart = _mask_all(rpart, rvalid)
+    out = lpart.concat_cols(rpart)
+    return Frame(out.columns, RangeLabels(out.nrows), out.col_labels,
+                 device=out.device)   # reset index
+
+
+def _mask_all(frame: Frame, valid: np.ndarray | None) -> Frame:
+    if valid is None or valid.all():
+        return frame
+    vmask = to_device(valid, frame.device)
+    cols = [Column(c.data, c.domain, c.valid_mask() & vmask, c.dictionary) for c in frame.columns]
+    return Frame(cols, frame.row_labels, frame.col_labels, frame.row_domains,
+                 device=frame.device)
+
+
+# ---- GROUPBY ----------------------------------------------------------------
+def _groupby(pf: PartitionedFrame, keys: Sequence[Any], aggs: Sequence[tuple]) -> PartitionedFrame:
+    """Row-parallel partial aggregation + tree combine (paper §4.2 Fig. 6).
+
+    groupby(1) is ``keys == ()``: all rows fall into segment 0 and the combine
+    is a pure reduction.  The working grid adapts to the pool width at plan
+    time (blocks ≈ workers)."""
+    rp = preferred_row_parts(pf.row_parts, GRID_PREFS["groupby"],
+                             total_bytes=pf.nbytes())
+    pf = pf.repartition(row_parts=rp, col_parts=1)
+    row_blocks = [row[0].induce() for row in pf.parts]
+    return _groupby_blocks(row_blocks, keys, aggs)
+
+
+def _dense_codes(c: Column, vmin: int) -> torch.Tensor:
+    """Group codes ``v - vmin`` on the column's device; nulls → -1.  int32
+    arithmetic: valid values lie in [vmin, vmin + 65535], and a null slot's
+    wrapped value is replaced."""
+    data = c.data if isinstance(c.data, torch.Tensor) else torch.from_numpy(c.data)
+    codes = (data - vmin).to(torch.int32)
+    if c.mask is not None:
+        codes = torch.where(c.mask.to(codes.device), codes, NULL_CODE)
+    return codes
+
+
+def _groupby_blocks(row_blocks: list, keys: Sequence[Any],
+                    aggs: Sequence[tuple]) -> PartitionedFrame:
+    row_blocks = [resolve(b) for b in row_blocks]
+    # ---- dense small-range INT key: no host factorization ------------------
+    # (the paper's groupby(n) benchmark shape: "passenger_count"-like keys).
+    # codes = v - min, computed per block on the device; empty groups dropped
+    # after the combine.
+    dense = _dense_int_key(row_blocks, keys) if len(keys) == 1 else None
+    if dense is not None:
+        vmin, G = dense
+        codes_per_block = [_dense_codes(b.col(keys[0]), vmin) for b in row_blocks]
+        return _groupby_with_codes(row_blocks, keys, aggs, codes_per_block,
+                                   int(G), key_values=[int(vmin) + i for i in range(int(G))],
+                                   drop_empty=True)
+
+    # ---- global key factorization (host) -----------------------------------
+    if keys:
+        flags = np.zeros(len(keys), dtype=bool)
+        for b in row_blocks:
+            flags |= _wide_int_flags(b, keys)
+        key_mats = [_row_keys(b, keys, flags) for b in row_blocks]
+        ids_per_block = _keys_to_ids(*key_mats)
+        all_ids = np.concatenate(ids_per_block)
+        all_keys = np.concatenate(key_mats, axis=0)
+        valid_rows = ~np.isnan(all_keys).any(axis=1)  # pandas drops null keys
+        valid_idx = np.nonzero(valid_rows)[0]
+        uniq_ids, first = np.unique(all_ids[valid_rows], return_index=True)
+        first_global = valid_idx[first]
+        # decode representative key VALUES so output groups sort
+        # lexicographically by value, not by hash/code
+        offsets = np.cumsum([0] + [b.nrows for b in row_blocks])
+
+        def decode_row(gidx: int) -> tuple:
+            bi = int(np.searchsorted(offsets, gidx, side="right") - 1)
+            local = int(gidx - offsets[bi])
+            return tuple(row_blocks[bi].col(k).value_at(local) for k in keys)
+        rep_vals = [decode_row(int(gi)) for gi in first_global]
+        perm = sorted(range(len(rep_vals)), key=lambda i: tuple(
+            (str(type(v)), v) if not isinstance(v, (int, float, bool)) else ("num", v)
+            for v in rep_vals[i]))
+        order = uniq_ids[np.asarray(perm, dtype=np.int64)] if len(perm) else uniq_ids
+        rep_sorted = [rep_vals[i] for i in perm]
+        G = len(order)
+        n_ids = int(all_ids.max()) + 1 if all_ids.size else 0
+        remap = np.full(n_ids, NULL_CODE, dtype=np.int32)
+        remap[order] = np.arange(G, dtype=np.int32)
+        codes_per_block = [to_device(remap[ids] if ids.size else ids.astype(np.int32),
+                                     b.device)
+                           for ids, b in zip(ids_per_block, row_blocks)]
+    else:
+        G = 1
+        rep_sorted = None
+        codes_per_block = [torch.zeros(b.nrows, dtype=torch.int32, device=b.device)
+                           for b in row_blocks]
+    return _groupby_with_codes(row_blocks, keys, aggs, codes_per_block, G,
+                               rep_sorted=rep_sorted)
+
+
+def _dense_int_key(row_blocks: list[Frame], keys) -> tuple[int, int] | None:
+    """(vmin, G) when the single key column is INT with a small value range —
+    codes are then ``v - vmin`` with no host factorization.  The span is two
+    device reductions per block."""
+    try:
+        cols = [b.col(keys[0]) for b in row_blocks]
+    except KeyError:
+        return None
+    if any(c.domain is not Domain.INT for c in cols):
+        return None
+    vmin, vmax = None, None
+    for c in cols:
+        if isinstance(c.data, np.ndarray):
+            v = c.data if c.mask is None else c.data[host(c.mask)]
+            if v.size == 0:
+                continue
+            lo, hi = int(v.min()), int(v.max())
+        else:
+            if c.data.numel() == 0 or (c.mask is not None and not bool(c.mask.any())):
+                continue
+            if c.mask is None:
+                lo, hi = (int(x) for x in torch.aminmax(c.data))
+            else:
+                big = torch.iinfo(c.data.dtype)
+                lo = int(torch.where(c.mask, c.data, big.max).min())
+                hi = int(torch.where(c.mask, c.data, big.min).max())
+        vmin = lo if vmin is None else min(vmin, lo)
+        vmax = hi if vmax is None else max(vmax, hi)
+    if vmin is None:
+        return None
+    g = vmax - vmin + 1
+    if g > 65536:
+        return None
+    return vmin, g
+
+
+def _agg_need(aggs) -> list[tuple[Any, str]]:
+    """The (column, base-statistic) partial vectors an agg list requires."""
+    need: list[tuple[Any, str]] = []
+    for col_label, func, _ in aggs:
+        for base in _bases_for(func):
+            if (col_label, base) not in need:
+                need.append((col_label, base))
+    return need
+
+
+_PRESENCE = ("__presence__", "sum")
+
+
+def _block_partial(block: Frame, codes: torch.Tensor, G: int, need: Sequence[tuple],
+                   presence: bool) -> dict:
+    """Per-block partial aggregates (``kernels.ops.segment_reduce_multi``):
+    null masking, squaring, presence (so empty dense-range slots drop after
+    the combine), and one ``segment_reduce`` per reduce op with same-op
+    columns batched (M, C)."""
+    dev = block.device
+    outs = kops.segment_reduce_multi(
+        [as_tensor(block.col(col_label).data, dev) for col_label, _ in need],
+        [block.col(col_label).mask for col_label, _ in need],
+        codes, bases=[base for _, base in need], num_segments=G,
+        presence=presence)
+    result = {key: outs[i] for i, key in enumerate(need)}
+    if presence:
+        result[_PRESENCE] = outs[len(need)]
+    return result
+
+
+def _combine_partials(partials: Sequence[dict], want: Sequence[tuple]) -> dict:
+    """Combine of per-block partials (G-sized, tiny vs data), in block order."""
+    combined: dict[tuple, torch.Tensor] = {}
+    for key in want:
+        base = key[1]
+        parts = [p[key] for p in partials]
+        acc = parts[0]
+        for nxt in parts[1:]:
+            if base in ("sum", "count", "sumsq"):
+                acc = acc + nxt
+            elif base == "min":
+                acc = torch.minimum(acc, nxt)
+            else:
+                acc = torch.maximum(acc, nxt)
+        combined[key] = acc
+    return combined
+
+
+def _groupby_with_codes(row_blocks: list[Frame], keys, aggs, codes_per_block,
+                        G: int, rep_sorted=None, key_values=None,
+                        drop_empty: bool = False) -> PartitionedFrame:
+    need = _agg_need(aggs)
+
+    def block_partial(args) -> dict:
+        block, codes = args
+        return _block_partial(block, codes, G, need, presence=drop_empty)
+
+    partials = dispatch_blocks(block_partial, list(zip(row_blocks, codes_per_block)))
+    want = need + [_PRESENCE] if drop_empty else need
+    combined = _combine_partials(partials, want)
+    return _finalize_groupby(combined, row_blocks[0] if row_blocks else None,
+                             keys, aggs, G, rep_sorted, key_values, drop_empty)
+
+
+def _finalize_groupby(combined: dict, template: Frame | None, keys, aggs,
+                      G: int, rep_sorted=None, key_values=None,
+                      drop_empty: bool = False) -> PartitionedFrame:
+    dev = template.device if template is not None else torch.device("cpu")
+    out_cols: list[Column] = []
+    out_names: list[Any] = []
+    # key columns first (representative decoded values, sorted order)
+    if keys and key_values is not None:      # dense-int fast path
+        out_cols.append(_host_column(list(key_values), Domain.INT, dev))
+        out_names.append(keys[0])
+    elif keys:
+        template = resolve(template)
+        for kpos, kname in enumerate(keys):
+            src = template.col(kname)
+            vals = [r[kpos] for r in rep_sorted]
+            dom = src.domain if src.domain is not Domain.UNSPECIFIED else None
+            out_cols.append(_host_column(vals, dom, dev))
+            out_names.append(kname)
+    for col_label, func, out_label in aggs:
+        cnt = combined.get((col_label, "count"))
+        if func == "count":
+            vals = cnt
+        elif func == "sum":
+            vals = combined[(col_label, "sum")]
+        elif func == "mean":
+            vals = combined[(col_label, "sum")] / torch.clamp(cnt, min=1.0)
+        elif func in ("min", "max"):
+            vals = combined[(col_label, func)]
+        elif func in ("var", "std"):
+            s, ss = combined[(col_label, "sum")], combined[(col_label, "sumsq")]
+            var = (ss - s * s / torch.clamp(cnt, min=1.0)) / torch.clamp(cnt - 1.0, min=1.0)
+            vals = torch.sqrt(torch.clamp(var, min=0.0)) if func == "std" else var
+        elif func == "any":
+            vals = (combined[(col_label, "max")] > 0).to(torch.float32)
+        elif func == "all":
+            vals = (combined[(col_label, "min")] > 0).to(torch.float32)
+        else:
+            raise ValueError(func)
+        mask = cnt > 0 if cnt is not None else None
+        dom = Domain.INT if func == "count" else (Domain.BOOL if func in ("any", "all") else Domain.FLOAT)
+        data = vals.to(torch_dtype(dom))
+        out_cols.append(Column(data, dom, mask if func != "count" else None, None))
+        out_names.append(out_label)
+
+    frame = Frame(out_cols, RangeLabels(G), labels_from_values(out_names), device=dev)
+    if drop_empty:
+        frame = frame.filter_rows(combined[_PRESENCE] > 0)
+    return _output_pf(frame)
+
+
+def _bases_for(func: str) -> tuple[str, ...]:
+    return {
+        "sum": ("sum", "count"), "count": ("count",), "mean": ("sum", "count"),
+        "min": ("min", "count"), "max": ("max", "count"),
+        "var": ("sum", "sumsq", "count"), "std": ("sum", "sumsq", "count"),
+        "any": ("max", "count"), "all": ("min", "count"),
+    }[func]
+
+
+def _host_column(values: list, domain: Domain | None, device) -> Column:
+    """A column from host values on ``device``.  Decoded INT keys beyond
+    int32 stay an exact int64 HOST column (int32 storage would wrap them)."""
+    if domain is Domain.INT:
+        ints = [int(v) for v in values if v is not None]
+        if ints and not all(-2 ** 31 <= v < 2 ** 31 for v in ints):
+            data = np.asarray([0 if v is None else int(v) for v in values],
+                              dtype=np.int64)
+            mask = np.asarray([v is not None for v in values])
+            return Column(data, Domain.INT,
+                          None if mask.all() else torch.from_numpy(mask), None)
+    p = parse_column(values, domain, device=device)
+    return Column(p.data, p.domain, p.mask, p.dictionary)
+
+
+# ---- TRANSPOSE ----------------------------------------------------------
+def _transpose(pf: PartitionedFrame) -> PartitionedFrame:
+    """Grid transpose: per-block kernel transpose + grid metadata swap."""
+    def block_t(frame: Frame) -> Frame:
+        # No induction: coded-ness is decidable from declared domains, and
+        # UNSPECIFIED columns (a prior transpose's output) are numeric storage
+        # whose logical schema is recovered via row_domains downstream.
+        f = frame
+        tgt = common_storage(f.schema)
+        if tgt.is_coded:
+            return _transpose_coded(f.induce())
+        mat, dom = f.as_matrix(tgt if tgt is not Domain.UNSPECIFIED else Domain.FLOAT)
+        out = kops.transpose(mat)
+        out_mask = None
+        if any(c.mask is not None for c in f.columns):
+            mm = torch.stack([c.valid_mask() for c in f.columns], dim=1)
+            out_mask = kops.transpose(mm)
+        # second-transpose schema recovery (paper §3.3): the child's recorded
+        # row-type vector gives the output schema without re-running S(·)
+        rec = f.row_domains if (f.row_domains is not None
+                                and len(f.row_domains) == f.nrows) else None
+        # wide output ("billions of columns", paper §4.2): every new column
+        # is a strided view of the one transposed matrix, made in one call
+        datas = out.unbind(1)
+        masks = out_mask.unbind(1) if out_mask is not None else None
+        new_cols = []
+        for i in range(f.nrows):
+            dom = rec[i] if rec is not None else Domain.UNSPECIFIED
+            data = datas[i]
+            if rec is not None:
+                data = data.to(torch_dtype(dom))
+            new_cols.append(Column(data, dom, None if masks is None else masks[i], None))
+        return Frame(new_cols, f.col_labels, f.row_labels, row_domains=f.schema,
+                     device=f.device)
+
+    return pf.transpose_grid(block_t)
+
+
+def _transpose_coded(f: Frame) -> Frame:
+    """Heterogeneous/string transpose: host re-encode (paper: coerce to
+    Object; schema induction recovers on a second transpose)."""
+    records = f.to_records()
+    rec = f.row_domains if (f.row_domains is not None
+                            and len(f.row_domains) == f.nrows) else None
+    dev = f.device
+    new_cols = []
+    for i in range(f.nrows):
+        vals = [records[i][j] for j in range(f.ncols)]
+        if rec is not None:
+            new_cols.append(_host_column(vals, rec[i], dev))
+        else:
+            new_cols.append(_host_column(
+                [None if v is None else str(v) for v in vals], Domain.STR, dev))
+    return Frame(new_cols, f.col_labels, f.row_labels, row_domains=f.schema,
+                 device=dev)
+
+
+# ---- MAP ------------------------------------------------------------------
+def _apply_udf_block(frame: Frame, udf: alg.Udf) -> Frame:
+    """Run a Udf over one block.  UDFs see torch tensors."""
+    f = frame.induce()
+    cols_in = {n: c for n, c in zip(f.col_labels.to_list(), f.columns)}
+    out = udf.fn(cols_in, f)
+    if isinstance(out, Frame):
+        return out
+    # dict {label: Column | array | (array, mask)} preserving row count
+    dev = f.device
+    names, cols = [], []
+    for name, v in out.items():
+        names.append(name)
+        if isinstance(v, Column):
+            cols.append(v)
+        elif isinstance(v, tuple):
+            data, mask = v
+            data = as_tensor(data, dev)
+            cols.append(Column(data, infer_domain(data),
+                               None if mask is None else as_tensor(mask, dev), None))
+        else:
+            arr = as_tensor(v, dev)
+            cols.append(Column(arr, infer_domain(arr), None, None))
+    return Frame(cols, f.row_labels, labels_from_values(names), device=dev)
+
+
+def _map(pf: PartitionedFrame, udf: alg.Udf) -> PartitionedFrame:
+    if udf.elementwise:
+        return pf.repartition(col_parts=1).map_blockwise(
+            lambda f: _apply_udf_block(f, udf))
+    return PartitionedFrame.from_frame(_apply_udf_block(pf.to_frame(), udf))
+
+
+# ---- label movement ---------------------------------------------------------
+def _to_labels(pf: PartitionedFrame, column: Any) -> PartitionedFrame:
+    def conv(frame: Frame) -> Frame:
+        f = frame.induce()
+        j = f.col_labels.position_of(column)
+        c = f.columns[j]
+        labels = labels_from_values(c.to_pylist(), c.domain)
+        keep = [x for x in range(f.ncols) if x != j]
+        g = f.take_cols(keep)
+        return Frame(g.columns, labels, g.col_labels, device=g.device)
+    return pf.repartition(col_parts=1).map_blockwise(conv)
+
+
+def _from_labels(pf: PartitionedFrame, label: Any) -> PartitionedFrame:
+    pf = pf.repartition(col_parts=1)
+    offsets = pf.row_block_offsets()
+
+    def conv(args):
+        (block, start) = args
+
+        def build(f):
+            vals = f.row_labels.to_list()
+            c = _host_column(vals, Domain.INT if isinstance(f.row_labels, (RangeLabels, IntLabels))
+                             else None, f.device)
+            return Frame([c] + list(f.columns),
+                         RangeLabels(f.nrows, start),
+                         labels_from_values([label]).concat(f.col_labels),
+                         device=f.device)
+
+        with pinned(block) as f:
+            return as_handle(build(f), recompute=lambda: build(resolve(block)))
+
+    out = dispatch_blocks(conv, [(row[0], offsets[i])
+                                 for i, row in enumerate(pf.handles)])
+    return PartitionedFrame([[b] for b in out])
+
+
+def _rename_block(frame: Frame, mapping: dict) -> Frame:
+    names = [mapping.get(n, n) for n in frame.col_labels.to_list()]
+    return Frame(frame.columns, frame.row_labels, labels_from_values(names),
+                 frame.row_domains, device=frame.device)
+
+
+def _rename(pf: PartitionedFrame, mapping_items) -> PartitionedFrame:
+    mapping = dict(mapping_items)
+    return pf.map_blockwise(lambda frame: _rename_block(frame, mapping))
+
+
+def _limit(pf: PartitionedFrame, k: int, tail: bool) -> PartitionedFrame:
+    # Touch only the row blocks the prefix/suffix needs (§6.1.2).
+    if not tail:
+        f = pf.prefix(k).to_frame()
+        return PartitionedFrame.from_frame(f.head(k))
+    need, keep = k, []
+    for i in range(pf.row_parts - 1, -1, -1):
+        keep.insert(0, pf.handles[i])
+        need -= pf.handles[i][0].nrows
+        if need <= 0:
+            break
+    f = PartitionedFrame(keep).to_frame()
+    return PartitionedFrame.from_frame(f.tail(k))
+
+
+# ---- rewrite targets: column-space ops without any TRANSPOSE (paper §5) ------
+def _key_rows_matrix(pf: PartitionedFrame, row_names: Sequence[Any]) -> np.ndarray:
+    """(len(row_names), ncols) float64 matrix of the named rows' values."""
+    pf1 = pf.repartition(col_parts=1)
+    rows = []
+    for name in row_names:
+        found = None
+        for bi, row in enumerate(pf1.parts):
+            try:
+                local = row[0].row_labels.position_of(name)
+                found = (bi, local)
+                break
+            except KeyError:
+                continue
+        if found is None:
+            raise KeyError(name)
+        bi, local = found
+        one = pf1.parts[bi][0].take_rows(np.asarray([local]))
+        rows.append(_row_keys(one.induce(), None)[0])
+    return np.stack(rows, axis=0)
+
+
+def _column_sort(pf: PartitionedFrame, by: Sequence[Any], ascending: bool) -> PartitionedFrame:
+    keys = _key_rows_matrix(pf, by)                       # (K, n)
+    if ascending:
+        perm = np.lexsort(tuple(reversed([k for k in keys])))
+    else:
+        perm = np.lexsort(tuple(reversed([-k for k in keys])))
+    pf1 = pf.repartition(col_parts=1)
+    return pf1.map_blockwise(lambda f: f.take_cols(perm.tolist()))
+
+
+def _column_filter(pf: PartitionedFrame, predicate: alg.Expr) -> PartitionedFrame:
+    refs = sorted(predicate.refs(), key=repr)
+    keys = _key_rows_matrix(pf, refs)                     # (K, n)
+    n = keys.shape[1]
+    dev = pf.parts[0][0].device
+    temp = Frame(
+        [Column(to_device(keys[i].astype(np.float32), dev), Domain.FLOAT)
+         for i in range(len(refs))],
+        RangeLabels(n),
+        labels_from_values(list(refs)),
+        device=dev,
+    )
+    keep = host(_predicate_mask(temp, predicate))
+    idx = np.nonzero(keep)[0].tolist()
+    pf1 = pf.repartition(col_parts=1)
+    return pf1.map_blockwise(lambda f: f.take_cols(idx))
+
+
+# =============================================================================
+# dispatcher
+# =============================================================================
+_NOT_PORTED = {
+    "window": "M4", "fused_window": "M5", "fused_pipeline": "M5",
+    "fused_groupby": "M5", "fused_sort": "M5", "fused_join": "M5",
+    "fused_difference": "M5", "fused_drop_duplicates": "M5",
+    "difference": "M6", "drop_duplicates": "M6", "sort": "M7",
+}
+
+
+def run_node(node: alg.Node, inputs: list[PartitionedFrame],
+             stats=None) -> PartitionedFrame:
+    """Dispatch one plan node.  ``stats`` (duck-typed ``ExecStats``) receives
+    ``gather_rows``, the payload rows the JOIN gathered."""
+    op = node.op
+    if op in _NOT_PORTED:
+        raise NotImplementedError(
+            f"{op} is not ported to repro_torch yet (ROADMAP item {_NOT_PORTED[op]})")
+    if op == "selection":
+        return _selection(inputs[0], node.params["predicate"])
+    if op == "projection":
+        return _projection(inputs[0], node.params["cols"])
+    if op == "union":
+        return _union(inputs[0], inputs[1])
+    if op == "join":
+        return _join_serial(inputs[0], inputs[1], node.params, stats)
+    if op == "groupby":
+        return _groupby(inputs[0], node.params["keys"], node.params["aggs"])
+    if op == "rename":
+        return _rename(inputs[0], node.params["mapping"])
+    if op == "transpose":
+        return _transpose(inputs[0])
+    if op == "map":
+        return _map(inputs[0], node.params["udf"])
+    if op == "to_labels":
+        return _to_labels(inputs[0], node.params["column"])
+    if op == "from_labels":
+        return _from_labels(inputs[0], node.params["label"])
+    if op == "limit":
+        return _limit(inputs[0], node.params["k"], node.params["tail"])
+    if op == "column_sort":
+        return _column_sort(inputs[0], node.params["by"], node.params["ascending"])
+    if op == "column_filter":
+        return _column_filter(inputs[0], node.params["predicate"])
+    raise ValueError(f"no physical implementation for {op}")

@@ -1,0 +1,1 @@
+from .synthetic import numeric_matrix_frame, taxi_like_frame  # noqa: F401

@@ -1,0 +1,11 @@
+"""Hand-written Hopper (sm_90a) CUDA kernels for the engine's hot operators,
+each beside its plain PyTorch version:
+
+  segment_reduce — GROUPBY partial aggregation
+  block_transpose — TRANSPOSE's per-block transpose
+  onehot_encode  — get_dummies
+
+``ops`` is the engine-facing surface; ``ref`` holds the plain versions.  The
+kernels build on first launch (``_build``), never at import.
+"""
+from . import ops, ref  # noqa: F401

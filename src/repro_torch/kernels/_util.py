@@ -1,0 +1,65 @@
+"""Shared helpers for the kernel wrappers: storage-dtype widening at the
+kernel boundary, device dispatch checks, and launch counters."""
+from __future__ import annotations
+
+import threading
+
+import torch
+
+__all__ = ["widen_for_kernel", "narrow_from_kernel", "on_cpu", "cuda_stream",
+           "LaunchCounter"]
+
+
+# The kernels move float32 and int32 words; bools and narrow ints are widened
+# at the wrapper boundary and narrowed back after.
+def widen_for_kernel(x: torch.Tensor) -> tuple[torch.Tensor, torch.dtype]:
+    orig = x.dtype
+    if x.dtype in (torch.bool, torch.int8, torch.int16):
+        return x.to(torch.int32), orig
+    if x.dtype == torch.float64:
+        return x.to(torch.float32), orig
+    return x, orig
+
+
+def narrow_from_kernel(x: torch.Tensor, orig: torch.dtype) -> torch.Tensor:
+    if x.dtype != orig:
+        return x.to(orig)
+    return x
+
+
+def on_cpu(kernel: str, *tensors: torch.Tensor) -> bool:
+    """Device dispatch for a kernel wrapper: True when every tensor lies on
+    the CPU (the plain version runs), False when every tensor lies on one
+    CUDA device (the kernel runs).  Anything else raises — there is no
+    fallback from a CUDA tensor to the plain version."""
+    devs = {t.device for t in tensors}
+    if all(d.type == "cpu" for d in devs):
+        return True
+    if len(devs) == 1 and next(iter(devs)).type == "cuda":
+        return False
+    raise ValueError(f"{kernel}: tensors must all be on the CPU or all on one "
+                     f"CUDA device, got {sorted(str(d) for d in devs)}")
+
+
+def cuda_stream(t: torch.Tensor) -> int:
+    """PyTorch's current stream on ``t``'s device, as the raw handle.  The
+    launch itself runs under ``torch.cuda.device(t.device)``, so the stream
+    and the runtime's current device agree."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+class LaunchCounter:
+    """Counts kernel launches.  Pool threads launch concurrently, so the
+    increment is under a lock."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.launches = 0
+
+    def bump(self) -> None:
+        with self._lock:
+            self.launches += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self.launches = 0

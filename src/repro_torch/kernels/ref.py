@@ -1,0 +1,10 @@
+"""Plain PyTorch versions of the ported kernels, under the reference's
+names (``repro/kernels/ref.py``).  The CPU path of every wrapper runs these,
+and the chip check compares each CUDA kernel with them."""
+from __future__ import annotations
+
+from .block_transpose import block_transpose_plain as transpose
+from .onehot_encode import onehot_encode_plain as onehot_encode
+from .segment_reduce import segment_reduce_plain as segment_reduce
+
+__all__ = ["transpose", "segment_reduce", "onehot_encode"]

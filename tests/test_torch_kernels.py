@@ -1,0 +1,227 @@
+"""Kernel layer of the PyTorch port against the JAX package.
+
+The plain PyTorch versions (what a CPU tensor runs) are held against
+``repro.kernels.ref`` over the shape sweep of ``tests/test_kernels.py`` and
+against the Pallas kernels in interpret mode; ``segment_reduce_multi`` is
+held against its reference.  Tolerances: transpose, one-hot and counts are
+bit-equal; float reductions use rtol=atol=1e-4 as tests/test_kernels.py
+does.  min/max are compared on non-empty segments only: on a segment no row
+reaches, the Pallas kernel gives ±FLT_MAX where the plain versions give ±inf.
+
+The CUDA kernels themselves run only on a card: those tests skip here.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as rops
+from repro.kernels import ref as rref
+from repro.kernels.onehot_encode import onehot_encode as pallas_onehot
+from repro.kernels.segment_reduce import segment_reduce as pallas_segred
+from repro.kernels.block_transpose import block_transpose as pallas_transpose
+from repro_torch.kernels import block_transpose as bt_mod
+from repro_torch.kernels import onehot_encode as oh_mod
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import segment_reduce as sr_mod
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _nonempty(codes: np.ndarray, g: int) -> np.ndarray:
+    return np.bincount(codes[codes >= 0], minlength=g)[:g] > 0
+
+
+# ---- plain versions vs repro.kernels.ref ------------------------------------
+@pytest.mark.parametrize("shape", [(8, 128), (100, 37), (257, 129), (5, 1000), (1, 1)])
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+def test_transpose_plain_matches_ref(rng, shape, dtype):
+    x = (rng.standard_normal(shape) * 10).astype(dtype)
+    np.testing.assert_array_equal(tref.transpose(_t(x)).numpy(),
+                                  np.asarray(rref.transpose(jnp.asarray(x))))
+
+
+@pytest.mark.parametrize("m,g", [(64, 4), (1000, 7), (5000, 129), (17, 1)])
+@pytest.mark.parametrize("op", ["sum", "count", "min", "max"])
+def test_segment_reduce_plain_matches_ref(rng, m, g, op):
+    v = rng.standard_normal(m).astype(np.float32)
+    c = rng.integers(-1, g, m).astype(np.int32)
+    out = tref.segment_reduce(_t(v), _t(c), g, op).numpy()
+    exp = np.asarray(rref.segment_reduce(jnp.asarray(v), jnp.asarray(c), g, op))
+    if op in ("min", "max"):
+        keep = _nonempty(c, g)
+        out, exp = out[keep], exp[keep]
+    if op == "count":
+        np.testing.assert_array_equal(out, exp)
+    else:
+        np.testing.assert_allclose(out, exp, **TOL)
+
+
+@pytest.mark.parametrize("cols", [1, 3, 7])
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_segment_reduce_plain_multicolumn(rng, cols, op):
+    m, g = 777, 13
+    v = rng.standard_normal((m, cols)).astype(np.float32)
+    c = rng.integers(0, g, m).astype(np.int32)
+    np.testing.assert_allclose(
+        tref.segment_reduce(_t(v), _t(c), g, op).numpy(),
+        np.asarray(rref.segment_reduce(jnp.asarray(v), jnp.asarray(c), g, op)), **TOL)
+
+
+@pytest.mark.parametrize("m,g", [(32, 4), (500, 13), (1000, 300)])
+def test_onehot_plain_matches_ref(rng, m, g):
+    c = rng.integers(-1, g, m).astype(np.int32)
+    np.testing.assert_array_equal(tref.onehot_encode(_t(c), g).numpy(),
+                                  np.asarray(rref.onehot_encode(jnp.asarray(c), g)))
+
+
+def test_segment_reduce_plain_nan_and_empty_segments():
+    v = np.array([1.0, np.nan, 3.0, -2.0, 5.0], np.float32)
+    c = np.array([0, 0, 1, 1, -1], np.int32)
+    g = 4
+    mn = tref.segment_reduce(_t(v), _t(c), g, "min").numpy()
+    mx = tref.segment_reduce(_t(v), _t(c), g, "max").numpy()
+    assert np.isnan(mn[0]) and np.isnan(mx[0])          # NaN propagates
+    assert mn[1] == -2.0 and mx[1] == 3.0
+    assert np.all(mn[2:] == np.inf) and np.all(mx[2:] == -np.inf)
+    np.testing.assert_array_equal(tref.segment_reduce(_t(v), _t(c), g, "count").numpy(),
+                                  [2, 2, 0, 0])
+    ref_min = np.asarray(rref.segment_reduce(jnp.asarray(v), jnp.asarray(c), g, "min"))
+    assert np.isnan(ref_min[0]) and ref_min[1] == -2.0
+
+
+# ---- plain versions vs the Pallas kernels (interpret mode) ------------------
+@pytest.mark.parametrize("shape", [(100, 37), (9, 300)])
+def test_transpose_plain_matches_pallas(rng, shape):
+    x = rng.standard_normal(shape).astype(np.float32)
+    np.testing.assert_array_equal(tref.transpose(_t(x)).numpy(),
+                                  np.asarray(pallas_transpose(jnp.asarray(x))))
+
+
+@pytest.mark.parametrize("m,g,cols", [(700, 6, 1), (300, 129, 3)])
+@pytest.mark.parametrize("op", ["sum", "count", "min", "max"])
+def test_segment_reduce_plain_matches_pallas(rng, m, g, cols, op):
+    v = rng.standard_normal((m, cols)).astype(np.float32)
+    c = rng.integers(-1, g, m).astype(np.int32)
+    out = tref.segment_reduce(_t(v), _t(c), g, op).numpy()
+    exp = np.asarray(pallas_segred(jnp.asarray(v), jnp.asarray(c), g, op))
+    if op in ("min", "max"):
+        keep = _nonempty(c, g)
+        out, exp = out[keep], exp[keep]
+    np.testing.assert_allclose(out, exp, **TOL)
+
+
+@pytest.mark.parametrize("m,g", [(50, 3), (600, 130)])
+def test_onehot_plain_matches_pallas(rng, m, g):
+    c = rng.integers(-1, g + 2, m).astype(np.int32)   # includes codes ≥ G
+    np.testing.assert_array_equal(tref.onehot_encode(_t(c), g).numpy(),
+                                  np.asarray(pallas_onehot(jnp.asarray(c), g)))
+
+
+# ---- segment_reduce_multi -----------------------------------------------------
+@pytest.mark.parametrize("presence", [False, True])
+def test_segment_reduce_multi_matches_reference(rng, presence):
+    m, g = 900, 7
+    a = rng.standard_normal(m).astype(np.float32)
+    b = rng.integers(-50, 50, m).astype(np.int32)
+    va = rng.random(m) > 0.1
+    codes = rng.integers(-1, g, m).astype(np.int32)
+    vals = [a, a, a, b, a, b, b]
+    valids = [va, va, va, None, va, None, None]
+    bases = ["count", "sum", "sumsq", "sum", "min", "max", "count"]
+    got = tops.segment_reduce_multi([_t(x) for x in vals],
+                                    [None if x is None else _t(x) for x in valids],
+                                    _t(codes), bases=bases, num_segments=g,
+                                    presence=presence)
+    exp = rops.segment_reduce_multi([jnp.asarray(x) for x in vals],
+                                    [None if x is None else jnp.asarray(x) for x in valids],
+                                    jnp.asarray(codes), bases=bases, num_segments=g,
+                                    presence=presence)
+    assert len(got) == len(exp) == len(bases) + presence
+    keep = _nonempty(codes, g)
+    for base, x, y in zip(bases + ["presence"], got, exp):
+        x, y = x.numpy(), np.asarray(y)
+        if base in ("min", "max"):
+            x, y = x[keep], y[keep]
+        if base in ("count", "presence"):
+            np.testing.assert_array_equal(x, y)
+        else:
+            np.testing.assert_allclose(x, y, **TOL)
+
+
+# ---- dispatch -----------------------------------------------------------------
+def test_cpu_tensors_take_the_plain_path(rng):
+    for mod in (sr_mod, bt_mod, oh_mod):
+        mod.counter.reset()
+    x = _t(rng.standard_normal((33, 5)).astype(np.float32))
+    c = _t(rng.integers(0, 4, 33).astype(np.int32))
+    torch.testing.assert_close(tops.transpose(x), x.t().contiguous(), rtol=0, atol=0)
+    tops.segment_reduce(x, c, 4, "sum")
+    tops.onehot_encode(c, 4)
+    tops.transpose(x > 0)          # bool widens to int32 and narrows back
+    assert tops.transpose(x > 0).dtype == torch.bool
+    for mod in (sr_mod, bt_mod, oh_mod):
+        assert mod.counter.launches == 0
+
+
+def test_mixed_devices_raise():
+    x = torch.zeros(4, dtype=torch.float32)
+    c = torch.zeros(4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="all be on the CPU or all on one CUDA"):
+        sr_mod.segment_reduce(x, c, 2)
+
+
+# ---- the wrapper's launch plans -----------------------------------------------
+@pytest.mark.parametrize("g", [1, 6, 4096, 65535, 65536])
+@pytest.mark.parametrize("cols", [1, 8, 1536, 2000])
+def test_segment_reduce_slabs_fit_one_launch_each(g, cols):
+    """Wide values are split into column slabs; every slab's launch keeps its
+    warp tables in 48 KB of shared memory and its g-tiles within grid.y."""
+    m = 1_000_000
+    width = sr_mod.slab_width(g)
+    slabs = [(lo, min(width, cols - lo)) for lo in range(0, cols, width)]
+    assert sum(w for _, w in slabs) == cols
+    for _, w in slabs:
+        chunks, rows, tile_g = sr_mod.plan(m, w, g)
+        assert 1 <= tile_g <= g and 8 * tile_g * w * 4 <= 48 * 1024
+        assert -(-g // tile_g) <= 65535 and chunks * rows >= m
+
+
+# ---- CUDA kernels vs plain versions (need a card) ----------------------------
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the sm_90a kernels run only on the card "
+                    "(python3 chip_smoke.py runs them there)")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("m,g,cols", [(1000, 6, 8), (4097, 1, 1), (3001, 65536, 1),
+                                     (501, 6, 2000), (300, 65536, 1600)])
+@pytest.mark.parametrize("op", ["sum", "count", "min", "max"])
+def test_cuda_segment_reduce_matches_plain(rng, cuda, m, g, cols, op):
+    v = _t(rng.standard_normal((m, cols)).astype(np.float32)).to(cuda)
+    c = _t(rng.integers(-1, g, m).astype(np.int32)).to(cuda)
+    out = sr_mod.segment_reduce(v, c, g, op)
+    torch.testing.assert_close(out, sr_mod.segment_reduce(v, c, g, op), rtol=0, atol=0)
+    exp = sr_mod.segment_reduce_plain(v, c, g, op)
+    tol = dict(rtol=0, atol=0) if op != "sum" else TOL
+    torch.testing.assert_close(out, exp, equal_nan=True, **tol)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (1, 77), (77, 1), (257, 129), (33, 4097)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_cuda_transpose_matches_plain(cuda, shape, dtype):
+    x = (torch.randn(shape, device=cuda) * 100).to(dtype)
+    assert torch.equal(bt_mod.block_transpose(x), bt_mod.block_transpose_plain(x))
+
+
+@pytest.mark.parametrize("m,g", [(1, 1), (1000, 3), (513, 1000)])
+def test_cuda_onehot_matches_plain(rng, cuda, m, g):
+    c = _t(rng.integers(-1, g + 3, m).astype(np.int32)).to(cuda)
+    assert torch.equal(oh_mod.onehot_encode(c, g), oh_mod.onehot_encode_plain(c, g))
