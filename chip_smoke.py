@@ -10,8 +10,11 @@ Phases (any failure raises and the script exits non-zero):
                  main path's shapes (segment_reduce sums both against a
                  float64 sum), an all-column aggregate of a 3,000-column
                  frame on the card vs the CPU; times kernel, plain version
-                 and one library call with CUDA events
-  (4 and 5 time each step unprofiled, then run the steps once more under
+                 and one library call with CUDA events, and each kernel's
+                 device time under the profiler; window_scan at edge
+                 shapes, strided columns and one of more than 2^31 elements,
+                 every case run twice and bit-identical
+  (4, 5 and 6 time each step unprofiled, then run the steps once more under
   the CUDA profiler for the device's busy time within each)
   4. fig6      — the Fig. 6 mix at 16,000,000 rows of taxi_like_frame in an
                  EAGER session: fillna, groupby(n).count(), count(), a
@@ -19,6 +22,14 @@ Phases (any failure raises and the script exits non-zero):
                  1,600,000 x 64 matrix frame, each checked against numpy
   5. figure1   — the paper's Figure-1 workflow in OPPORTUNISTIC mode on CUDA,
                  compared with the same workflow on the CPU
+  6. ordered   — the ordered path on phase 4's 16,000,000-row frame: EAGER
+                 sort_values (shuffled, and bit-identical to the serial
+                 REPRO_SHUFFLE=0 path), cumsum over every numeric column,
+                 cummax / cummin, diff / shift, rolling_mean, the §6.1
+                 filter -> cumsum -> head(5) workflow in OPPORTUNISTIC mode,
+                 and a merge with a 6-row table (shuffled == serial), each
+                 checked against numpy; the results of the profiled rerun
+                 must equal the timed run's bit for bit
 
 Run from the root of a checkout:  python3 chip_smoke.py
 The last two lines of standard output are the kernels' JSON record and
@@ -62,6 +73,26 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, names: tuple, iters: int = 20) -> float:
+    """Device time of one call: the summed durations, under the CUDA
+    profiler, of the kernels whose names contain one of ``names``, per
+    call.  ``cuda_ms`` also counts the gaps in which the card waits for the
+    host to launch the next call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    # CPU activity too: with CUDA activity alone one kernel's records came
+    # back short of its bytes bound
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if any(n in e.key for n in names)) / iters / 1e3
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -162,6 +193,114 @@ def check_onehot(torch, oh, dev) -> None:
     log(f"  onehot_encode: {len(shapes)} shapes bit-exact (codes -1 and >= G give zero rows)")
 
 
+def scan_sum_ratio(torch, got, x) -> float:
+    """Largest |got - exact| / (SUM_RTOL * sum_{j<=i} |x_j|) over the rows of
+    a column-wise cumsum, the exact prefix sum taken in float64.  Raises
+    unless NaN and +-inf stand exactly where the exact prefix has them."""
+    x64 = x.double()
+    exact = torch.cumsum(x64, 0)
+    got = got.double()
+    inf = torch.isinf(exact)
+    if not (torch.equal(torch.isnan(got), torch.isnan(exact))
+            and torch.equal(torch.isinf(got), inf) and torch.equal(got[inf], exact[inf])):
+        raise AssertionError("window_scan cumsum: NaN or inf where the exact sum has none, or not")
+    fin = torch.isfinite(exact)
+    absacc = torch.cumsum(torch.where(torch.isfinite(x64), x64.abs(), 0.0), 0)
+    err = torch.where(fin, (got - exact).abs(), 0.0)
+    return float((err / (SUM_RTOL * absacc + 1e-30)).max()) if err.numel() else 0.0
+
+
+def scan_inputs(torch, m: int, n: int, gen, special: bool):
+    x = torch.randn((m, n), generator=gen, device=gen.device)
+    x.view(-1)[5::23] = -0.0
+    if special:
+        x.view(-1)[3::37] = float("nan")
+        x.view(-1)[7::53] = float("inf")
+        x.view(-1)[9::71] = -float("inf")
+    return x
+
+
+def pow2_factors(torch, v, gen):
+    """cumprod inputs whose products are exact in float32 in any order:
+    +-1 with a rare 2 or 1/2 (the exponent walks, never out of range), and
+    v's NaN, +-inf and +-0.0 kept where they stand."""
+    u = torch.rand(v.shape, generator=gen, device=v.device)
+    mag = torch.where(u < 1e-4, 2.0, torch.where(u > 1 - 1e-4, 0.5, 1.0))
+    special = ~torch.isfinite(v) | (v == 0)
+    return torch.where(special, v, torch.sign(v) * mag)
+
+
+def check_window_scan(torch, ws, dev) -> None:
+    """Edge shapes (ragged chunks, one row, 130 columns), strided column
+    views of a row-major (M, 8) matrix, NaN / +-inf / -0.0 in the data, and
+    one shape of more than 2^31 elements.  max / min bit-equal the plain
+    version; cumsum of kernel and plain within SUM_RTOL * sum|v| of a
+    float64 prefix sum at every row; cumprod of power-of-two factors (exact
+    in any order) equal; every case run twice and bit-identical."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    ms = (1, 2, 31, 32, 33, 1023, 1024, 1025, 65_537, 2_000_000)
+    worst, cases = 0.0, 0
+    for m in ms:
+        for n in (1, 3, 130):
+            for special in (False, True):
+                x = scan_inputs(torch, m, n, gen, special)
+                views = [("contiguous", x)]
+                if n == 3:
+                    wide = scan_inputs(torch, m, 8, gen, special)
+                    views += [("column of (M, 8)", wide[:, 5]), ("3 columns of (M, 8)", wide[:, 2:5])]
+                for what, v in views:
+                    for op in ("cumsum", "cummax", "cummin", "cumprod"):
+                        inp = pow2_factors(torch, v, gen) if op == "cumprod" else v
+                        got = ws.window_scan(inp, op)
+                        again = ws.window_scan(inp, op)
+                        tag = f"window_scan {op} {what} {tuple(v.shape)} special={special}"
+                        if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+                            raise AssertionError(f"{tag}: runs differ")
+                        want = ws.window_scan_plain(inp, op)
+                        if op == "cumsum":
+                            for res in (got, want):
+                                r = scan_sum_ratio(torch, res, inp)
+                                if r > 1.0:
+                                    raise AssertionError(f"{tag}: {r:.3g}x the tolerance off the exact sum")
+                                worst = max(worst, r)
+                        elif op == "cumprod":
+                            # exact products; NaN bits may differ between the
+                            # float32 kernel and the float64 plain version
+                            torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True,
+                                                       msg=lambda e: f"{tag}: {e}")
+                        elif not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                            raise AssertionError(f"{tag}: bits differ from the plain version")
+                        cases += 1
+                del x, views
+    # more than 2^31 elements: 64-bit offsets (cummax: the plain version's
+    # int64 indices make it the cheapest to hold against)
+    big = torch.randn((16_777_259, 130), device=dev)
+    assert big.numel() > 2 ** 31
+    if not torch.equal(ws.window_scan(big, "cummax"), ws.window_scan_plain(big, "cummax")):
+        raise AssertionError("window_scan cummax (16777259, 130): differs from the plain version")
+    del big
+    torch.cuda.empty_cache()
+    log(f"  window_scan: {cases} cases x reruns bit-identical; max/min bit-equal, exact "
+        f"cumprod equal, cumsum of kernel and plain within {SUM_RTOL}*sum|v| of a float64 "
+        f"prefix (worst {worst:.3g} of it); (16777259, 130) cummax bit-equal")
+    # cumprod of general values: any float32 product order loses up to i
+    # roundings by row i; hold the kernel to that bound and show torch's
+    y = 1.0 + 1e-3 * torch.randn(2_000_000, generator=gen, device=dev)
+    exact = torch.cumprod(y.double(), 0)
+    bound = torch.arange(1, y.numel() + 1, device=dev, dtype=torch.float64) * 2.0 ** -24
+    rel = [((r.double() - exact).abs() / exact.abs()) for r in
+           (ws.window_scan(y, "cumprod"), torch.cumprod(y, 0))]
+    assert bool((rel[0] <= bound).all()), "window_scan cumprod: off the float64 product"
+    log(f"  cumprod of 1 + 1e-3*N(0,1) at (2000000,), largest relative error against a "
+        f"float64 product: kernel {float(rel[0].max()):.3g}, float32 torch.cumprod "
+        f"{float(rel[1].max()):.3g} (bound (i+1)*2^-24)")
+    z = torch.rand(2_000_000, device=dev) * 0.02 + 0.99
+    for name, fn in (("cumsum", torch.cumsum), ("cumprod", torch.cumprod)):
+        first = fn(z, 0)
+        same = all(torch.equal(first, fn(z, 0)) for _ in range(10))
+        log(f"  torch.{name} on the card, 10 reruns at (2000000,): bit-identical {same}")
+
+
 def check_wide_aggregate(torch, dev) -> None:
     """An all-column aggregate of a frame wider than one segment_reduce
     launch takes (the wide output of .T): on the card and on the CPU."""
@@ -180,7 +319,7 @@ def check_wide_aggregate(torch, dev) -> None:
     log("  wide aggregate: .T.count() / .sum() / .max() over 3,000 columns match the CPU")
 
 
-def time_kernels(torch, sr, bt, oh, dev, pool: int) -> dict:
+def time_kernels(torch, sr, bt, oh, ws, dev, pool: int) -> dict:
     """Kernel, plain and library times at the main path's shapes; each
     kernel's error against its plain version is asserted, not only shown."""
     import torch.nn.functional as F
@@ -207,6 +346,7 @@ def time_kernels(torch, sr, bt, oh, dev, pool: int) -> dict:
         replaces="src/repro/kernels/segment_reduce.py:75", shape=[m, c, g],
         max_abs_err=err,
         ms=cuda_ms(lambda: sr.segment_reduce(v, codes, g, "sum")),
+        device_ms=device_ms(lambda: sr.segment_reduce(v, codes, g, "sum"), ("seg_pass",)),
         plain_ms=cuda_ms(lambda: sr.segment_reduce_plain(v, codes, g, "sum")),
         library_ms=cuda_ms(lambda: torch.zeros((g, c), device=dev).index_add_(0, codes64, v)),
         bound_ms=b, bound_by=by)
@@ -220,6 +360,7 @@ def time_kernels(torch, sr, bt, oh, dev, pool: int) -> dict:
         replaces="src/repro/kernels/block_transpose.py:31", shape=list(x.shape),
         max_abs_err=err,
         ms=cuda_ms(lambda: bt.block_transpose(x)),
+        device_ms=device_ms(lambda: bt.block_transpose(x), ("transpose32",)),
         plain_ms=cuda_ms(lambda: bt.block_transpose_plain(x)),
         library_ms=cuda_ms(lambda: x.t().contiguous()),
         bound_ms=b, bound_by=by)
@@ -234,8 +375,27 @@ def time_kernels(torch, sr, bt, oh, dev, pool: int) -> dict:
         replaces="src/repro/kernels/onehot_encode.py:29", shape=[4, 4],
         max_abs_err=err,
         ms=cuda_ms(lambda: oh.onehot_encode(codes, 4)),
+        device_ms=device_ms(lambda: oh.onehot_encode(codes, 4), ("onehot",)),
         plain_ms=cuda_ms(lambda: oh.onehot_encode_plain(codes, 4)),
         library_ms=cuda_ms(lambda: F.one_hot(codes64, 4)),
+        bound_ms=b, bound_by=by)
+    # WINDOW: one column of one block of the 16M-row frame
+    m = -(-TAXI_ROWS // pool)
+    x = torch.randn(m, device=dev)
+    k, plain, lib = ws.window_scan(x), ws.window_scan_plain(x), torch.cumsum(x, 0)
+    ratios = [scan_sum_ratio(torch, r, x) for r in (k, plain, lib)]
+    assert ratios[0] <= 1.0 and ratios[1] <= 1.0, ratios
+    log(f"  window_scan [{m}] cumsum against a float64 prefix sum: kernel {ratios[0]:.3g} of "
+        f"the tolerance, plain {ratios[1]:.3g}, float32 torch.cumsum {ratios[2]:.3g}")
+    b, by = bound_ms(2 * m * 4, m)
+    out["window_scan"] = dict(
+        name="window_scan", route="cuda", source="src/repro_torch/csrc/window_scan.cu",
+        replaces="src/repro/kernels/window_scan.py:58", shape=[m],
+        max_abs_err=float((k - plain).abs().max()),
+        ms=cuda_ms(lambda: ws.window_scan(x)),
+        device_ms=device_ms(lambda: ws.window_scan(x), ("scan_totals", "scan_carries", "scan_apply")),
+        plain_ms=cuda_ms(lambda: ws.window_scan_plain(x)),
+        library_ms=cuda_ms(lambda: torch.cumsum(x, 0)),
         bound_ms=b, bound_by=by)
     return out
 
@@ -303,18 +463,26 @@ def fig6_steps(run, dev, frame, mat) -> dict:
     return out
 
 
-def check_fig6(torch, np, dev, out: dict) -> None:
-    """Every Fig. 6 result against numpy from the same seed."""
-    from repro_torch.core import Domain
-    from repro_torch.core.frame import host
+def taxi_numpy(np):
+    """taxi_like_frame(TAXI_ROWS, seed=0) in numpy: passenger_count, the six
+    float columns and their null masks (taxi_like_frame's calls, in order)."""
     n = TAXI_ROWS
-    rng = np.random.default_rng(0)        # taxi_like_frame's calls, in order
+    rng = np.random.default_rng(0)
     pc = rng.integers(1, 7, n)
     rng.choice(3, n)
     cols, nulls = [], []
     for _ in range(6):
         cols.append(rng.standard_normal(n).astype(np.float32))
         nulls.append(rng.random(n) < 0.01)
+    return pc, cols, nulls
+
+
+def check_fig6(torch, np, dev, out: dict) -> None:
+    """Every Fig. 6 result against numpy from the same seed."""
+    from repro_torch.core import Domain
+    from repro_torch.core.frame import host
+    n = TAXI_ROWS
+    pc, cols, nulls = taxi_numpy(np)
 
     filled = out["filled"]
     assert filled.shape == (n, 8), filled.shape
@@ -400,6 +568,221 @@ def compare_figure1(np, gpu: dict, cpu: dict) -> None:
 
 
 # -----------------------------------------------------------------------------
+# phase 6: the ordered path at full size
+# -----------------------------------------------------------------------------
+RATES = [2.5, 3.0, 3.5, 4.0, 4.5, 5.0]   # one per passenger_count 1..6
+THINK_S = 0.35                           # bench_opportunistic.py's think time
+ROLL = 10
+
+
+def workflow(dev, frame) -> dict:
+    """The §6.1 think-time workflow of bench_opportunistic.py: a filter, a
+    cumsum, think time, then head(5), in an OPPORTUNISTIC session."""
+    from repro_torch.core import DataFrame, EvalMode, Session
+    s = Session(mode=EvalMode.OPPORTUNISTIC, device=dev)
+    try:
+        df = DataFrame(frame, session=s)
+        t0 = time.perf_counter()
+        q = df[df["passenger_count"] > 1]
+        q2 = q.cumsum(cols=["f0"])
+        stmt_s = time.perf_counter() - t0
+        time.sleep(THINK_S)
+        t1 = time.perf_counter()
+        head = q2.head(5)
+        inspect_s = time.perf_counter() - t1
+        prefix = s.executor.stats.prefix_evals
+        for d in (q, q2):            # let the background runs finish here
+            d._node.handle.result()
+        return {"head": head, "stmt_s": stmt_s, "inspect_s": inspect_s,
+                "prefix_evals": prefix}
+    finally:
+        s.close()
+
+
+ORDERED_CACHE = 16 << 30   # holds every result of the steps (~0.6 GB each)
+
+
+def ordered_steps(run, dev, frame) -> dict:
+    """The ordered path in a fresh EAGER session (statements evaluate as
+    they are made), then the §6.1 workflow; ``run(label, thunk)`` runs each
+    step (timed, or under the profiler).  The session's materialization
+    cache is 16 GiB, not the default 1 GiB: the default holds one 0.6 GB
+    result, so each step on the sorted frame would evict it and sort again
+    (PERF.md, Findings)."""
+    from repro_torch.core import DataFrame, EvalMode, Session
+    s = Session(mode=EvalMode.EAGER, device=dev, cache_budget_bytes=ORDERED_CACHE)
+    df = DataFrame(frame, session=s)
+    rates = DataFrame({"passenger_count": [1, 2, 3, 4, 5, 6], "rate": RATES}, session=s)
+    srt = run("sort_values(f0)", lambda: df.sort_values("f0"))
+    out = {"sorted": srt.collect(),
+           "cumsum": run("cumsum() of 7 numeric columns", lambda: srt.cumsum().collect()),
+           "cummax": run("cummax(f1)", lambda: srt.cummax(cols=["f1"]).collect()),
+           "cummin": run("cummin(f1)", lambda: srt.cummin(cols=["f1"]).collect()),
+           "diff": run("diff(1, f2)", lambda: df.diff(1, cols=["f2"]).collect()),
+           "shift": run("shift(3, f2)", lambda: df.shift(3, cols=["f2"]).collect()),
+           "rolling": run(f"rolling_mean({ROLL}, f3)",
+                          lambda: srt.rolling_mean(ROLL, cols=["f3"]).collect()),
+           "merge": run("merge(rates, on=passenger_count)",
+                        lambda: df.merge(rates, on="passenger_count").collect())}
+    log(f"  EAGER session: {s.executor.stats.evaluated_nodes} plan nodes evaluated, "
+        f"{s.executor.stats.cache_hits} cache hits")
+    s.close()
+    out["workflow"] = run("§6.1 workflow, OPPORTUNISTIC", lambda: workflow(dev, frame))
+    return out
+
+
+def serial_steps(dev, frame) -> dict:
+    """SORT and JOIN on the serial whole-frame path (REPRO_SHUFFLE=0), the
+    oracle the shuffled results must equal bit for bit."""
+    import os
+    from repro_torch.core import DataFrame, EvalMode, Session
+    os.environ["REPRO_SHUFFLE"] = "0"
+    try:
+        s = Session(mode=EvalMode.EAGER, device=dev)
+        df = DataFrame(frame, session=s)
+        rates = DataFrame({"passenger_count": [1, 2, 3, 4, 5, 6], "rate": RATES}, session=s)
+        out = {"sorted": timed("serial sort_values(f0) + collect",
+                               lambda: df.sort_values("f0").collect()),
+               "merge": timed("serial merge + collect",
+                              lambda: df.merge(rates, on="passenger_count").collect())}
+        s.close()
+        return out
+    finally:
+        del os.environ["REPRO_SHUFFLE"]
+
+
+def label_array(np, labels):
+    from repro_torch.core.labels import RangeLabels
+    if isinstance(labels, RangeLabels):
+        return np.arange(labels.start, labels.start + labels.length)
+    return np.asarray(labels.values)
+
+
+def same_frame(torch, np, a, b) -> bool:
+    """Labels, schema, masks and every stored bit equal."""
+    if (a.col_labels.to_list() != b.col_labels.to_list() or a.schema != b.schema
+            or not np.array_equal(label_array(np, a.row_labels), label_array(np, b.row_labels))):
+        return False
+    for x, y in zip(a.columns, b.columns):
+        if x.data.dtype != y.data.dtype or (x.mask is None) != (y.mask is None):
+            return False
+        if x.data.element_size() == 4:
+            same = torch.equal(x.data.view(torch.int32), y.data.view(torch.int32))
+        else:
+            same = torch.equal(x.data, y.data)
+        if not same or (x.mask is not None and not torch.equal(x.mask, y.mask)):
+            return False
+    return True
+
+
+def check_ordered(torch, np, dev, out: dict, serial: dict) -> None:
+    """Every ordered result against numpy from the same seed, and SORT and
+    JOIN bit-identical to the serial path."""
+    from repro_torch.core import Domain
+    from repro_torch.core.frame import host
+    n = TAXI_ROWS
+    pc, cols, nulls = taxi_numpy(np)
+    filled = [np.where(nl, 0.0, c).astype(np.float32) for c, nl in zip(cols, nulls)]
+    dt = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    # 1. sort: numpy's stable argsort of f0 with nulls last
+    srt = out["sorted"]
+    perm = np.argsort(np.where(nulls[0], np.inf, cols[0].astype(np.float64)), kind="stable")
+    assert np.array_equal(label_array(np, srt.row_labels), perm), "sort: row order"
+    assert torch.equal(srt.col("passenger_count").data, dt(pc[perm].astype(np.int32)))
+    for j in range(6):
+        c = srt.col(f"f{j}")
+        assert torch.equal(c.data, dt(filled[j][perm])) and torch.equal(c.mask, dt(~nulls[j][perm]))
+    assert same_frame(torch, np, srt, serial["sorted"]), "sort: shuffled != serial"
+
+    # 2. cumsum of every numeric column, against float64 prefix sums
+    cs = out["cumsum"]
+    worst = 0.0
+    for name, v, valid in [("passenger_count", pc[perm], None)] + [
+            (f"f{j}", filled[j][perm], ~nulls[j][perm]) for j in range(6)]:
+        c = cs.col(name)
+        assert c.domain is Domain.FLOAT
+        ratio = scan_sum_ratio(torch, c.data, dt(v))
+        assert ratio <= 1.0, (name, ratio)
+        worst = max(worst, ratio)
+        assert (c.mask is None) if valid is None else torch.equal(c.mask, dt(valid)), name
+    assert cs.col("payment_type").domain is Domain.STR
+    log(f"  cumsum: 7 columns within {SUM_RTOL}*sum|v| of float64 prefix sums "
+        f"(worst {worst:.3g} of it); masks unchanged")
+
+    # 3. cummax / cummin: bit-equal to numpy's accumulate in float32
+    v, valid = filled[1][perm], ~nulls[1][perm]
+    for key, ufunc, ident in (("cummax", np.maximum, -np.inf), ("cummin", np.minimum, np.inf)):
+        want = ufunc.accumulate(np.where(valid, v, np.float32(ident)).astype(np.float32))
+        c = out[key].col("f1")
+        assert np.array_equal(host(c.data).view(np.int32), want.view(np.int32)), key
+        assert torch.equal(c.mask, dt(valid)), key
+
+    # 4. diff / shift on the unsorted frame, across the block seams
+    v, valid = filled[2], ~nulls[2]
+    rows = np.arange(n)
+    prev, pvalid = np.roll(v, 1), np.roll(valid, 1)
+    want_mask = valid & pvalid & (rows >= 1)
+    c = out["diff"].col("f2")
+    assert np.array_equal(host(c.mask), want_mask), "diff mask"
+    assert np.array_equal(host(c.data)[want_mask].view(np.int32),
+                          (v - prev)[want_mask].view(np.int32)), "diff values"
+    want_mask = np.roll(valid, 3) & (rows >= 3)
+    c = out["shift"].col("f2")
+    assert np.array_equal(host(c.mask), want_mask), "shift mask"
+    assert np.array_equal(host(c.data)[want_mask].view(np.int32),
+                          np.roll(v, 3)[want_mask].view(np.int32)), "shift values"
+
+    # 5. rolling_mean: cumsum - shift(cumsum, w), a null row i-w taking
+    #    nothing off (the engine's rule); the bound is twice the cumsum's / w
+    v64 = dt(filled[3][perm]).double()
+    valid = dt(~nulls[3][perm])
+    csum, absacc = torch.cumsum(v64, 0), torch.cumsum(v64.abs(), 0)
+    idx = torch.arange(n, device=dev)
+    base = torch.zeros_like(csum)
+    base[ROLL:] = torch.where(valid[:-ROLL], csum[:-ROLL], 0.0)
+    want = (csum - base) / ROLL
+    c = out["rolling"].col("f3")
+    want_mask = valid & (idx >= ROLL - 1)
+    assert torch.equal(c.mask, want_mask), "rolling mask"
+    err = torch.where(want_mask, (c.data.double() - want).abs(), 0.0)
+    ratio = float((err / (2 * SUM_RTOL / ROLL * absacc + 1e-30)).max())
+    log(f"  rolling_mean({ROLL}): largest |error| {float(err.max()):.6g} against a float64 "
+        f"rolling mean, {ratio:.3g} of the bound 2e-6*sum|v|")
+    assert ratio <= 1.0, ratio
+
+    # 6. the §6.1 workflow's head(5)
+    wf = out["workflow"]
+    keep = np.flatnonzero(pc > 1)
+    head = wf["head"]
+    assert np.array_equal(label_array(np, head.row_labels), keep[:5]), "workflow head labels"
+    f0 = filled[0][keep].astype(np.float64)
+    exact = np.cumsum(f0)[:5]
+    got = np.asarray(head.col("f0").data.double().cpu())
+    assert np.all(np.abs(got - exact) <= SUM_RTOL * np.cumsum(np.abs(f0))[:5] + 1e-30), (got, exact)
+    log(f"  §6.1 workflow: statements {wf['stmt_s'] * 1e3:.3f} ms, head(5) after "
+        f"{THINK_S} s think time {wf['inspect_s'] * 1e3:.3f} ms, prefix_evals {wf['prefix_evals']}")
+
+    # 7. merge: each left row meets exactly one rate, in left order
+    mg = out["merge"]
+    assert mg.shape == (n, 9), mg.shape
+    assert np.array_equal(label_array(np, mg.row_labels), np.arange(n))
+    assert torch.equal(mg.col("passenger_count").data, dt(pc.astype(np.int32)))
+    assert torch.equal(mg.col("rate").data, dt(np.asarray(RATES, np.float32)[pc - 1]))
+    assert torch.equal(mg.col("f0").data, dt(filled[0])) and torch.equal(mg.col("f0").mask, dt(~nulls[0]))
+    assert same_frame(torch, np, mg, serial["merge"]), "merge: shuffled != serial"
+
+
+def same_results(torch, np, a: dict, b: dict) -> None:
+    """The profiled rerun's results equal the timed run's, bit for bit."""
+    for k in a:
+        if k == "workflow":
+            assert same_frame(torch, np, a[k]["head"], b[k]["head"]), k
+        else:
+            assert same_frame(torch, np, a[k], b[k]), f"{k}: rerun differs"
+
+
+# -----------------------------------------------------------------------------
 def main() -> int:
     t_start = time.perf_counter()
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -418,6 +801,7 @@ def main() -> int:
     from repro_torch.kernels import block_transpose as bt
     from repro_torch.kernels import onehot_encode as oh
     from repro_torch.kernels import segment_reduce as sr
+    from repro_torch.kernels import window_scan as ws
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
@@ -437,17 +821,19 @@ def main() -> int:
     check_segment_reduce(torch, sr, dev, pool)
     check_transpose(torch, bt, dev, pool)
     check_onehot(torch, oh, dev)
+    check_window_scan(torch, ws, dev)
     check_wide_aggregate(torch, dev)
-    timings = time_kernels(torch, sr, bt, oh, dev, pool)
+    timings = time_kernels(torch, sr, bt, oh, ws, dev, pool)
     for rec in timings.values():
-        log(f"  {rec['name']} {rec['shape']}: kernel {rec['ms']:.4f} ms, plain "
+        log(f"  {rec['name']} {rec['shape']}: kernel {rec['ms']:.4f} ms (on the device "
+            f"{rec['device_ms']:.4f} ms), plain "
             f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms, bound "
             f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), max |err| {rec['max_abs_err']:.3g}")
     torch.cuda.empty_cache()
     log(f"[kernels] {time.perf_counter() - t0:.1f} s")
 
     counters = {"segment_reduce": sr.counter, "block_transpose": bt.counter,
-                "onehot_encode": oh.counter}
+                "onehot_encode": oh.counter, "window_scan": ws.counter}
     launches = dict.fromkeys(counters, 0)
 
     t0 = time.perf_counter()
@@ -465,7 +851,7 @@ def main() -> int:
     del out
     log("[fig6] results match numpy; the same steps again under the CUDA profiler:")
     fig6_steps(profiled, dev, frame, mat)
-    del frame, mat
+    del mat
     log(f"[fig6] {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -481,8 +867,25 @@ def main() -> int:
     profiled("Figure-1 workflow on cuda", lambda: figure1(dev))
     log(f"[figure1] launches {fig1}; matches the CPU run; {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    log(f"[ordered] the ordered path on {dev}, {TAXI_ROWS} rows")
+    for c in counters.values():
+        c.reset()
+    out = ordered_steps(timed, dev, frame)
+    ordered = {k: c.launches for k, c in counters.items()}
+    for k in counters:
+        launches[k] += ordered[k]
+    log(f"[ordered] launches {ordered}")
+    assert ordered["window_scan"] > 0, "the ordered path never launched window_scan"
+    check_ordered(torch, np, dev, out, serial_steps(dev, frame))
+    log("[ordered] results match numpy and the serial path; the same steps again under "
+        "the CUDA profiler:")
+    same_results(torch, np, out, ordered_steps(profiled, dev, frame))
+    del out, frame
+    log(f"[ordered] the profiled rerun is bit-identical; {time.perf_counter() - t0:.1f} s")
+
     record = []
-    for k in ("segment_reduce", "block_transpose", "onehot_encode"):
+    for k in ("segment_reduce", "block_transpose", "onehot_encode", "window_scan"):
         rec = dict(timings[k])
         rec["launches"] = launches[k]
         record.append(rec)

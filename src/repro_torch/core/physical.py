@@ -6,18 +6,27 @@ Each logical operator picks a partitioning scheme per the paper's §4.2 table:
   GROUPBY(n)                    → row-parallel partial aggregation (the
                                   ``segment_reduce`` kernel) + small combine
   GROUPBY(1)                    → same with G = 1 (pure reduction)
+  WINDOW                        → blocked scan (the ``window_scan`` kernel)
+                                  with a cross-block carry composed on the
+                                  device; diff/shift through a row halo
   TRANSPOSE                     → per-block kernel transpose + grid swap
-  JOIN                          → the serial whole-frame path
+  SORT / JOIN                   → shuffle-native (``core/shuffle.py``): range
+                                  or hash buckets exchanged through the pool,
+                                  local per-bucket sorts / joins, chunked
+                                  payload gather on the device.
+                                  ``REPRO_SHUFFLE=0`` keeps the serial
+                                  whole-frame path below as the oracle.
 
 Column data stays on the frames' device.  What still goes through the host:
 the general key factorization (``_row_keys`` / ``_keys_to_ids``: string and
-multi-column group keys, join keys), the serial join's match indices, the
-coded (string) transpose, and the row filters' index (a keep mask is
-brought to the host once to index the row labels).
+multi-column group keys), SORT's and JOIN's keys (each block's key columns
+come to the host once, in its exchange task), their bucketing, local sorts
+and match indices (only index arrays go back to the device, one copy per
+gathered block), the coded (string) transpose, and the row filters' index (a
+keep mask is brought to the host once to index the row labels).
 
 Left out of this slice, each raising ``NotImplementedError`` that names its
-ROADMAP item: WINDOW (M4), the fused operators (M5), DIFFERENCE and
-DROP-DUPLICATES (M6), SORT and the shuffled JOIN (M7).
+ROADMAP item: the fused operators (M5), DIFFERENCE and DROP-DUPLICATES (M6).
 """
 from __future__ import annotations
 
@@ -306,6 +315,29 @@ def _row_keys(frame: Frame, subset: Sequence[Any] | None,
     return np.stack(mats, axis=1) if mats else np.zeros((frame.nrows, 0))
 
 
+def _sort_rank_keys(frame: Frame, subset: Sequence[Any]) -> list[np.ndarray]:
+    """Per-column sort keys (host): lexicographic rank for coded columns,
+    values for numerics (ordering, unlike equality, needs real value
+    order); nulls are NaN.  Each key column comes to the host once."""
+    out = []
+    for name in subset:
+        c = frame.col(name)
+        if c.domain.is_coded:
+            table = list(c.dictionary or ())
+            rank = np.empty(max(len(table), 1), dtype=np.float64)
+            for r, idx in enumerate(sorted(range(len(table)), key=lambda i: str(table[i]))):
+                rank[idx] = r
+            codes = host(c.data)
+            v = rank[np.clip(codes, 0, len(table) - 1 if table else 0)]
+            v = np.where(codes >= 0, v, np.nan)
+        else:
+            v = host(c.data).astype(np.float64)
+        if c.mask is not None:
+            v = np.where(host(c.mask), v, np.nan)
+        out.append(v)
+    return out
+
+
 def _keys_to_ids(*key_mats: np.ndarray) -> list[np.ndarray]:
     """Jointly factorize row-key matrices → dense ids (NaN-safe)."""
     all_rows = np.concatenate(key_mats, axis=0)
@@ -347,7 +379,7 @@ def _keys_to_ids(*key_mats: np.ndarray) -> list[np.ndarray]:
     return out
 
 
-# ---- JOIN (serial whole-frame path) -----------------------------------------
+# ---- JOIN -------------------------------------------------------------------
 def _match_ids(lids: np.ndarray, rids: np.ndarray, how: str):
     """Vectorized equality matching over factorized key ids: left-major,
     right order breaking ties, unmatched-left rows interleaved in place
@@ -411,9 +443,18 @@ def _join_indices(lf: Frame, rf: Frame, params: dict):
     return lidx, ridx, lvalid, rvalid, drop_right
 
 
+def _join(left: PartitionedFrame, right: PartitionedFrame, params: dict,
+          stats=None) -> PartitionedFrame:
+    from . import shuffle as _shuffle
+    if _shuffle.enabled():
+        return _shuffle.shuffled_join(left, right, params, (), stats)
+    return _join_serial(left, right, params, stats)
+
+
 def _join_serial(left: PartitionedFrame, right: PartitionedFrame, params: dict,
                  stats=None) -> PartitionedFrame:
-    """The whole-frame join: host match indices, device payload gather."""
+    """The whole-frame oracle path (``REPRO_SHUFFLE=0``): host match
+    indices, device payload gather."""
     lf, rf = left.to_frame().induce(), right.to_frame().induce()
     lidx, ridx, lvalid, rvalid, drop_right = _join_indices(lf, rf, params)
     if stats is not None:
@@ -441,6 +482,19 @@ def _mask_all(frame: Frame, valid: np.ndarray | None) -> Frame:
     cols = [Column(c.data, c.domain, c.valid_mask() & vmask, c.dictionary) for c in frame.columns]
     return Frame(cols, frame.row_labels, frame.col_labels, frame.row_domains,
                  device=frame.device)
+
+
+def _dedup_grid_blocks(pf: PartitionedFrame, pref_key: str) -> list:
+    """Full-width row-block handles coarsened to the recorded grid
+    preference (blocks ≈ workers: fewer per-block fixed costs and fewer
+    pieces to combine).  The exchange's results do not depend on the
+    blocking, so the regrid is free to happen first."""
+    pf1 = pf.repartition(col_parts=1)
+    rp = preferred_row_parts(pf1.row_parts, GRID_PREFS[pref_key],
+                             total_bytes=pf1.nbytes())
+    if rp != pf1.row_parts:
+        pf1 = pf1.repartition(row_parts=rp)
+    return pf1.row_handles()
 
 
 # ---- GROUPBY ----------------------------------------------------------------
@@ -701,6 +755,261 @@ def _host_column(values: list, domain: Domain | None, device) -> Column:
     return Column(p.data, p.domain, p.mask, p.dictionary)
 
 
+# ---- SORT ---------------------------------------------------------------
+def _sort_perm(f: Frame, by: Sequence[Any], ascending: bool) -> np.ndarray:
+    """The sort permutation: position i of the result comes from row idx[i]."""
+    key_cols = []
+    for v in _sort_rank_keys(f, by):
+        # nulls (NaN) sort last regardless of direction
+        v = np.where(np.isnan(v), np.inf if ascending else -np.inf, v)
+        key_cols.append(v)
+    if ascending:
+        return np.lexsort(tuple(reversed(key_cols)))   # stable; first key primary
+    return np.lexsort(tuple(-k for k in reversed(key_cols)))
+
+
+def _sort(pf: PartitionedFrame, by: Sequence[Any], ascending: bool,
+          stats=None) -> PartitionedFrame:
+    from . import shuffle as _shuffle
+    if _shuffle.enabled() and len(by):
+        return _shuffle.shuffled_sort(pf, by, ascending, (), stats)
+    return _sort_serial(pf, by, ascending, stats)
+
+
+def _sort_serial(pf: PartitionedFrame, by: Sequence[Any], ascending: bool,
+                 stats=None) -> PartitionedFrame:
+    """The whole-frame oracle path (``REPRO_SHUFFLE=0``; also empty ``by``,
+    which must raise exactly like ``np.lexsort(())``)."""
+    f = pf.to_frame().induce()
+    idx = _sort_perm(f, by, ascending)
+    if stats is not None:
+        stats.gather_rows += int(idx.shape[0])
+    return _output_pf(f.take_rows(idx))
+
+
+# ---- WINDOW -------------------------------------------------------------
+def _window_targets(frame: Frame, cols) -> list:
+    if cols:
+        return list(cols)
+    return [n for n, c in zip(frame.col_labels.to_list(), frame.columns)
+            if c.domain.is_numeric]
+
+
+def _window(pf: PartitionedFrame, func: str, cols, size, periods,
+            pre: Sequence[alg.Stage] = (), post: Sequence[alg.Stage] = ()) -> PartitionedFrame:
+    """WINDOW over a row grid adapted to the pool width ("few_seams": every
+    partition boundary costs a carry composition or a halo build).  The
+    running functions are a blocked scan (``kernels.ops.window_scan``) with
+    a cross-block carry; diff/shift read a halo of the rows before each
+    block; rolling(w) is cumsum − shift(cumsum, w).  ``pre``/``post`` are
+    the fused row-local stages of FUSED_WINDOW, not ported yet (ROADMAP M5):
+    they must be empty."""
+    if pre or post:
+        raise NotImplementedError(
+            "fused_window stages are not ported to repro_torch yet (ROADMAP item M5)")
+    rp = preferred_row_parts(pf.row_parts, GRID_PREFS["window"],
+                             total_bytes=pf.nbytes())
+    pf = pf.repartition(row_parts=rp, col_parts=1)
+
+    if func in ("cumsum", "cummax", "cummin", "cumprod"):
+        return _window_scan_blocks(pf, func, cols)
+
+    template = pf.parts[0][0].induce()
+    targets = _window_targets(template, cols)
+    if func in ("diff", "shift"):
+        return _window_halo(pf, func, targets, periods)
+    if func in ("rolling_sum", "rolling_mean"):
+        assert size is not None, "rolling window requires size"
+        # rolling(w) = cumsum − shift(cumsum, w); first w−1 rows are null
+        csum = _window_scan_blocks(pf, "cumsum", targets)
+        shifted = _window_halo(csum, "shift", targets, size)
+        return _rolling_combine(csum, shifted, targets, size,
+                                mean=(func == "rolling_mean"))
+    raise ValueError(func)
+
+
+def _apply_cols(frame: Frame, targets, fn: Callable[[Column], Column]) -> Frame:
+    cols = list(frame.columns)
+    names = frame.col_labels.to_list()
+    for j, n in enumerate(names):
+        if n in targets:
+            cols[j] = fn(cols[j])
+    return Frame(cols, frame.row_labels, frame.col_labels, frame.row_domains,
+                 device=frame.device)
+
+
+def _carry_combine(func: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if func == "cumsum":
+        return a + b
+    if func == "cummax":
+        return torch.maximum(a, b)
+    if func == "cummin":
+        return torch.minimum(a, b)
+    return a * b   # cumprod
+
+
+def _window_scan_blocks(pf: PartitionedFrame, func: str, cols) -> PartitionedFrame:
+    """Blocked scan with cross-block carry composition, in two parallel
+    per-block passes: (local scan + block total), then an exclusive combine
+    of the totals in block order, then the carry application.  Totals are
+    0-d tensors on the blocks' device, combined there: no host sync per
+    block.  cumprod runs through the same kernel, so every scan on the card
+    is bit-identical from run to run."""
+    blocks = [row[0] for row in pf.handles]
+
+    def local(block):
+        def build(src):
+            f = src.induce()
+            dev = f.device
+
+            def scan_col(c: Column) -> Column:
+                v = torch.where(c.valid_mask().to(dev),
+                                as_tensor(c.data, dev).to(torch.float32),
+                                _scan_identity(func))
+                return Column(kops.window_scan(v, func), Domain.FLOAT, c.mask, None)
+
+            targets = _window_targets(f, cols)
+            return _apply_cols(f, targets, scan_col), targets
+
+        with pinned(block) as src:
+            scanned, targets = build(src)
+            totals = ({n: scanned.col(n).data[-1] for n in targets}
+                      if scanned.nrows else {})
+            return (as_handle(scanned,
+                              recompute=lambda: build(resolve(block))[0]),
+                    totals, targets)
+
+    locals_ = dispatch_blocks(local, blocks)
+
+    # exclusive combine of block totals → per-block carries (device, tiny)
+    carries: list[dict] = []
+    acc: dict[Any, torch.Tensor] = {}
+    for _scanned, totals, _targets in locals_:
+        carries.append(dict(acc))
+        for n, t in totals.items():
+            acc[n] = t if n not in acc else _carry_combine(func, acc[n], t)
+
+    if not any(carries):
+        return PartitionedFrame([[item[0]] for item in locals_])
+
+    def apply(args):
+        (block, _totals, targets), carry = args
+
+        def build(scanned):
+            if not carry:
+                return scanned
+            cols_ = list(scanned.columns)
+            names = scanned.col_labels.to_list()
+            for j, n in enumerate(names):
+                if n in targets and n in carry:
+                    v = _carry_combine(func, cols_[j].data, carry[n])
+                    cols_[j] = Column(v, cols_[j].domain, cols_[j].mask, None)
+            return Frame(cols_, scanned.row_labels, scanned.col_labels,
+                         scanned.row_domains, device=scanned.device)
+
+        with pinned(block) as scanned:
+            out = build(scanned)
+            return block if out is scanned else as_handle(
+                out, recompute=lambda: build(resolve(block)))
+
+    out = dispatch_blocks(apply, list(zip(locals_, carries)))
+    return PartitionedFrame([[b] for b in out])
+
+
+def _scan_identity(func: str) -> float:
+    return {"cumsum": 0.0, "cummax": -float("inf"), "cummin": float("inf"),
+            "cumprod": 1.0}[func]
+
+
+def _window_halo(pf: PartitionedFrame, func: str, targets,
+                 periods: int) -> PartitionedFrame:
+    """diff/shift via a ``periods``-row halo — the running tail of everything
+    before the block (a single block may be shorter than ``periods``)."""
+    blocks = [row[0] for row in pf.handles]
+
+    # round 1 (parallel): induce each block once and take its tail — the
+    # only rows that can ever reach a later block's halo
+    def prep(h):
+        with pinned(h) as raw:
+            f = raw.induce()
+            return (h if f is raw
+                    else as_handle(f,
+                                   recompute=lambda: resolve(h).induce())), \
+                f.tail(periods)
+
+    prepped = dispatch_blocks(prep, blocks)
+
+    # serial compose of the small tails → per-block running halos (a block's
+    # rows beyond its last ``periods`` can never appear in any halo, so
+    # composing tails is exact)
+    halos: list[Frame | None] = [None]
+    running: Frame | None = None
+    for _h, tail in prepped[:-1]:
+        running = tail if running is None else (
+            running.concat_rows(tail).tail(periods))
+        halos.append(running)
+
+    def local(args):
+        (blk, _tail), halo = args
+        with pinned(blk) as f:
+            return as_handle(_halo_block(f, halo),
+                             recompute=lambda: _halo_block(resolve(blk), halo))
+
+    def _halo_block(block: Frame, halo: Frame | None) -> Frame:
+        ext = halo.concat_rows(block) if halo is not None else block
+        pad = ext.nrows - block.nrows
+        dev = ext.device
+
+        def do(c_name) -> Column:
+            c = ext.col(c_name)
+            v = as_tensor(c.data, dev).to(torch.float32)
+            valid = c.valid_mask().to(dev)
+            prev = torch.roll(v, periods)
+            prev_valid = torch.roll(valid, periods)
+            in_range = torch.arange(ext.nrows, device=dev) >= periods
+            if func == "diff":
+                out = v - prev
+                mask = valid & prev_valid & in_range
+            else:  # shift
+                out = prev
+                mask = prev_valid & in_range
+            return Column(out[pad:], Domain.FLOAT, mask[pad:], None)
+
+        cols = list(block.columns)
+        names = block.col_labels.to_list()
+        for j, n in enumerate(names):
+            if n in targets:
+                cols[j] = do(n)
+        return Frame(cols, block.row_labels, block.col_labels, block.row_domains,
+                     device=block.device)
+
+    out = dispatch_blocks(local, list(zip(prepped, halos)))
+    return PartitionedFrame([[b] for b in out])
+
+
+def _rolling_combine(csum: PartitionedFrame, shifted: PartitionedFrame, targets,
+                     size: int, mean: bool) -> PartitionedFrame:
+    rows = []
+    offset = 0
+    for (crow, srow) in zip(csum.parts, shifted.parts):
+        cb, sb = crow[0], srow[0]
+        cols = list(cb.columns)
+        names = cb.col_labels.to_list()
+        rowpos = torch.arange(cb.nrows, device=cb.device) + offset
+        full = rowpos >= size - 1
+        for j, n in enumerate(names):
+            if n in targets:
+                c, s = cb.col(n), sb.col(n)
+                base = torch.where(s.valid_mask(), s.data, 0.0)
+                out = c.data - base
+                if mean:
+                    out = out / size
+                cols[j] = Column(out, Domain.FLOAT, c.valid_mask() & full, None)
+        rows.append([Frame(cols, cb.row_labels, cb.col_labels, device=cb.device)])
+        offset += cb.nrows
+    return PartitionedFrame(rows)
+
+
 # ---- TRANSPOSE ----------------------------------------------------------
 def _transpose(pf: PartitionedFrame) -> PartitionedFrame:
     """Grid transpose: per-block kernel transpose + grid metadata swap."""
@@ -908,17 +1217,18 @@ def _column_filter(pf: PartitionedFrame, predicate: alg.Expr) -> PartitionedFram
 # dispatcher
 # =============================================================================
 _NOT_PORTED = {
-    "window": "M4", "fused_window": "M5", "fused_pipeline": "M5",
+    "fused_window": "M5", "fused_pipeline": "M5",
     "fused_groupby": "M5", "fused_sort": "M5", "fused_join": "M5",
     "fused_difference": "M5", "fused_drop_duplicates": "M5",
-    "difference": "M6", "drop_duplicates": "M6", "sort": "M7",
+    "difference": "M6", "drop_duplicates": "M6",
 }
 
 
 def run_node(node: alg.Node, inputs: list[PartitionedFrame],
              stats=None) -> PartitionedFrame:
     """Dispatch one plan node.  ``stats`` (duck-typed ``ExecStats``) receives
-    ``gather_rows``, the payload rows the JOIN gathered."""
+    ``gather_rows`` (the payload rows JOIN and SORT gathered) and the
+    exchange counters of ``core.shuffle``."""
     op = node.op
     if op in _NOT_PORTED:
         raise NotImplementedError(
@@ -930,11 +1240,16 @@ def run_node(node: alg.Node, inputs: list[PartitionedFrame],
     if op == "union":
         return _union(inputs[0], inputs[1])
     if op == "join":
-        return _join_serial(inputs[0], inputs[1], node.params, stats)
+        return _join(inputs[0], inputs[1], node.params, stats)
+    if op == "sort":
+        return _sort(inputs[0], node.params["by"], node.params["ascending"], stats)
     if op == "groupby":
         return _groupby(inputs[0], node.params["keys"], node.params["aggs"])
     if op == "rename":
         return _rename(inputs[0], node.params["mapping"])
+    if op == "window":
+        return _window(inputs[0], node.params["func"], node.params["cols"],
+                       node.params["size"], node.params["periods"])
     if op == "transpose":
         return _transpose(inputs[0])
     if op == "map":

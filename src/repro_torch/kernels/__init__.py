@@ -4,6 +4,7 @@ each beside its plain PyTorch version:
   segment_reduce — GROUPBY partial aggregation
   block_transpose — TRANSPOSE's per-block transpose
   onehot_encode  — get_dummies
+  window_scan    — WINDOW's ordered scans (cumsum / cummax / cummin / cumprod)
 
 ``ops`` is the engine-facing surface; ``ref`` holds the plain versions.  The
 kernels build on first launch (``_build``), never at import.

@@ -24,7 +24,8 @@ __all__ = ["library", "check", "build_seconds", "SOURCES"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("segment_reduce.cu", "block_transpose.cu", "onehot_encode.cu")
+SOURCES = ("segment_reduce.cu", "block_transpose.cu", "onehot_encode.cu",
+           "window_scan.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -38,6 +39,7 @@ _SIGNATURES = {
                              _I32, _I32, _I64, _I32, _P),
     "repro_block_transpose": (_P, _P, _I64, _I64, _P),
     "repro_onehot_encode": (_P, _P, _I64, _I64, _P),
+    "repro_window_scan": (_P, _P, _P, _I64, _I32, _I64, _I64, _I32, _I64, _P),
 }
 
 _LOCK = threading.Lock()

@@ -13,9 +13,10 @@ from ._util import narrow_from_kernel, widen_for_kernel
 from .block_transpose import block_transpose as _transpose
 from .onehot_encode import onehot_encode as _onehot
 from .segment_reduce import segment_reduce as _segred
+from .window_scan import window_scan as _winscan
 
 __all__ = ["transpose", "segment_reduce", "segment_reduce_multi",
-           "onehot_encode"]
+           "window_scan", "onehot_encode"]
 
 _FLT_MAX = torch.finfo(torch.float32).max
 
@@ -76,6 +77,10 @@ def segment_reduce_multi(vals, valids, codes: torch.Tensor, *, bases,
             for j, (pos, _) in enumerate(items):
                 out[pos] = res[:, j]
     return tuple(out)
+
+
+def window_scan(x, op: str = "cumsum") -> torch.Tensor:
+    return _winscan(x.to(torch.float32), op)
 
 
 def onehot_encode(codes, num_classes: int) -> torch.Tensor:

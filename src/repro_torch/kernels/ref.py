@@ -6,5 +6,6 @@ from __future__ import annotations
 from .block_transpose import block_transpose_plain as transpose
 from .onehot_encode import onehot_encode_plain as onehot_encode
 from .segment_reduce import segment_reduce_plain as segment_reduce
+from .window_scan import window_scan_plain as window_scan
 
-__all__ = ["transpose", "segment_reduce", "onehot_encode"]
+__all__ = ["transpose", "segment_reduce", "window_scan", "onehot_encode"]

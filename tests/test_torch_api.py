@@ -32,9 +32,9 @@ def _same(ref, port):
             np.testing.assert_array_equal(db, da)
 
 
-def _sessions(mode="eager", parts=2):
-    return (R.Session(mode=mode, default_row_parts=parts),
-            T.Session(mode=mode, default_row_parts=parts, device="cpu"))
+def _sessions(mode="eager", parts=2, **kw):
+    return (R.Session(mode=mode, default_row_parts=parts, **kw),
+            T.Session(mode=mode, default_row_parts=parts, device="cpu", **kw))
 
 
 @pytest.fixture
@@ -240,6 +240,50 @@ def test_transpose_rewrites_match_reference(case):
             return d.T[d.T["r1"] > 0].T
         _same(build(R, rs).collect(), build(T, ts).collect())
         assert ts.stats.evaluated_nodes >= 1
+    finally:
+        rs.close()
+        ts.close()
+
+
+def ordered_slice(api, s, frame):
+    """The ordered path: sort → cumsum / cummax / rolling_mean / diff /
+    shift, the §6.1 filter → cumsum workflow, and a merge through the
+    shuffle.  Statements by name."""
+    df = api.DataFrame(frame, session=s)
+    rates = api.DataFrame({"passenger_count": [1, 2, 3, 4, 5, 6],
+                           "rate": [2.5, 3.0, 3.5, 4.0, 4.5, 5.0]}, session=s)
+    srt = df.sort_values("f0")
+    return {"sorted": srt, "cumsum": srt.cumsum(), "cummax": srt.cummax(cols=["f1"]),
+            "rolling": srt.rolling_mean(10, cols=["f3"]), "diff": srt.diff(2, cols=["f2"]),
+            "shift": srt.shift(3, cols=["f2"]),
+            "workflow": df[df["passenger_count"] > 1].cumsum(cols=["f0"]),
+            "merge": df.merge(rates, on="passenger_count")}
+
+
+@pytest.mark.parametrize("mode", ["eager", "lazy", "opportunistic"])
+def test_ordered_slice_matches_reference(mode):
+    """head(5) of every statement, then the whole results, against the
+    reference's Session; prefix computation fires alike.  In OPPORTUNISTIC
+    mode the heads come after the background runs have finished, so the
+    count does not depend on timing, and rewriting is off: the reference
+    fuses the filter into the background run's window, and once that filter
+    is a live statement it re-plans the head unfused, misses the cache and
+    takes the prefix path (fusion is ROADMAP M5)."""
+    rs, ts = _sessions(mode, parts=3, optimize=mode != "opportunistic")
+    try:
+        ref = ordered_slice(R, rs, r_taxi(20_000, seed=1))
+        port = ordered_slice(T, ts, t_taxi(20_000, seed=1, device="cpu"))
+        if mode == "opportunistic":
+            for stmts in (ref, port):
+                for d in stmts.values():
+                    d._node.handle.result()
+        for k in ref:
+            _same(ref[k].head(5), port[k].head(5))
+        assert ts.executor.stats.prefix_evals == rs.executor.stats.prefix_evals
+        if mode == "lazy":
+            assert ts.executor.stats.prefix_evals == 1      # the workflow's head
+        for k in ref:
+            _same(ref[k].collect(), port[k].collect())
     finally:
         rs.close()
         ts.close()

@@ -4,9 +4,12 @@ The plain PyTorch versions (what a CPU tensor runs) are held against
 ``repro.kernels.ref`` over the shape sweep of ``tests/test_kernels.py`` and
 against the Pallas kernels in interpret mode; ``segment_reduce_multi`` is
 held against its reference.  Tolerances: transpose, one-hot and counts are
-bit-equal; float reductions use rtol=atol=1e-4 as tests/test_kernels.py
-does.  min/max are compared on non-empty segments only: on a segment no row
-reaches, the Pallas kernel gives ±FLT_MAX where the plain versions give ±inf.
+bit-equal; float reductions and cumsum / cumprod use rtol=atol=1e-4 as
+tests/test_kernels.py does; cummax / cummin are bit-equal.  min/max are
+compared on non-empty segments only: on a segment no row reaches, the Pallas
+kernel gives ±FLT_MAX where the plain versions give ±inf.  For the same
+reason no scanned column starts with ±inf (the Pallas scan starts its carry
+at ±FLT_MAX, the plain version at ±inf).
 
 The CUDA kernels themselves run only on a card: those tests skip here.
 """
@@ -20,11 +23,13 @@ from repro.kernels import ref as rref
 from repro.kernels.onehot_encode import onehot_encode as pallas_onehot
 from repro.kernels.segment_reduce import segment_reduce as pallas_segred
 from repro.kernels.block_transpose import block_transpose as pallas_transpose
+from repro.kernels.window_scan import window_scan as pallas_winscan
 from repro_torch.kernels import block_transpose as bt_mod
 from repro_torch.kernels import onehot_encode as oh_mod
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import segment_reduce as sr_mod
+from repro_torch.kernels import window_scan as ws_mod
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -95,6 +100,72 @@ def test_segment_reduce_plain_nan_and_empty_segments():
     assert np.isnan(ref_min[0]) and ref_min[1] == -2.0
 
 
+SCAN_OPS = ["cumsum", "cummax", "cummin"]
+
+
+def _scan_input(rng, m, n):
+    """Normal values with NaN, -0.0 and ±inf inside, never in row 0."""
+    x = rng.standard_normal((m, n)).astype(np.float32)
+    x[3::37, 0] = np.nan
+    x[5::11, -1] = -0.0
+    x[7::53, n // 2] = np.inf
+    x[9::71, n // 2] = -np.inf
+    return x
+
+
+def _scan_match(op, got, exp):
+    if op in ("cumsum", "cumprod"):
+        np.testing.assert_allclose(got, exp, equal_nan=True, **TOL)
+    else:
+        np.testing.assert_array_equal(got, exp)
+
+
+@pytest.mark.parametrize("m,n", [(64, 1), (1000, 5), (2049, 3), (1, 1), (4097, 2),
+                                 (33, 130)])
+@pytest.mark.parametrize("op", SCAN_OPS)
+def test_window_scan_plain_matches_ref(rng, m, n, op):
+    x = _scan_input(rng, m, n)
+    _scan_match(op, tops.window_scan(_t(x), op).numpy(),
+                np.asarray(rops.window_scan(jnp.asarray(x), op)))
+    _scan_match(op, tref.window_scan(_t(x), op).numpy(),
+                np.asarray(rref.window_scan(jnp.asarray(x), op)))
+
+
+def test_window_scan_plain_cumprod_matches_jnp(rng):
+    """cumprod is jnp.cumprod in the reference engine; the port runs it
+    through the same scan."""
+    x = (1.0 + 0.01 * rng.standard_normal((3000, 3))).astype(np.float32)
+    x[100, 1] = np.nan
+    _scan_match("cumprod", tops.window_scan(_t(x), "cumprod").numpy(),
+                np.asarray(jnp.cumprod(jnp.asarray(x), axis=0)))
+
+
+def test_window_scan_reads_strided_columns(rng):
+    x = rng.standard_normal((1000, 8)).astype(np.float32)
+    t = _t(x)
+    for op in SCAN_OPS + ["cumprod"]:
+        assert torch.equal(ws_mod.window_scan(t[:, 3], op),
+                           ws_mod.window_scan(t[:, 3].contiguous(), op))
+        assert torch.equal(ws_mod.window_scan(t[:, 2:5], op),
+                           ws_mod.window_scan(t[:, 2:5].contiguous(), op))
+
+
+@pytest.mark.parametrize("m,chunks", [(1, 1), (4095, 1), (4096, 1), (4097, 2),
+                                      (2_000_000, 489), (2 ** 31 + 1, 524289)])
+def test_window_scan_chunk_plan(m, chunks):
+    """The kernel cuts rows into 4096-row chunks, one CTA each per column."""
+    assert ws_mod.chunks(m) == chunks
+    assert (chunks - 1) * ws_mod.CHUNK_ROWS < m <= chunks * ws_mod.CHUNK_ROWS
+
+
+# ---- plain versions vs the Pallas kernels (interpret mode) ------------------
+@pytest.mark.parametrize("m,n", [(64, 1), (1000, 5), (2049, 3)])
+@pytest.mark.parametrize("op", SCAN_OPS)
+def test_window_scan_plain_matches_pallas(rng, m, n, op):
+    x = _scan_input(rng, m, n)
+    _scan_match(op, tref.window_scan(_t(x), op).numpy(),
+                np.asarray(pallas_winscan(jnp.asarray(x), op)))
+
 # ---- plain versions vs the Pallas kernels (interpret mode) ------------------
 @pytest.mark.parametrize("shape", [(100, 37), (9, 300)])
 def test_transpose_plain_matches_pallas(rng, shape):
@@ -156,16 +227,17 @@ def test_segment_reduce_multi_matches_reference(rng, presence):
 
 # ---- dispatch -----------------------------------------------------------------
 def test_cpu_tensors_take_the_plain_path(rng):
-    for mod in (sr_mod, bt_mod, oh_mod):
+    for mod in (sr_mod, bt_mod, oh_mod, ws_mod):
         mod.counter.reset()
     x = _t(rng.standard_normal((33, 5)).astype(np.float32))
     c = _t(rng.integers(0, 4, 33).astype(np.int32))
     torch.testing.assert_close(tops.transpose(x), x.t().contiguous(), rtol=0, atol=0)
     tops.segment_reduce(x, c, 4, "sum")
     tops.onehot_encode(c, 4)
+    tops.window_scan(x, "cumsum")
     tops.transpose(x > 0)          # bool widens to int32 and narrows back
     assert tops.transpose(x > 0).dtype == torch.bool
-    for mod in (sr_mod, bt_mod, oh_mod):
+    for mod in (sr_mod, bt_mod, oh_mod, ws_mod):
         assert mod.counter.launches == 0
 
 
@@ -174,6 +246,8 @@ def test_mixed_devices_raise():
     c = torch.zeros(4, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="all be on the CPU or all on one CUDA"):
         sr_mod.segment_reduce(x, c, 2)
+    with pytest.raises(ValueError, match="all be on the CPU or all on one CUDA"):
+        ws_mod.window_scan(torch.zeros(4, device="meta"))
 
 
 # ---- the wrapper's launch plans -----------------------------------------------
@@ -225,3 +299,23 @@ def test_cuda_transpose_matches_plain(cuda, shape, dtype):
 def test_cuda_onehot_matches_plain(rng, cuda, m, g):
     c = _t(rng.integers(-1, g + 3, m).astype(np.int32)).to(cuda)
     assert torch.equal(oh_mod.onehot_encode(c, g), oh_mod.onehot_encode_plain(c, g))
+
+
+@pytest.mark.parametrize("m,n", [(1, 1), (33, 3), (4097, 1), (70_001, 130), (2_000_000, 1)])
+@pytest.mark.parametrize("op", SCAN_OPS + ["cumprod"])
+def test_cuda_window_scan_matches_plain(rng, cuda, m, n, op):
+    x = _scan_input(rng, m, n)
+    if op == "cumprod":
+        # ±1 with a rare 2 or 1/2: every product is exact in float32, in any order
+        u = rng.random(x.shape)
+        mag = np.where(u < 1e-4, 2.0, np.where(u > 1 - 1e-4, 0.5, 1.0))
+        x = np.where(np.isfinite(x) & (x != 0), np.sign(x) * mag, x).astype(np.float32)
+    x = _t(x).to(cuda)
+    out = ws_mod.window_scan(x, op)
+    assert torch.equal(out.view(torch.int32), ws_mod.window_scan(x, op).view(torch.int32))
+    exp = ws_mod.window_scan_plain(x, op)
+    if op in ("cummax", "cummin"):
+        assert torch.equal(out.view(torch.int32), exp.view(torch.int32))
+    else:
+        tol = dict(rtol=0, atol=0) if op == "cumprod" else TOL
+        torch.testing.assert_close(out, exp, equal_nan=True, **tol)

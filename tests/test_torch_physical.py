@@ -195,13 +195,11 @@ def test_row_local_ops_match_reference(op):
                   _exec(talg, tphys.run_node, tl, ROW_OPS[op]))
 
 
-@pytest.mark.parametrize("op,item", [("sort", "M7"), ("window", "M4"),
-                                     ("drop_duplicates", "M6")])
+@pytest.mark.parametrize("op,item", [("drop_duplicates", "M6"), ("difference", "M6")])
 def test_unported_ops_name_their_roadmap_item(op, item):
     _, tl = _small("port")
-    node = {"sort": lambda s: talg.Sort(s, ["k"], True),
-            "window": lambda s: talg.Window(s, "cumsum", None),
-            "drop_duplicates": lambda s: talg.DropDuplicates(s, None)}[op](
-        talg.Source("x", 0, 0))
+    src = talg.Source("x", 0, 0)
+    node = {"drop_duplicates": lambda: talg.DropDuplicates(src, None),
+            "difference": lambda: talg.Difference(src, src)}[op]()
     with pytest.raises(NotImplementedError, match=item):
-        tphys.run_node(node, [tl])
+        tphys.run_node(node, [tl] * len(node.children))
