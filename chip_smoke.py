@@ -13,7 +13,9 @@ Phases (any failure raises and the script exits non-zero):
                  and one library call with CUDA events, and each kernel's
                  device time under the profiler; window_scan at edge
                  shapes, strided columns and one of more than 2^31 elements,
-                 every case run twice and bit-identical
+                 every case run twice and bit-identical; decode_attention
+                 (K7) at the reference's four f32 shapes and at the serving
+                 shape in bf16, ten reruns bit-identical
   (4, 5 and 6 time each step unprofiled, then run the steps once more under
   the CUDA profiler for the device's busy time within each)
   4. fig6      — the Fig. 6 mix at 16,000,000 rows of taxi_like_frame in an
@@ -30,6 +32,21 @@ Phases (any failure raises and the script exits non-zero):
                  and a merge with a 6-row table (shuffled == serial), each
                  checked against numpy; the results of the profiled rerun
                  must equal the timed run's bit for bit
+  7. serve     — LM serving at the full width of yi-6b (32 layers, d 4096,
+                 6.06e9 random bf16 parameters from a seeded generator):
+                 16 requests (BOS + 63..511 random prompt tokens, 32 new
+                 tokens each) through ServeEngine(max_batch=8, max_seq=1024),
+                 every layer's decode attention on decode_attention (K7),
+                 timed per step, then 20 steps under the CUDA profiler.
+                 Checks: K7 launched steps x 32 times; the same requests
+                 served with attn_impl="xla" (plain attention, same weights)
+                 give the same tokens up to a near-tie, with the logits of
+                 every compared step within FULL_LOGIT_TOL; 64 teacher-forced
+                 decode steps, K7 against "xla", within the logit limits,
+                 which two deliberately wrong attentions must break; one request
+                 served alone and alongside seven others gives identical
+                 tokens; a run with max_seq=64 and a 100-token request (every
+                 length passes max_seq) matches its "xla" run
 
 Run from the root of a checkout:  python3 chip_smoke.py
 The last two lines of standard output are the kernels' JSON record and
@@ -47,6 +64,30 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 FP32_OPS_PER_S = 67e12             # H100 SXM float32 outside the tensor cores
 TAXI_ROWS = 16_000_000             # about one month of NYC yellow-cab trips
+SERVE_ARCH = "yi-6b"
+SERVE_BATCH, SERVE_SEQ = 8, 1024   # engine slots, cache positions per slot
+SERVE_REQUESTS, SERVE_NEW = 16, 32
+PROMPT_LENS = (64, 512)            # prompt lengths, BOS included, uniform
+# K7 against its plain version at the serving shape, bf16: about one bf16
+# ulp at |x| < 1.  Both round a float32 result to bf16 once, so they may part
+# by one ulp; the kernel's max |err| there reads 1.2e-4 to 2.4e-4 on an H100
+# (PERF.md, "LM serving").
+K7_BF16_TOL = 4e-3
+# Limits on two bf16 runs of the full-width model that differ only in how
+# attention is computed (K7, or the einsum path of attn_impl="xla").  Both
+# round attention's float32 result to bf16; a one-ulp difference there grows
+# through 32 random layers.  Each is set from the sound runs' readings on an
+# H100 (PERF.md, "LM serving"): max |logit diff| at most 0.149, its mean over
+# 64 teacher-forced steps 0.020, top-1 agreement there 0.947.  Check 3 runs
+# two deliberately wrong attentions and fails unless each breaks one of them
+# (they read max 3.3-4.3, mean 0.39-0.44, agreement 0.29-0.33).
+FULL_LOGIT_TOL = 0.3     # max |logit diff|: twice the largest sound reading
+MEAN_LOGIT_TOL = 0.04    # mean |logit diff| over check 3's steps: twice its reading
+TOP1_AGREE_MIN = 0.9     # top-1 agreement over check 3's steps
+# Two runs whose logits part by at most d can pick different tokens only
+# where the top-1 - top-2 margin is below 2 d: twice the largest sound
+# max |logit diff|
+NEAR_TIE = 0.3
 MATRIX_ROWS, MATRIX_COLS = TAXI_ROWS // 10, 64   # bench_fig6.py:78
 
 
@@ -301,6 +342,60 @@ def check_window_scan(torch, ws, dev) -> None:
         log(f"  torch.{name} on the card, 10 reruns at (2000000,): bit-identical {same}")
 
 
+DECODE_SHAPES = [(8, 2, 256, 100, 64), (16, 4, 333, 217, 64), (4, 4, 128, 128, 128),
+                 (8, 1, 700, 1, 64)]   # (H, KVH, S, length, D): tests/test_kernels.py
+
+
+def decode_main_inputs(torch, dev):
+    """K7 at the serving shape: yi-6b's heads, 8 slots, a 1024-slot bf16
+    cache, lengths spread over [1, S] and one past S."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    b, h, kvh, s, d = SERVE_BATCH, 32, 4, SERVE_SEQ, 128
+    q = torch.randn((b, h, d), generator=gen, device=dev).bfloat16()
+    k = torch.randn((b, s, kvh, d), generator=gen, device=dev).bfloat16()
+    v = torch.randn((b, s, kvh, d), generator=gen, device=dev).bfloat16()
+    lengths = torch.tensor([1, 147, 293, 440, 586, 733, s, s + 9], dtype=torch.int32, device=dev)
+    return q, k, v, lengths
+
+
+def check_decode_attention(torch, da, dev) -> None:
+    """The reference's four f32 shapes (three slots each: the shape's length,
+    S, and S + 5) at rtol = atol = 2e-3; the serving shape in bf16 at
+    K7_BF16_TOL, ten reruns bit-identical; a
+    zero length gives 0, as the Pallas kernel does."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    worst = 0.0
+    for h, kvh, s, length, d in DECODE_SHAPES:
+        q = torch.randn((3, h, d), generator=gen, device=dev)
+        k = torch.randn((3, s, kvh, d), generator=gen, device=dev)
+        v = torch.randn((3, s, kvh, d), generator=gen, device=dev)
+        lengths = torch.tensor([length, s, s + 5], dtype=torch.int32, device=dev)
+        got = da.decode_attention(q, k, v, lengths)
+        if not torch.equal(got, da.decode_attention(q, k, v, lengths)):
+            raise AssertionError(f"decode_attention {(h, kvh, s, length, d)}: runs differ")
+        torch.testing.assert_close(got, da.decode_attention_plain(q, k, v, lengths),
+                                   rtol=2e-3, atol=2e-3,
+                                   msg=lambda m: f"decode_attention {(h, kvh, s, length, d)}: {m}")
+        single = da.decode_attention(q[0], k[0], v[0], length)
+        assert torch.equal(single, got[0]), "decode_attention: the single-sequence call differs"
+        worst = max(worst, float((got - da.decode_attention_plain(q, k, v, lengths)).abs().max()))
+    q, k, v, lengths = decode_main_inputs(torch, dev)
+    got = da.decode_attention(q, k, v, lengths)
+    for _ in range(10):
+        if not torch.equal(got, da.decode_attention(q, k, v, lengths)):
+            raise AssertionError("decode_attention serving shape: reruns differ")
+    want = da.decode_attention_plain(q, k, v, lengths)
+    torch.testing.assert_close(got.float(), want.float(), rtol=K7_BF16_TOL, atol=K7_BF16_TOL,
+                               msg=lambda m: f"decode_attention serving shape bf16: {m}")
+    zero = da.decode_attention(q, k, v, torch.zeros_like(lengths))
+    assert torch.equal(zero, torch.zeros_like(zero)), "decode_attention: length 0 is not 0"
+    log(f"  decode_attention: {len(DECODE_SHAPES)} f32 shapes x lengths (n, S, S+5) within 2e-3 "
+        f"of the plain version (worst {worst:.3g}); serving shape {list(q.shape)} x "
+        f"{list(k.shape)} bf16 within {K7_BF16_TOL} (max |err| "
+        f"{float((got.float() - want.float()).abs().max()):.3g}), 10 reruns bit-identical; "
+        f"length 0 gives 0")
+
+
 def check_wide_aggregate(torch, dev) -> None:
     """An all-column aggregate of a frame wider than one segment_reduce
     launch takes (the wide output of .T): on the card and on the CPU."""
@@ -319,7 +414,7 @@ def check_wide_aggregate(torch, dev) -> None:
     log("  wide aggregate: .T.count() / .sum() / .max() over 3,000 columns match the CPU")
 
 
-def time_kernels(torch, sr, bt, oh, ws, dev, pool: int) -> dict:
+def time_kernels(torch, sr, bt, oh, ws, da, dev, pool: int) -> dict:
     """Kernel, plain and library times at the main path's shapes; each
     kernel's error against its plain version is asserted, not only shown."""
     import torch.nn.functional as F
@@ -397,6 +492,33 @@ def time_kernels(torch, sr, bt, oh, ws, dev, pool: int) -> dict:
         plain_ms=cuda_ms(lambda: ws.window_scan_plain(x)),
         library_ms=cuda_ms(lambda: torch.cumsum(x, 0)),
         bound_ms=b, bound_by=by)
+    # decode attention: one serving step's layer, 8 slots over a 1024-slot cache
+    q, k, v, lengths = decode_main_inputs(torch, dev)
+    b_, h, d = q.shape
+    kvh = k.shape[2]
+    k_out, plain = da.decode_attention(q, k, v, lengths), da.decode_attention_plain(q, k, v, lengths)
+    valid = torch.arange(k.shape[1], device=dev)[None, :] < lengths[:, None]
+    mask = valid[:, None, None, :]
+    qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    lib = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)[:, :, 0]
+    lib_err = float((lib.float() - plain.float()).abs().max())
+    assert lib_err <= 5e-2, lib_err
+    keys = int(valid.sum())       # sum over slots of min(length, S)
+    b, by = bound_ms(2 * keys * kvh * d * 2 + 2 * b_ * h * d * 2 + b_ * 4, 4 * keys * h * d)
+    out["decode_attention"] = dict(
+        name="decode_attention", route="cuda", source="src/repro_torch/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:65", shape=[b_, h, kvh, d, k.shape[1]],
+        max_abs_err=float((k_out.float() - plain.float()).abs().max()),
+        ms=cuda_ms(lambda: da.decode_attention(q, k, v, lengths)),
+        device_ms=device_ms(lambda: da.decode_attention(q, k, v, lengths),
+                            ("decode_split", "decode_combine")),
+        plain_ms=cuda_ms(lambda: da.decode_attention_plain(q, k, v, lengths)),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True)),
+        bound_ms=b, bound_by=by)
+    log(f"  decode_attention {out['decode_attention']['shape']}: {keys} valid cache rows; "
+        f"scaled_dot_product_attention (enable_gqa, length mask) off the plain version by "
+        f"{lib_err:.3g}")
     return out
 
 
@@ -783,6 +905,265 @@ def same_results(torch, np, a: dict, b: dict) -> None:
 
 
 # -----------------------------------------------------------------------------
+# phase 7: LM serving at full width
+# -----------------------------------------------------------------------------
+def serve_prompts(np, vocab: int, n: int = SERVE_REQUESTS, seed: int = 0) -> list:
+    """BOS plus random token ids in [3, vocab), lengths uniform in PROMPT_LENS
+    (64 at least, as check 3's teacher forcing needs)."""
+    from repro_torch.data import BOS
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, n)
+    return [[BOS] + rng.integers(3, vocab, int(m) - 1).tolist() for m in lens]
+
+
+def serve(model, params, prompts, *, max_batch: int = SERVE_BATCH,
+          max_seq: int = SERVE_SEQ, new: int = SERVE_NEW, record: bool = False,
+          steps: int | None = None) -> dict:
+    """Serve ``prompts`` through ServeEngine, timing every step (each ends in
+    the engine's host sync).  ``record`` keeps the logits row behind every
+    output token; ``steps`` stops after that many steps."""
+    import time as _time
+    from repro_torch.serve import Request, ServeEngine
+    eng = ServeEngine(model, params, max_batch=max_batch, max_seq=max_seq)
+    reqs = [Request(rid=i, prompt_ids=p, max_new_tokens=new) for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    rows = {r.rid: [] for r in reqs}
+    seen = {}
+    if record:
+        real = model.decode_step
+
+        def recording(*args):
+            out = real(*args)
+            seen["logits"], seen["slots"] = out[0], list(eng.slots)
+            return out
+        model.decode_step = recording
+    times = []
+    t0 = _time.perf_counter()
+    try:
+        while steps is None or len(times) < steps:
+            before = [len(r.out_ids) for r in reqs]
+            t = _time.perf_counter()
+            if eng.step() == 0 and not eng._pending:
+                break
+            times.append(_time.perf_counter() - t)
+            if record:
+                for r, n in zip(reqs, before):
+                    if len(r.out_ids) > n:
+                        slot = next(i for i, x in enumerate(seen["slots"]) if x is r)
+                        rows[r.rid].append(seen["logits"][slot].clone())
+    finally:
+        if record:
+            del model.decode_step
+    return {"reqs": reqs, "engine": eng, "times": times, "rows": rows,
+            "wall": _time.perf_counter() - t0}
+
+
+def same_streams(torch, run: dict, oracle: dict, what: str) -> tuple[int, int, float, float]:
+    """Tokens of ``run`` against the ``oracle`` run (attn_impl="xla").  Up to
+    a request's first differing token both runs fed the same tokens, so their
+    logits there must agree within FULL_LOGIT_TOL; the first differing token
+    must be a near-tie of the oracle (top-1 - top-2 < NEAR_TIE); nothing of
+    that request is compared after it.  Returns (tokens equal, requests that
+    parted at a near-tie, max |logit difference|, the widest oracle margin
+    at which a request parted)."""
+    equal = parted = 0
+    worst = widest = 0.0
+    for a, b in zip(run["reqs"], oracle["reqs"]):
+        for j in range(min(len(a.out_ids), len(b.out_ids))):
+            la, lb = run["rows"][a.rid][j], oracle["rows"][b.rid][j]
+            diff = float((la - lb).abs().max())
+            worst = max(worst, diff)
+            if diff > FULL_LOGIT_TOL:
+                raise AssertionError(f"{what}: request {a.rid} token {j}: logits differ by "
+                                     f"{diff:.4g} > {FULL_LOGIT_TOL}")
+            if a.out_ids[j] != b.out_ids[j]:
+                top = lb.topk(2).values
+                margin = float(top[0] - top[1])
+                if margin >= NEAR_TIE:
+                    raise AssertionError(f"{what}: request {a.rid} parts at token {j} with an "
+                                         f"oracle margin of {margin:.4g} >= {NEAR_TIE}")
+                widest = max(widest, margin)
+                parted += 1
+                break
+            equal += 1
+        else:
+            if len(a.out_ids) != len(b.out_ids):
+                raise AssertionError(f"{what}: request {a.rid} ends after "
+                                     f"{len(a.out_ids)} tokens, the oracle after {len(b.out_ids)}")
+    return equal, parted, worst, widest
+
+
+def teacher_forced(torch, transformer, params, toks, cfg, dev):
+    """Logits (B, T, V) of ``decode_step`` fed ``toks`` (B, T) from an empty
+    cache."""
+    with torch.inference_mode():
+        cache = transformer.cache_init(cfg, toks.shape[0], SERVE_SEQ, dev)
+        outs = []
+        for i in range(toks.shape[1]):
+            lg, cache = transformer.decode_step(params, toks[:, i], cache, cfg)
+            outs.append(lg)
+    return torch.stack(outs, 1)
+
+
+def logit_readings(got, want) -> tuple[float, float, float]:
+    """(max |logit diff|, mean |logit diff|, top-1 agreement)."""
+    d = (got - want).abs()
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean()
+    return float(d.max()), float(d.mean()), float(agree)
+
+
+def within_logit_limits(readings) -> bool:
+    diff, mean, agree = readings
+    return diff <= FULL_LOGIT_TOL and mean <= MEAN_LOGIT_TOL and agree >= TOP1_AGREE_MIN
+
+
+def serving_phase(torch, np, da, dev, card: str) -> int:
+    """Phase 7; returns K7's launches in the main serving run."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, transformer
+    cfg = get_config(SERVE_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    assert n_params == cfg.param_count()[0], (n_params, cfg.param_count())
+    log(f"  {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads, "
+        f"{cfg.n_kv} KV heads, ff {cfg.d_ff}, vocab {cfg.vocab}; {n_params} parameters "
+        f"({weight_bytes / 1e9:.3f} GB bf16/f32), random from seed 0: "
+        f"{time.perf_counter() - t0:.1f} s")
+    prompts = serve_prompts(np, cfg.vocab)
+    xla = dataclasses.replace(cfg, attn_impl="xla")
+    oracle_model = build_model(xla, dev)
+
+    # the main path: 16 requests, K7 on every layer of every step
+    da.counter.reset()
+    run = serve(model, params, prompts, record=True)
+    launches = da.counter.launches
+    eng = run["engine"]
+    steps = int(eng.metrics["steps"])
+    times = np.asarray(run["times"]) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    if launches == 0 or launches != steps * cfg.n_layers:
+        raise AssertionError(f"decode_attention launched {launches} times in {steps} steps "
+                             f"of {cfg.n_layers} layers")
+    assert all(len(r.out_ids) == SERVE_NEW or r.out_ids[-1] == 2 for r in run["reqs"])
+    lengths = eng.cache["length"].tolist()
+    # the least a step can take: every weight read once (the embedding table
+    # gives only B rows), and each slot's valid K/V prefix in every layer
+    emb = params["embed"]
+    step_bytes = weight_bytes - emb.numel() * emb.element_size()
+    bound = step_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"  served {len(prompts)} requests (prompts {min(map(len, prompts))}..."
+        f"{max(map(len, prompts))} tokens, {SERVE_NEW} new each) with max_batch "
+        f"{SERVE_BATCH}, max_seq {SERVE_SEQ}: wall {run['wall']:.3f} s, {steps} steps, "
+        f"prefill_tokens {int(eng.metrics['prefill_tokens'])}, tokens_out "
+        f"{int(eng.metrics['tokens_out'])}, {eng.metrics['tokens_out'] / run['wall']:.3f} "
+        f"tokens/s out ({(eng.metrics['tokens_out'] + eng.metrics['prefill_tokens']) / run['wall']:.3f} "
+        f"with prefill)")
+    log(f"  step ms: median {np.median(times):.3f}, p90 {np.percentile(times, 90):.3f}, "
+        f"min {times.min():.3f}, max {times.max():.3f}; bound {bound:.3f} ms "
+        f"({step_bytes / 1e9:.3f} GB of weights read once at {HBM_BYTES_PER_S / 1e12} TB/s): "
+        f"median {np.median(times) / bound:.2f}x the bound | {card}")
+    log(f"  decode_attention launches {launches} = {steps} steps x {cfg.n_layers} layers; "
+        f"max_memory_allocated {peak / 1e9:.3f} GB; final lengths {lengths}")
+
+    # device busy share over 20 steps of the same traffic, under the profiler
+    from torch.profiler import ProfilerActivity, profile
+    warm = serve(model, params, prompts, steps=40)
+    weng = warm["engine"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(20):
+            weng.step()
+        wall = time.perf_counter() - t
+    # the device's own records only: an aten op's row carries the durations
+    # of the kernels it launched as well, so summing every row counts twice
+    from torch.autograd import DeviceType
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    log(f"  profiled window, steps 41-60: device busy {busy * 1e3:.3f} ms of {wall * 1e3:.3f} ms "
+        f"wall ({100 * busy / wall:.2f}%), {wall / 20 * 1e3:.3f} ms a step under the profiler; "
+        f"{sum(e.count for e in events) / 20:.0f} device activities a step; the largest, "
+        f"device ms a step (calls a step):")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"    {e.self_device_time_total / 20 / 1e3:.4f} ({e.count / 20:.0f})  {e.key[:90]}")
+    del warm, weng, prof
+
+    # check 2: the same requests, attention on the einsum path
+    oracle = serve(oracle_model, params, prompts, record=True)
+    equal, parted, worst, widest = same_streams(torch, run, oracle, "serving, K7 vs xla")
+    log(f"  attn_impl='xla' oracle (same weights): wall {oracle['wall']:.3f} s, "
+        f"{int(oracle['engine'].metrics['steps'])} steps; {equal} of "
+        f"{sum(len(r.out_ids) for r in run['reqs'])} tokens equal before any parting, "
+        f"{parted} requests parted at a near-tie (widest oracle margin {widest:.4g}, limit "
+        f"{NEAR_TIE}); max |logit diff| over compared steps {worst:.4g} (tolerance "
+        f"{FULL_LOGIT_TOL})")
+    assert oracle["engine"].cache["length"].tolist() == lengths
+    del run, oracle
+
+    # check 3: 64 teacher-forced decode steps, K7 against "xla"; then the
+    # same steps with two deliberately wrong attentions, which the limits
+    # must catch
+    from repro_torch.kernels import ops as kops
+    toks = torch.tensor([p[:64] for p in prompts[:SERVE_BATCH]], dtype=torch.int32, device=dev)
+    want = teacher_forced(torch, transformer, params, toks, xla, dev)
+    readings = logit_readings(teacher_forced(torch, transformer, params, toks, cfg, dev), want)
+    log(f"  64 teacher-forced steps x {SERVE_BATCH} slots, K7 vs xla: max |logit diff| "
+        f"{readings[0]:.4g} (limit {FULL_LOGIT_TOL}), mean {readings[1]:.4g} (limit "
+        f"{MEAN_LOGIT_TOL}), top-1 agreement {readings[2]:.4f} (at least {TOP1_AGREE_MIN})")
+    assert within_logit_limits(readings), readings
+    wrong = {
+        "softmax scale 1/D, not 1/sqrt(D)": lambda q, k, v, n, scale=None: da.decode_attention(
+            q, k, v, n, scale=1.0 / q.shape[-1]),
+        "the newest key left out (length - 1, at least 1)": lambda q, k, v, n, scale=None:
+            da.decode_attention(q, k, v, (n - 1).clamp_min(1), scale=scale),
+    }
+    right = kops.decode_attention
+    for name, fn in wrong.items():
+        kops.decode_attention = fn
+        try:
+            bad = logit_readings(teacher_forced(torch, transformer, params, toks, cfg, dev), want)
+        finally:
+            kops.decode_attention = right
+        log(f"  the same steps, K7 with {name}, vs xla: max |logit diff| {bad[0]:.4g}, mean "
+            f"{bad[1]:.4g}, top-1 agreement {bad[2]:.4f}: "
+            f"{'within the limits' if within_logit_limits(bad) else 'caught'}")
+        if within_logit_limits(bad):
+            raise AssertionError(f"check 3's limits do not catch K7 with {name}: {bad}")
+    del want
+
+    # check 4: one request alone, then beside seven others
+    short = [p[:96] for p in prompts[:SERVE_BATCH]]
+    alone = serve(model, params, short[:1])["reqs"][0].out_ids
+    mixed = serve(model, params, short)["reqs"][0].out_ids
+    assert alone == mixed, (alone, mixed)
+    log(f"  slot isolation: request 0 ({len(short[0])}-token prompt) alone and beside 7 "
+        f"others gives the same {len(alone)} tokens")
+
+    # check 5: max_seq 64 and a request of 100 tokens in all
+    long = serve_prompts(np, cfg.vocab, n=1, seed=1)
+    long[0] = long[0][:100 - SERVE_NEW]
+    runs = [serve(m, params, long, max_seq=64, record=True) for m in (model, oracle_model)]
+    torch.cuda.synchronize()
+    equal, parted, worst, _ = same_streams(torch, runs[0], runs[1], "max_seq 64")
+    lengths = runs[0]["engine"].cache["length"].tolist()
+    assert lengths == runs[1]["engine"].cache["length"].tolist() and min(lengths) > 64, lengths
+    log(f"  max_seq 64, a {len(long[0])}-token prompt + {SERVE_NEW} new: no fault, final "
+        f"lengths {lengths}; {equal} tokens equal to the xla run, {parted} parted at a "
+        f"near-tie, max |logit diff| {worst:.4g}")
+    del runs, model, oracle_model, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+# -----------------------------------------------------------------------------
 def main() -> int:
     t_start = time.perf_counter()
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -799,6 +1180,7 @@ def main() -> int:
     from repro_torch.core.schedule import pool_width
     from repro_torch.kernels import _build
     from repro_torch.kernels import block_transpose as bt
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import onehot_encode as oh
     from repro_torch.kernels import segment_reduce as sr
     from repro_torch.kernels import window_scan as ws
@@ -822,8 +1204,9 @@ def main() -> int:
     check_transpose(torch, bt, dev, pool)
     check_onehot(torch, oh, dev)
     check_window_scan(torch, ws, dev)
+    check_decode_attention(torch, da, dev)
     check_wide_aggregate(torch, dev)
-    timings = time_kernels(torch, sr, bt, oh, ws, dev, pool)
+    timings = time_kernels(torch, sr, bt, oh, ws, da, dev, pool)
     for rec in timings.values():
         log(f"  {rec['name']} {rec['shape']}: kernel {rec['ms']:.4f} ms (on the device "
             f"{rec['device_ms']:.4f} ms), plain "
@@ -833,7 +1216,8 @@ def main() -> int:
     log(f"[kernels] {time.perf_counter() - t0:.1f} s")
 
     counters = {"segment_reduce": sr.counter, "block_transpose": bt.counter,
-                "onehot_encode": oh.counter, "window_scan": ws.counter}
+                "onehot_encode": oh.counter, "window_scan": ws.counter,
+                "decode_attention": da.counter}
     launches = dict.fromkeys(counters, 0)
 
     t0 = time.perf_counter()
@@ -884,8 +1268,17 @@ def main() -> int:
     del out, frame
     log(f"[ordered] the profiled rerun is bit-identical; {time.perf_counter() - t0:.1f} s")
 
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log(f"[serve] {SERVE_ARCH} at full width through ServeEngine on {dev}")
+    for c in counters.values():
+        c.reset()
+    launches["decode_attention"] += serving_phase(torch, np, da, dev, card)
+    log(f"[serve] {time.perf_counter() - t0:.1f} s")
+
     record = []
-    for k in ("segment_reduce", "block_transpose", "onehot_encode", "window_scan"):
+    for k in ("segment_reduce", "block_transpose", "onehot_encode", "window_scan",
+              "decode_attention"):
         rec = dict(timings[k])
         rec["launches"] = launches[k]
         record.append(rec)

@@ -1,10 +1,11 @@
-"""Hand-written Hopper (sm_90a) CUDA kernels for the engine's hot operators,
-each beside its plain PyTorch version:
+"""Hand-written Hopper (sm_90a) CUDA kernels for the engine's hot operators
+and the serving step, each beside its plain PyTorch version:
 
   segment_reduce — GROUPBY partial aggregation
   block_transpose — TRANSPOSE's per-block transpose
   onehot_encode  — get_dummies
   window_scan    — WINDOW's ordered scans (cumsum / cummax / cummin / cumprod)
+  decode_attention — one decode token's GQA attention over the KV cache
 
 ``ops`` is the engine-facing surface; ``ref`` holds the plain versions.  The
 kernels build on first launch (``_build``), never at import.

@@ -25,13 +25,14 @@ __all__ = ["library", "check", "build_seconds", "SOURCES"]
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("segment_reduce.cu", "block_transpose.cu", "onehot_encode.cu",
-           "window_scan.cu")
+           "window_scan.cu", "decode_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
+_F32 = ctypes.c_float
 # (name, argtypes): every pointer and the stream as c_void_p, or ctypes would
 # pass them as 32-bit ints and cut them.
 _SIGNATURES = {
@@ -40,6 +41,9 @@ _SIGNATURES = {
     "repro_block_transpose": (_P, _P, _I64, _I64, _P),
     "repro_onehot_encode": (_P, _P, _I64, _I64, _P),
     "repro_window_scan": (_P, _P, _P, _I64, _I32, _I64, _I64, _I32, _I64, _P),
+    "repro_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32,
+                               _I32, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
+                               _I64, _I64, _I32, _F32, _P),
 }
 
 _LOCK = threading.Lock()

@@ -11,12 +11,13 @@ import torch
 
 from ._util import narrow_from_kernel, widen_for_kernel
 from .block_transpose import block_transpose as _transpose
+from .decode_attention import decode_attention as _decode
 from .onehot_encode import onehot_encode as _onehot
 from .segment_reduce import segment_reduce as _segred
 from .window_scan import window_scan as _winscan
 
 __all__ = ["transpose", "segment_reduce", "segment_reduce_multi",
-           "window_scan", "onehot_encode"]
+           "window_scan", "onehot_encode", "decode_attention"]
 
 _FLT_MAX = torch.finfo(torch.float32).max
 
@@ -85,3 +86,7 @@ def window_scan(x, op: str = "cumsum") -> torch.Tensor:
 
 def onehot_encode(codes, num_classes: int) -> torch.Tensor:
     return _onehot(codes.to(torch.int32), num_classes)
+
+
+def decode_attention(q, k_cache, v_cache, length, *, scale=None) -> torch.Tensor:
+    return _decode(q, k_cache, v_cache, length, scale=scale)

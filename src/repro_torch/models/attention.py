@@ -1,0 +1,189 @@
+"""Attention: GQA self-attention (RoPE, optional QKV bias, optional local
+window) and KV-cache decode.
+
+Execution paths, selected by ``impl`` as in the reference
+(``repro/models/attention.py``):
+  * "xla"     — einsum attention with explicit masks; fine for short S.
+  * "chunked" — query-chunked attention: never materializes S×S.
+  * "pallas"  — the fused kernels.  At decode, ``decode_self_attention``
+                sends it to ``kernels.ops.decode_attention`` (K7: the CUDA
+                kernel on a CUDA tensor, its plain version on the CPU).  The
+                forward's flash kernel (K6) is not ported yet.
+
+Shapes: x (B, S, d); params store the q/k/v projections (d, H·Dh).  KV
+caches are (B, S_max, K, Dh) with a per-slot length (B,).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import layers
+from ..kernels import ops as kops
+
+NEG = -1e30
+
+
+def attn_init(gen: torch.Generator, d_model: int, n_heads: int, n_kv: int,
+              head_dim: int, qkv_bias: bool = False,
+              dtype=layers.DEFAULT_PARAM_DTYPE) -> dict:
+    p = {"wq": layers.dense_init(gen, d_model, n_heads * head_dim, dtype),
+         "wk": layers.dense_init(gen, d_model, n_kv * head_dim, dtype),
+         "wv": layers.dense_init(gen, d_model, n_kv * head_dim, dtype),
+         "wo": layers.dense_init(gen, n_heads * head_dim, d_model, dtype)}
+    if qkv_bias:
+        for name, width in (("bq", n_heads), ("bk", n_kv), ("bv", n_kv)):
+            p[name] = torch.zeros((width * head_dim,), dtype=dtype, device=gen.device)
+    return p
+
+
+def _project_qkv(params, x, n_heads, n_kv, head_dim, positions, use_rope=True):
+    b, s, _ = x.shape
+    q, k, v = x @ params["wq"], x @ params["wk"], x @ params["wv"]
+    if "bq" in params:
+        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    q = q.reshape(b, s, n_heads, head_dim)
+    k = k.reshape(b, s, n_kv, head_dim)
+    v = v.reshape(b, s, n_kv, head_dim)
+    if use_rope:
+        q = layers.rope(q, positions)
+        k = layers.rope(k, positions)
+    return q, k, v
+
+
+def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
+    if groups == 1:
+        return k
+    return torch.repeat_interleave(k, groups, dim=2)
+
+
+# -----------------------------------------------------------------------------
+# core attention
+# -----------------------------------------------------------------------------
+def _mask(sq: int, sk: int, causal: bool, window, device, rows=None):
+    """(sq, sk) visibility, query ends aligned to key ends; ``rows`` (a range
+    of query rows) takes those rows only."""
+    rows = range(sq) if rows is None else rows
+    qpos = torch.arange(rows.start, rows.stop, device=device)[:, None] + (sk - sq)
+    kpos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((len(rows), sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def _masked_softmax_attention(q, k, v, mask, kv_len):
+    d = q.shape[-1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (1.0 / math.sqrt(d))
+    m = mask[None, None]
+    if kv_len is not None:
+        kpos = torch.arange(k.shape[1], device=q.device)
+        m = m & (kpos[None, None, None, :] < kv_len[:, None, None, None])
+    logits = torch.where(m, logits, NEG)
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+
+
+def _xla_attention(q, k, v, *, causal: bool, window: int | None, kv_len=None):
+    """q (B,Sq,H,D); k/v (B,Sk,H,D) — full-mask einsum path (f32 softmax)."""
+    mask = _mask(q.shape[1], k.shape[1], causal, window, q.device)
+    return _masked_softmax_attention(q, k, v, mask, kv_len)
+
+
+def _chunked_attention(q, k, v, *, causal: bool, window: int | None,
+                       chunk: int = 1024, kv_len=None):
+    """Query-chunked attention: O(chunk·Sk) live memory, never S×S."""
+    sq, sk = q.shape[1], k.shape[1]
+    if sq <= chunk:
+        return _xla_attention(q, k, v, causal=causal, window=window, kv_len=kv_len)
+    outs = []
+    for c0 in range(0, sq, chunk):
+        qi = q[:, c0:c0 + chunk]
+        mask = _mask(sq, sk, causal, window, q.device, range(c0, c0 + qi.shape[1]))
+        outs.append(_masked_softmax_attention(qi, k, v, mask, kv_len))
+    return torch.cat(outs, dim=1)
+
+
+def _pallas_attention(q, k, v, *, causal: bool, window: int | None):
+    raise NotImplementedError(
+        "attn_impl='pallas' in forward/prefill runs the flash-attention kernel K6 "
+        "(repro/kernels/flash_attention.py), which the port has not brought over yet "
+        "(ROADMAP M10, the next slice); use attn_impl 'auto', 'xla' or 'chunked'")
+
+
+def multihead_attention(q, k, v, *, causal=True, window=None, impl="xla", kv_len=None):
+    """q (B,Sq,H,D), k/v (B,Sk,Hkv,D) — GQA-expands kv then dispatches."""
+    groups = q.shape[2] // k.shape[2]
+    k, v = _repeat_kv(k, groups), _repeat_kv(v, groups)
+    if impl == "pallas" and kv_len is None:
+        return _pallas_attention(q, k, v, causal=causal, window=window)
+    if impl == "chunked":
+        return _chunked_attention(q, k, v, causal=causal, window=window, kv_len=kv_len)
+    return _xla_attention(q, k, v, causal=causal, window=window, kv_len=kv_len)
+
+
+# -----------------------------------------------------------------------------
+# block-level entry points
+# -----------------------------------------------------------------------------
+def self_attention(params: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
+                   head_dim: int, causal: bool = True, window: int | None = None,
+                   impl: str = "xla", positions: torch.Tensor | None = None,
+                   use_rope: bool = True) -> torch.Tensor:
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device).expand(b, s)
+    q, k, v = _project_qkv(params, x, n_heads, n_kv, head_dim, positions, use_rope)
+    out = multihead_attention(q, k, v, causal=causal, window=window, impl=impl)
+    return out.reshape(b, s, n_heads * head_dim) @ params["wo"]
+
+
+# -----------------------------------------------------------------------------
+# KV cache (decode path)
+# -----------------------------------------------------------------------------
+def cache_init(batch: int, s_max: int, n_kv: int, head_dim: int, device,
+               dtype=torch.bfloat16) -> dict:
+    return {"k": torch.zeros((batch, s_max, n_kv, head_dim), dtype=dtype, device=device),
+            "v": torch.zeros((batch, s_max, n_kv, head_dim), dtype=dtype, device=device)}
+
+
+def _write_slot(cache: torch.Tensor, new: torch.Tensor, length: torch.Tensor) -> None:
+    """cache[b, length[b]] = new[b] where length[b] < S, else nothing — the
+    reference's one-hot blend (attention.py:202-204) for finite caches, in
+    place and without a host sync: a past-the-end slot writes row S-1's own
+    value back, so nothing is indexed out of range."""
+    s = cache.shape[1]
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    slot = length.clamp(0, s - 1).long()
+    keep = cache[rows, slot]
+    inside = (length >= 0) & (length < s)
+    cache[rows, slot] = torch.where(inside[:, None, None], new.to(cache.dtype), keep)
+
+
+def decode_self_attention(params: dict, x: torch.Tensor, cache: dict,
+                          length: torch.Tensor, *, n_heads: int, n_kv: int,
+                          head_dim: int, window: int | None = None,
+                          impl: str = "xla", use_rope: bool = True):
+    """One-token decode step.  x (B,1,d); cache k/v (B,Smax,K,Dh); ``length``
+    (B,) valid-slot counts.  Returns (out (B,1,d), cache).  Unlike the
+    reference, the cache is written in place (the same dict comes back): a
+    functional copy would move the whole cache every layer of every step."""
+    b = x.shape[0]
+    positions = length[:, None]                                   # (B,1)
+    q, k, v = _project_qkv(params, x, n_heads, n_kv, head_dim, positions, use_rope)
+    _write_slot(cache["k"], k[:, 0], length)
+    _write_slot(cache["v"], v[:, 0], length)
+    kv_len = length + 1
+    if impl == "pallas":
+        # K7 takes one element type; the serving path's q and cache are both
+        # bf16, so the cast copies nothing there
+        out = kops.decode_attention(q.reshape(b, n_heads, head_dim), cache["k"].to(q.dtype),
+                                    cache["v"].to(q.dtype), kv_len)
+    else:
+        out = multihead_attention(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
+                                  causal=False, window=window, impl="xla",
+                                  kv_len=kv_len)
+    proj = out.reshape(b, 1, n_heads * head_dim) @ params["wo"]
+    return proj, cache

@@ -319,3 +319,152 @@ def test_cuda_window_scan_matches_plain(rng, cuda, m, n, op):
     else:
         tol = dict(rtol=0, atol=0) if op == "cumprod" else TOL
         torch.testing.assert_close(out, exp, equal_nan=True, **tol)
+
+
+# ---- decode_attention (K7) ----------------------------------------------------
+# f32 at rtol = atol = 2e-3, the tolerance of tests/test_kernels.py's
+# test_decode_attention; the reference's four shapes (H, KVH, S, length, D)
+from repro.kernels.decode_attention import decode_attention as pallas_decode  # noqa: E402
+from repro_torch.kernels import decode_attention as da_mod  # noqa: E402
+
+DECODE_TOL = dict(rtol=2e-3, atol=2e-3)
+DECODE_SHAPES = [(8, 2, 256, 100, 64), (16, 4, 333, 217, 64), (4, 4, 128, 128, 128),
+                 (8, 1, 700, 1, 64)]
+
+
+def _decode_inputs(rng, b, h, kvh, s, d):
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, s, kvh, d)).astype(np.float32)
+    v = rng.standard_normal((b, s, kvh, d)).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize("h,kvh,s,length,d", DECODE_SHAPES)
+def test_decode_attention_plain_matches_ref(rng, h, kvh, s, length, d):
+    q, k, v = (a[0] for a in _decode_inputs(rng, 1, h, kvh, s, d))
+    exp = np.asarray(rref.decode_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), length))
+    np.testing.assert_allclose(tref.decode_attention(_t(q), _t(k), _t(v), length).numpy(),
+                               exp, **DECODE_TOL)
+    np.testing.assert_allclose(tops.decode_attention(_t(q), _t(k), _t(v), length).numpy(),
+                               exp, **DECODE_TOL)
+
+
+@pytest.mark.parametrize("h,kvh,s,length,d", DECODE_SHAPES)
+def test_decode_attention_plain_matches_pallas(rng, use_pallas_kernels, h, kvh, s, length, d):
+    """The Pallas kernel in interpret mode, reached through the reference's
+    ops dispatch as on the TPU."""
+    q, k, v = (a[0] for a in _decode_inputs(rng, 1, h, kvh, s, d))
+    assert rops.use_pallas()
+    exp = np.asarray(rops.decode_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), length))
+    np.testing.assert_allclose(tref.decode_attention(_t(q), _t(k), _t(v), length).numpy(),
+                               exp, **DECODE_TOL)
+
+
+def test_decode_attention_plain_batched_lengths(rng):
+    """Per-slot lengths 1, S, S + 5 (all S slots valid, as the reference's
+    mask makes it) and one in between, in one batched call, against the
+    reference slot by slot and against the Pallas kernel (S a multiple of
+    its 128-row tile: see the next test)."""
+    b, h, kvh, s, d = 4, 8, 2, 128, 64
+    q, k, v = _decode_inputs(rng, b, h, kvh, s, d)
+    lengths = np.array([1, s, s + 5, 37], np.int32)
+    out = tref.decode_attention(_t(q), _t(k), _t(v), _t(lengths)).numpy()
+    assert out.shape == (b, h, d) and out.dtype == np.float32
+    for i, n in enumerate(lengths):
+        args = (jnp.asarray(q[i]), jnp.asarray(k[i]), jnp.asarray(v[i]), int(n))
+        np.testing.assert_allclose(out[i], np.asarray(rref.decode_attention(*args)), **DECODE_TOL)
+        np.testing.assert_allclose(out[i], np.asarray(pallas_decode(*args)), **DECODE_TOL)
+    # a length past S equals a length of S exactly
+    np.testing.assert_array_equal(out[2], tref.decode_attention(_t(q[2]), _t(k[2]), _t(v[2]), s).numpy())
+
+
+def test_decode_attention_length_past_unaligned_s_follows_ref(rng):
+    """A length past S counts S slots, as ref.decode_attention does.  The
+    Pallas kernel pads S up to its tile with zero rows and, given a length
+    past S, counts the padding too (ROADMAP, known divergences); the port
+    follows ref."""
+    s = 96
+    q, k, v = (a[0] for a in _decode_inputs(rng, 1, 8, 2, s, 64))
+    args = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), s + 5)
+    got = tref.decode_attention(_t(q), _t(k), _t(v), s + 5).numpy()
+    np.testing.assert_allclose(got, np.asarray(rref.decode_attention(*args)), **DECODE_TOL)
+    assert np.abs(got - np.asarray(pallas_decode(*args))).max() > DECODE_TOL["atol"]
+
+
+def test_decode_attention_plain_bf16_keeps_dtype(rng):
+    q, k, v = (_t(a).to(torch.bfloat16) for a in _decode_inputs(rng, 2, 8, 2, 50, 32))
+    out = tref.decode_attention(q, k, v, torch.tensor([3, 50], dtype=torch.int32))
+    assert out.dtype == torch.bfloat16 and out.shape == (2, 8, 32)
+    exp = rref.decode_attention(jnp.asarray(q[1].float().numpy()).astype(jnp.bfloat16),
+                                jnp.asarray(k[1].float().numpy()).astype(jnp.bfloat16),
+                                jnp.asarray(v[1].float().numpy()).astype(jnp.bfloat16), 50)
+    np.testing.assert_allclose(out[1].float().numpy(), np.asarray(exp.astype(jnp.float32)),
+                               rtol=5e-2, atol=5e-2)
+
+
+def test_decode_attention_plain_length_zero_is_ref_mean_of_v(rng):
+    """No valid slot: the plain version gives the mean of V, as
+    repro.kernels.ref does (the kernels give 0; ROADMAP, known divergences).
+    Decode never reaches it: its lengths are >= 1."""
+    q, k, v = (a[0] for a in _decode_inputs(rng, 1, 4, 2, 16, 8))
+    got = tref.decode_attention(_t(q), _t(k), _t(v), 0).numpy()
+    exp = np.asarray(rref.decode_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 0))
+    np.testing.assert_allclose(got, exp, **DECODE_TOL)
+    np.testing.assert_allclose(got.reshape(2, 2, 8), np.broadcast_to(v.mean(0)[:, None], (2, 2, 8)),
+                               **DECODE_TOL)
+
+
+@pytest.mark.parametrize("s,n", [(1, 1), (127, 1), (128, 1), (129, 2), (1024, 8), (32768, 256)])
+def test_decode_attention_split_plan(s, n):
+    """The kernel gives each (slot, KV head) ceil(S / 128) CTAs: a function
+    of S alone, so no slot's result depends on another's length."""
+    assert da_mod.splits(s) == n
+
+
+def test_decode_attention_cpu_takes_the_plain_path(rng):
+    da_mod.counter.reset()
+    q, k, v = (_t(a) for a in _decode_inputs(rng, 2, 4, 2, 20, 16))
+    lengths = torch.tensor([5, 20], dtype=torch.int32)
+    torch.testing.assert_close(tops.decode_attention(q, k, v, lengths),
+                               da_mod.decode_attention_plain(q, k, v, lengths), rtol=0, atol=0)
+    assert da_mod.counter.launches == 0
+    with pytest.raises(ValueError, match="all be on the CPU or all on one CUDA"):
+        da_mod.decode_attention(q, k, v, lengths.to("meta"))
+
+
+@pytest.mark.parametrize("h,kvh,s,length,d", DECODE_SHAPES)
+def test_cuda_decode_attention_matches_plain(rng, cuda, h, kvh, s, length, d):
+    q, k, v = (_t(a).to(cuda) for a in _decode_inputs(rng, 3, h, kvh, s, d))
+    lengths = torch.tensor([length, s, s + 5], dtype=torch.int32, device=cuda)
+    out = da_mod.decode_attention(q, k, v, lengths)
+    assert torch.equal(out, da_mod.decode_attention(q, k, v, lengths))
+    torch.testing.assert_close(out, da_mod.decode_attention_plain(q, k, v, lengths), **DECODE_TOL)
+    single = da_mod.decode_attention(q[0], k[0], v[0], length)
+    torch.testing.assert_close(single, out[0], rtol=0, atol=0)
+
+
+def test_cuda_decode_attention_bf16_main_shape(rng, cuda):
+    """yi-6b's serving shape, bf16, within about one bf16 ulp at |x| < 1
+    (4e-3; the kernel reads 1.2e-4 to 2.4e-4 there on an H100); a zero
+    length gives 0, as the Pallas kernel does."""
+    b, h, kvh, s, d = 8, 32, 4, 1024, 128
+    q, k, v = (_t(a).to(cuda, torch.bfloat16) for a in _decode_inputs(rng, b, h, kvh, s, d))
+    lengths = torch.tensor([1, 200, 511, 512, 513, 1000, s, s + 7], dtype=torch.int32, device=cuda)
+    out = da_mod.decode_attention(q, k, v, lengths)
+    assert out.dtype == torch.bfloat16
+    for _ in range(10):
+        assert torch.equal(out, da_mod.decode_attention(q, k, v, lengths))
+    torch.testing.assert_close(out.float(), da_mod.decode_attention_plain(q, k, v, lengths).float(),
+                               rtol=4e-3, atol=4e-3)
+    zero = da_mod.decode_attention(q, k, v, torch.zeros(b, dtype=torch.int32, device=cuda))
+    assert torch.equal(zero, torch.zeros_like(zero))
+
+
+def test_cuda_decode_attention_refuses_mixed_dtypes(rng, cuda):
+    """The kernel takes q and the caches in one element type."""
+    q, k, v = (_t(a).to(cuda) for a in _decode_inputs(rng, 2, 8, 2, 64, 32))
+    lengths = torch.tensor([5, 64], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="all float32 or all bfloat16"):
+        da_mod.decode_attention(q, k.bfloat16(), v.bfloat16(), lengths)
+    with pytest.raises(ValueError, match="all float32 or all bfloat16"):
+        da_mod.decode_attention(q.bfloat16(), k, v, lengths)
