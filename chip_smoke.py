@@ -15,7 +15,13 @@ Phases (any failure raises and the script exits non-zero):
                  shapes, strided columns and one of more than 2^31 elements,
                  every case run twice and bit-identical; decode_attention
                  (K7) at the reference's four f32 shapes and at the serving
-                 shape in bf16, ten reruns bit-identical
+                 shape in bf16, ten reruns bit-identical; linear_scan (K5)
+                 at the reference's three shapes, T = 0 and 1, a batched
+                 call and phase 8's (2, 4096, 4096) as the RG-LRU makes it,
+                 ten reruns bit-identical; flash_attention (K6) at the
+                 reference's four shapes x window (None, 32) in f32 and
+                 bf16, at yi-6b's and recurrentgemma-9b's prefill shapes in
+                 bf16 (ten reruns bit-identical), rows before every key 0
   (4, 5 and 6 time each step unprofiled, then run the steps once more under
   the CUDA profiler for the device's busy time within each)
   4. fig6      — the Fig. 6 mix at 16,000,000 rows of taxi_like_frame in an
@@ -46,7 +52,19 @@ Phases (any failure raises and the script exits non-zero):
                  which two deliberately wrong attentions must break; one request
                  served alone and alongside seven others gives identical
                  tokens; a run with max_seq=64 and a 100-token request (every
-                 length passes max_seq) matches its "xla" run
+                 length passes max_seq) matches its "xla" run.  Then a
+                 prefill of 4 x 1,024 tokens, every layer's attention on K6
+                 (32 launches), against "xla" at every 128th position
+  8. prefill   — recurrentgemma-9b at full width (38 layers: 26 RG-LRU, 12
+                 local with window 2048; d 4096, vocab 256,000; 7.5e9
+                 random bf16 parameters, Λ as Griffin initialises it) through
+                 Model.prefill, B 2 x 4,096 tokens: K5 26 and K6 12 launches
+                 a forward, timed, then once under the CUDA profiler.
+                 Checks: the "chunked" forward at every 64th position within
+                 RG_CHUNKED_LIMITS, which K6 ignoring the window and K5
+                 dropping its chunk carry must each break; 2,112
+                 teacher-forced decode steps (no K5 or K6; the ring buffers
+                 wrap) against the forward at every position
 
 Run from the root of a checkout:  python3 chip_smoke.py
 The last two lines of standard output are the kernels' JSON record and
@@ -63,6 +81,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 FP32_OPS_PER_S = 67e12             # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12            # H100 SXM bf16 tensor cores, dense
 TAXI_ROWS = 16_000_000             # about one month of NYC yellow-cab trips
 SERVE_ARCH = "yi-6b"
 SERVE_BATCH, SERVE_SEQ = 8, 1024   # engine slots, cache positions per slot
@@ -89,6 +108,22 @@ TOP1_AGREE_MIN = 0.9     # top-1 agreement over check 3's steps
 # max |logit diff|
 NEAR_TIE = 0.3
 MATRIX_ROWS, MATRIX_COLS = TAXI_ROWS // 10, 64   # bench_fig6.py:78
+# Limits on the full-width prefills, (max |logit diff|, mean |logit diff|,
+# top-1 agreement): twice the sound runs' max and mean readings on an H100,
+# rounded to two digits (PERF.md, "Limits"), agreement at least 0.9.  Sound
+# readings: yi-6b K6 vs xla 0.1455 / 0.02157 / 0.9688; recurrentgemma-9b K6
+# vs chunked 0.1104 / 0.01536 / 1.0, decode vs forward 0.1248 / 0.01612 /
+# 1.0.  recurrentgemma ties its embeddings, so with random weights each
+# position's top-1 is its own input token and agreement says little there.
+# Phase 8 runs two deliberately wrong kernels, which must break the chunked
+# limits: K6 ignoring the window read 0.2774 / 0.0251 (caught by the max
+# alone: random weights make attention near-uniform, so the window moves
+# the logits little), K5 dropping its chunk carry 0.8193 / 0.103.
+YI_PREFILL_LIMITS = (0.29, 0.043, 0.9)     # K6 vs xla, yi-6b
+RG_CHUNKED_LIMITS = (0.22, 0.031, 0.9)     # K6 vs chunked, recurrentgemma-9b
+RG_DECODE_LIMITS = (0.25, 0.032, 0.9)      # decode vs the K5 / K6 forward
+DECODE_STEPS = 2112                        # past the local window of 2048
+
 
 
 def log(msg: str) -> None:
@@ -136,8 +171,8 @@ def device_ms(fn, names: tuple, iters: int = 20) -> float:
                if any(n in e.key for n in names)) / iters / 1e3
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -362,7 +397,7 @@ def check_decode_attention(torch, da, dev) -> None:
     """The reference's four f32 shapes (three slots each: the shape's length,
     S, and S + 5) at rtol = atol = 2e-3; the serving shape in bf16 at
     K7_BF16_TOL, ten reruns bit-identical; a
-    zero length gives 0, as the Pallas kernel does."""
+    zero length gives 0 (ROADMAP, known divergences)."""
     gen = torch.Generator(device=dev).manual_seed(3)
     worst = 0.0
     for h, kvh, s, length, d in DECODE_SHAPES:
@@ -396,6 +431,145 @@ def check_decode_attention(torch, da, dev) -> None:
         f"length 0 gives 0")
 
 
+# K5 and K6 against their plain versions.  f32 at the reference's 2e-3
+# (tests/test_kernels.py); the kernels read ~1e-6 there on an H100 (PERF.md,
+# the kernel table).  bf16 K6: both sides round one float32 result to
+# bf16, so they may part by one bf16 ulp (at most 2^-7 |x|) plus the
+# float32 difference (under 1e-6 in the f32 cases): rtol 2^-7, atol 1e-5.
+K5_TOL = 2e-3
+K6_F32_TOL = 2e-3
+K6_BF16_RTOL, K6_BF16_ATOL = 2.0 ** -7, 1e-5
+FLASH_SHAPES = [(2, 128, 128, 64), (4, 200, 200, 64), (1, 64, 256, 128),
+                (2, 333, 333, 80)]   # (H, Sq, Sk, D): tests/test_kernels.py
+PREFILL_ARCH = "recurrentgemma-9b"
+PREFILL_BATCH, PREFILL_SEQ = 2, 4096          # past the local window of 2048
+YI_PREFILL_BATCH, YI_PREFILL_SEQ = 4, 1024
+
+
+def griffin_lam(torch, n: int, gen):
+    """Λ as Griffin initialises it (arXiv:2402.19427 §2.4): a = exp(-8 *
+    softplus(Λ)) at r = 1 uniform in [0.9, 0.999], so the recurrence
+    remembers tens to thousands of steps.  The reference's linspace(2, 5)
+    makes a_t < e^-8: no memory, and a fault in K5's carry could not show
+    in the logits."""
+    a = 0.9 + 0.099 * torch.rand(n, generator=gen, device=gen.device, dtype=torch.float64)
+    sp = -torch.log(a) / 8.0
+    return torch.log(torch.expm1(sp)).float()
+
+
+def rglru_like(torch, shape, gen):
+    """(a, b) float32 as _rglru_coeffs makes them from N(0, 1) gate
+    pre-activations and inputs, with Griffin's Λ."""
+    lam = griffin_lam(torch, shape[-1], gen)
+    r = torch.sigmoid(torch.randn(shape, generator=gen, device=gen.device))
+    log_a = -8.0 * r * torch.nn.functional.softplus(lam)
+    i = torch.sigmoid(torch.randn(shape, generator=gen, device=gen.device))
+    u = torch.randn(shape, generator=gen, device=gen.device)
+    b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6)) * i * u
+    return torch.exp(log_a), b
+
+
+def check_linear_scan(torch, ls, dev) -> None:
+    """The reference's three (T, N) shapes with a in [0, 0.95), T = 0 and 1,
+    a batched (B, T, N) call and phase 8's (2, 4096, 4096) as the RG-LRU
+    makes it, at K5_TOL; every case twice, bit-identical; the main shape ten
+    times."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    worst = 0.0
+    for shape in [(16, 8), (300, 17), (1025, 64), (0, 5), (1, 5), (3, 129, 70),
+                  (2, 4097, 33)]:
+        a = torch.rand(shape, generator=gen, device=dev) * 0.95
+        b = torch.randn(shape, generator=gen, device=dev)
+        got = ls.linear_scan(a, b)
+        if got.shape != a.shape or not torch.equal(got, ls.linear_scan(a, b)):
+            raise AssertionError(f"linear_scan {shape}: shape or reruns differ")
+        want = ls.linear_scan_plain(a, b)
+        torch.testing.assert_close(got, want, rtol=K5_TOL, atol=K5_TOL,
+                                   msg=lambda m: f"linear_scan {shape}: {m}")
+        if got.numel():
+            worst = max(worst, float((got - want).abs().max()))
+    a, b = rglru_like(torch, (PREFILL_BATCH, PREFILL_SEQ, 4096), gen)
+    got = ls.linear_scan(a, b)
+    for _ in range(10):
+        if not torch.equal(got, ls.linear_scan(a, b)):
+            raise AssertionError("linear_scan main shape: reruns differ")
+    err = float((got - ls.linear_scan_plain(a, b)).abs().max())
+    assert err <= K5_TOL, err
+    log(f"  linear_scan: 7 shapes within {K5_TOL} of the plain version (worst {worst:.3g}), "
+        f"reruns bit-identical; {list(a.shape)} with a in [{float(a.min()):.4g}, "
+        f"{float(a.max()):.4g}] max |err| {err:.3g}, 10 reruns bit-identical")
+
+
+def flash_main_inputs(torch, dev, which: str):
+    """K6 at its main shapes, bf16: yi-6b's prefill (phase 7; causal, 32
+    heads over 4 KV heads, D 128) or recurrentgemma-9b's local layers
+    (phase 8; causal with a window of 2048, 16 heads over 1, D 256)."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    if which == "yi":
+        b, s, h, kvh, d, window = YI_PREFILL_BATCH, YI_PREFILL_SEQ, 32, 4, 128, None
+    else:
+        b, s, h, kvh, d, window = PREFILL_BATCH, PREFILL_SEQ, 16, 1, 256, 2048
+    q = torch.randn((b, s, h, d), generator=gen, device=dev).bfloat16()
+    k = torch.randn((b, s, kvh, d), generator=gen, device=dev).bfloat16()
+    v = torch.randn((b, s, kvh, d), generator=gen, device=dev).bfloat16()
+    return q, k, v, window
+
+
+def bf16_ratio(torch, got, want) -> float:
+    """max |got - want| / (K6_BF16_ATOL + K6_BF16_RTOL * |want|): at most 1
+    within the limit."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() / (K6_BF16_ATOL + K6_BF16_RTOL * want.abs())).max())
+
+
+def check_flash_attention(torch, fa, dev) -> None:
+    """The reference's four shapes x window (None, 32) in f32 at K6_F32_TOL
+    and in bf16 at the bf16 limit; both main shapes in bf16, ten reruns
+    bit-identical; causal rows before every key (Sq > Sk) give 0 (ROADMAP,
+    known divergences)."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+    worst32 = worst16 = 0.0
+    for h, sq, sk, d in FLASH_SHAPES:
+        q = torch.randn((h, sq, d), generator=gen, device=dev)
+        k = torch.randn((h, sk, d), generator=gen, device=dev)
+        v = torch.randn((h, sk, d), generator=gen, device=dev)
+        for window in (None, 32):
+            tag = f"flash_attention {(h, sq, sk, d)} window={window}"
+            got = fa.flash_attention(q, k, v, window=window)
+            if not torch.equal(got, fa.flash_attention(q, k, v, window=window)):
+                raise AssertionError(f"{tag}: runs differ")
+            want = fa.flash_attention_plain(q, k, v, window=window)
+            torch.testing.assert_close(got, want, rtol=K6_F32_TOL, atol=K6_F32_TOL,
+                                       msg=lambda m: f"{tag} f32: {m}")
+            worst32 = max(worst32, float((got - want).abs().max()))
+            qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+            r = bf16_ratio(torch, fa.flash_attention(qb, kb, vb, window=window),
+                           fa.flash_attention_plain(qb, kb, vb, window=window))
+            assert r <= 1.0, f"{tag} bf16: {r:.3g} of the limit"
+            worst16 = max(worst16, r)
+    msgs = []
+    for which in ("yi", "rg"):
+        q, k, v, window = flash_main_inputs(torch, dev, which)
+        got = fa.flash_attention(q, k, v, window=window)
+        for _ in range(10):
+            if not torch.equal(got, fa.flash_attention(q, k, v, window=window)):
+                raise AssertionError(f"flash_attention {which} main shape: reruns differ")
+        want = fa.flash_attention_plain(q, k, v, window=window)
+        r = bf16_ratio(torch, got, want)
+        assert r <= 1.0, f"flash_attention {which} main shape bf16: {r:.3g} of the limit"
+        msgs.append(f"{list(q.shape)} x {list(k.shape)} window={window} max |err| "
+                    f"{float((got.float() - want.float()).abs().max()):.3g} ({r:.3g} of the limit)")
+        del q, k, v, got, want
+    q = torch.randn((2, 300, 8, 64), generator=gen, device=dev)
+    kv = torch.randn((2, 100, 2, 64), generator=gen, device=dev)
+    unseen = fa.flash_attention(q, kv, kv)[:, :200]
+    assert torch.equal(unseen, torch.zeros_like(unseen)), "flash_attention: unseen rows are not 0"
+    log(f"  flash_attention: {len(FLASH_SHAPES)} shapes x window (None, 32) f32 within "
+        f"{K6_F32_TOL} (worst {worst32:.3g}), bf16 within {K6_BF16_RTOL:.4g}|x| + "
+        f"{K6_BF16_ATOL} (worst {worst16:.3g} of it), reruns bit-identical; main shapes bf16, "
+        f"10 reruns bit-identical: {'; '.join(msgs)}; rows before every key give 0")
+
+
 def check_wide_aggregate(torch, dev) -> None:
     """An all-column aggregate of a frame wider than one segment_reduce
     launch takes (the wide output of .T): on the card and on the CPU."""
@@ -414,7 +588,7 @@ def check_wide_aggregate(torch, dev) -> None:
     log("  wide aggregate: .T.count() / .sum() / .max() over 3,000 columns match the CPU")
 
 
-def time_kernels(torch, sr, bt, oh, ws, da, dev, pool: int) -> dict:
+def time_kernels(torch, sr, bt, oh, ws, da, ls, fa, dev, pool: int) -> dict:
     """Kernel, plain and library times at the main path's shapes; each
     kernel's error against its plain version is asserted, not only shown."""
     import torch.nn.functional as F
@@ -519,6 +693,54 @@ def time_kernels(torch, sr, bt, oh, ws, da, dev, pool: int) -> dict:
     log(f"  decode_attention {out['decode_attention']['shape']}: {keys} valid cache rows; "
         f"scaled_dot_product_attention (enable_gqa, length mask) off the plain version by "
         f"{lib_err:.3g}")
+    # linear scan: one RG-LRU layer of phase 8's prefill; no single PyTorch
+    # call computes the recurrence
+    gen = torch.Generator(device=dev).manual_seed(7)
+    a, b = rglru_like(torch, (PREFILL_BATCH, PREFILL_SEQ, 4096), gen)
+    b_bound, by = bound_ms(3 * a.numel() * 4, 2 * a.numel())
+    out["linear_scan"] = dict(
+        name="linear_scan", route="cuda", source="src/repro_torch/csrc/linear_scan.cu",
+        replaces="src/repro/kernels/linear_scan.py:49", shape=list(a.shape),
+        max_abs_err=float((ls.linear_scan(a, b) - ls.linear_scan_plain(a, b)).abs().max()),
+        ms=cuda_ms(lambda: ls.linear_scan(a, b)),
+        device_ms=device_ms(lambda: ls.linear_scan(a, b),
+                            ("lin_summaries", "lin_carries", "lin_apply")),
+        plain_ms=cuda_ms(lambda: ls.linear_scan_plain(a, b), iters=3, warmup=1),
+        library_ms=None, bound_ms=b_bound, bound_by=by)
+    del a, b
+    # flash attention: one local layer of phase 8's prefill (the JSON row)
+    # and one layer of phase 7's yi-6b prefill; the library call is
+    # scaled_dot_product_attention with enable_gqa and a causal / band mask
+    for which in ("rg", "yi"):
+        q, k, v, window = flash_main_inputs(torch, dev, which)
+        bsz, s, h, d = q.shape
+        kvh = k.shape[2]
+        mask = fa._mask(s, s, True, window, dev)
+        pairs = int(mask.sum()) * bsz * h       # visible (query, key) pairs
+        qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+        if window is None:
+            lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+        else:
+            lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)
+        got, want = fa.flash_attention(q, k, v, window=window), fa.flash_attention_plain(q, k, v, window=window)
+        lib_err = float((lib().transpose(1, 2).float() - want.float()).abs().max())
+        b_bound, by = bound_ms(2 * (q.numel() + k.numel() + v.numel() + q.numel()), 4 * d * pairs,
+                               BF16_OPS_PER_S)
+        rec = dict(
+            name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:75", shape=[bsz, s, h, kvh, d, window],
+            max_abs_err=float((got.float() - want.float()).abs().max()),
+            ms=cuda_ms(lambda: fa.flash_attention(q, k, v, window=window), iters=10),
+            device_ms=device_ms(lambda: fa.flash_attention(q, k, v, window=window), ("flash_fwd",),
+                                iters=10),
+            plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, window=window), iters=3,
+                             warmup=1),
+            library_ms=cuda_ms(lib, iters=10), bound_ms=b_bound, bound_by=by)
+        log(f"  flash_attention {rec['shape']}: {pairs} visible pairs, {4 * d * pairs / 1e9:.4g} "
+            f"GFLOP at {4 * d * pairs / rec['device_ms'] / 1e9:.4g} TFLOP/s on the device; "
+            f"scaled_dot_product_attention off the plain version by {lib_err:.3g}")
+        out["flash_attention" if which == "rg" else "flash_attention_yi"] = rec
+        del q, k, v, got, want, mask, qs, ks, vs
     return out
 
 
@@ -1013,13 +1235,68 @@ def logit_readings(got, want) -> tuple[float, float, float]:
     return float(d.max()), float(d.mean()), float(agree)
 
 
-def within_logit_limits(readings) -> bool:
-    diff, mean, agree = readings
-    return diff <= FULL_LOGIT_TOL and mean <= MEAN_LOGIT_TOL and agree >= TOP1_AGREE_MIN
+SERVE_LIMITS = (FULL_LOGIT_TOL, MEAN_LOGIT_TOL, TOP1_AGREE_MIN)
 
 
-def serving_phase(torch, np, da, dev, card: str) -> int:
-    """Phase 7; returns K7's launches in the main serving run."""
+def within_logit_limits(readings, limits=SERVE_LIMITS) -> bool:
+    (diff, mean, agree), (max_tol, mean_tol, agree_min) = readings, limits
+    return diff <= max_tol and mean <= mean_tol and agree >= agree_min
+
+
+def show_readings(what: str, readings, limits) -> str:
+    return (f"{what}: max |logit diff| {readings[0]:.4g} (limit {limits[0]}), mean "
+            f"{readings[1]:.4g} (limit {limits[1]}), top-1 agreement {readings[2]:.4f} "
+            f"(at least {limits[2]})")
+
+
+def logits_at(torch, transformer, params, toks, cfg, positions):
+    """Logits (B, len(positions), V) of the forward at ``positions``: the
+    whole forward, then the final norm and unembedding of those rows only."""
+    with torch.inference_mode():
+        x = transformer.hidden(params, toks, cfg)
+        return transformer.logits(params, x[:, positions], cfg)
+
+
+def prefill_ms(torch, model, params, toks, runs: int = 3) -> list:
+    """Wall ms of ``runs`` prefills after one warm-up, each ending in a sync."""
+    times = []
+    with torch.inference_mode():
+        for _ in range(runs + 1):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            model.prefill(params, toks)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+    return times[1:]
+
+
+def profile_window(torch, fn, per: int, label: str) -> None:
+    """Run ``fn`` under the CUDA profiler; print the device's busy share of
+    the window's wall and its largest device activities, per ``per``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    # the device's own records only: an aten op's row carries the durations
+    # of the kernels it launched as well, so summing every row counts twice
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in events) / 1e6
+    log(f"  {label}: device busy {busy * 1e3:.3f} ms of {wall * 1e3:.3f} ms wall "
+        f"({100 * busy / wall:.2f}%), {wall / per * 1e3:.3f} ms a {label.split()[0]} under the "
+        f"profiler; {sum(e.count for e in events) / per:.0f} device activities each; the "
+        f"largest, device ms each (calls each):")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"    {e.self_device_time_total / per / 1e3:.4f} ({e.count / per:.0f})  {e.key[:90]}")
+
+
+def serving_phase(torch, np, da, dev, card: str) -> tuple[int, int]:
+    """Phase 7; returns K7's launches in the main serving run and K6's in
+    the main prefill run."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import build_model, transformer
@@ -1073,28 +1350,14 @@ def serving_phase(torch, np, da, dev, card: str) -> int:
         f"max_memory_allocated {peak / 1e9:.3f} GB; final lengths {lengths}")
 
     # device busy share over 20 steps of the same traffic, under the profiler
-    from torch.profiler import ProfilerActivity, profile
     warm = serve(model, params, prompts, steps=40)
     weng = warm["engine"]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
+
+    def twenty():
         for _ in range(20):
             weng.step()
-        wall = time.perf_counter() - t
-    # the device's own records only: an aten op's row carries the durations
-    # of the kernels it launched as well, so summing every row counts twice
-    from torch.autograd import DeviceType
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in events) / 1e6
-    log(f"  profiled window, steps 41-60: device busy {busy * 1e3:.3f} ms of {wall * 1e3:.3f} ms "
-        f"wall ({100 * busy / wall:.2f}%), {wall / 20 * 1e3:.3f} ms a step under the profiler; "
-        f"{sum(e.count for e in events) / 20:.0f} device activities a step; the largest, "
-        f"device ms a step (calls a step):")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"    {e.self_device_time_total / 20 / 1e3:.4f} ({e.count / 20:.0f})  {e.key[:90]}")
-    del warm, weng, prof
+    profile_window(torch, twenty, 20, "step (profiled window, steps 41-60)")
+    del warm, weng
 
     # check 2: the same requests, attention on the einsum path
     oracle = serve(oracle_model, params, prompts, record=True)
@@ -1139,6 +1402,31 @@ def serving_phase(torch, np, da, dev, card: str) -> int:
             raise AssertionError(f"check 3's limits do not catch K7 with {name}: {bad}")
     del want
 
+    # prefill: B 4 x 1,024 tokens, every layer's attention on K6 (the main
+    # path: the counters are reset just before it), against attn_impl="xla"
+    # at the last position and every 128th
+    from repro_torch.kernels import flash_attention as fa
+    rng = np.random.default_rng(2)
+    ptoks = torch.tensor(rng.integers(3, cfg.vocab, (YI_PREFILL_BATCH, YI_PREFILL_SEQ)),
+                         dtype=torch.int32, device=dev)
+    fa.counter.reset()
+    with torch.inference_mode():
+        model.prefill(params, ptoks)
+    torch.cuda.synchronize()
+    k6 = fa.counter.launches
+    if k6 != cfg.n_layers:
+        raise AssertionError(f"yi-6b prefill launched flash_attention {k6} times, not {cfg.n_layers}")
+    times = prefill_ms(torch, model, params, ptoks)
+    positions = list(range(127, YI_PREFILL_SEQ, 128))
+    readings = logit_readings(logits_at(torch, transformer, params, ptoks, cfg, positions),
+                              logits_at(torch, transformer, params, ptoks, xla, positions))
+    log(f"  prefill {YI_PREFILL_BATCH} x {YI_PREFILL_SEQ} tokens, attn_impl auto (K6): "
+        f"flash_attention launches {k6} = {cfg.n_layers} layers; wall ms {times} (median "
+        f"{np.median(times):.3f}) | {card}")
+    log("  " + show_readings(f"K6 vs xla at positions 127, 255, ..., {YI_PREFILL_SEQ - 1}",
+                             readings, YI_PREFILL_LIMITS))
+    assert within_logit_limits(readings, YI_PREFILL_LIMITS), readings
+
     # check 4: one request alone, then beside seven others
     short = [p[:96] for p in prompts[:SERVE_BATCH]]
     alone = serve(model, params, short[:1])["reqs"][0].out_ids
@@ -1160,6 +1448,141 @@ def serving_phase(torch, np, da, dev, card: str) -> int:
         f"near-tie, max |logit diff| {worst:.4g}")
     del runs, model, oracle_model, params
     torch.cuda.empty_cache()
+    return launches, k6
+
+
+# -----------------------------------------------------------------------------
+# phase 8: prefill of recurrentgemma-9b at full width
+# -----------------------------------------------------------------------------
+def prefill_phase(torch, np, fa, ls, dev, card: str) -> dict:
+    """Phase 8; returns K5's and K6's launches in the main prefill run."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import build_model, transformer
+    cfg = get_config(PREFILL_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    lam_gen = torch.Generator(device=dev).manual_seed(1)
+    with torch.no_grad():
+        for p in params["layers"]:
+            if "rglru" in p:
+                p["rglru"]["lam"].copy_(griffin_lam(torch, cfg.rnn_width_, lam_gen))
+    torch.cuda.synchronize()
+    kinds = transformer.layer_kinds(cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  {cfg.name}: {cfg.n_layers} layers ({kinds.count('rglru')} rglru, "
+        f"{kinds.count('local')} local, window {cfg.window}), d {cfg.d_model}, "
+        f"{cfg.n_heads} heads over {cfg.n_kv} KV head, head dim {cfg.head_dim_}, "
+        f"ff {cfg.d_ff}, vocab {cfg.vocab}; {n_params} parameters ({cfg.param_count()[0]} by "
+        f"the config's count, which leaves out each rglru layer's {cfg.rnn_width_} Λ), random "
+        f"from seed 0, Λ as Griffin's init: {time.perf_counter() - t0:.1f} s")
+    chunked = dataclasses.replace(cfg, attn_impl="chunked")
+    rng = np.random.default_rng(3)
+    toks = torch.tensor(rng.integers(3, cfg.vocab, (PREFILL_BATCH, PREFILL_SEQ)),
+                        dtype=torch.int32, device=dev)
+    counters = {"linear_scan": ls.counter, "flash_attention": fa.counter}
+
+    # the main path: one prefill, every RG-LRU on K5 and every local
+    # attention on K6
+    for c in counters.values():
+        c.reset()
+    with torch.inference_mode():
+        last = model.prefill(params, toks)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    want = {"linear_scan": kinds.count("rglru"), "flash_attention": kinds.count("local")}
+    if launches != want:
+        raise AssertionError(f"prefill launches {launches}, want {want}")
+    assert last.shape == (PREFILL_BATCH, cfg.vocab) and bool(torch.isfinite(last).all())
+    times = prefill_ms(torch, model, params, toks)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  prefill {PREFILL_BATCH} x {PREFILL_SEQ} tokens, attn_impl auto: launches "
+        f"{launches} = one a layer; wall ms {times} (median {np.median(times):.3f}, "
+        f"{PREFILL_BATCH * PREFILL_SEQ / np.median(times) * 1e3:.1f} tokens/s); "
+        f"max_memory_allocated {peak / 1e9:.3f} GB | {card}")
+
+    def one_prefill():
+        with torch.inference_mode():
+            model.prefill(params, toks)
+    profile_window(torch, one_prefill, 1, "prefill (profiled)")
+
+    # check 1: the "chunked" forward (einsum attention; K5 as well) at the
+    # last position and every 64th.  Every check below runs and prints
+    # before the phase fails on any of them.
+    failures = []
+    positions = list(range(63, PREFILL_SEQ, 64))
+    want = logits_at(torch, transformer, params, toks, chunked, positions)
+    got = logits_at(torch, transformer, params, toks, cfg, positions)
+    readings = logit_readings(got, want)
+    log("  " + show_readings(f"K6 vs chunked at positions 63, 127, ..., {PREFILL_SEQ - 1}",
+                             readings, RG_CHUNKED_LIMITS))
+    if not within_logit_limits(readings, RG_CHUNKED_LIMITS):
+        failures.append(f"K6 vs chunked outside the limits: {readings}")
+    del got
+
+    # check 2: two deliberately wrong kernels in kernels.ops, each of which
+    # the limits must catch
+    wrong = {
+        "K6 ignoring the window": ("flash_attention",
+                                   lambda q, k, v, *, causal=True, scale=None, window=None:
+                                   fa.flash_attention(q, k, v, causal=causal, scale=scale)),
+        "K5 dropping the carry across its 64-step chunks": (
+            "linear_scan", lambda a, b: torch.cat(
+                [ls.linear_scan(a[:, i:i + ls.CHUNK_STEPS], b[:, i:i + ls.CHUNK_STEPS])
+                 for i in range(0, a.shape[1], ls.CHUNK_STEPS)], dim=1)),
+    }
+    for name, (attr, fn) in wrong.items():
+        right = getattr(kops, attr)
+        setattr(kops, attr, fn)
+        try:
+            bad = logit_readings(logits_at(torch, transformer, params, toks, cfg, positions), want)
+        finally:
+            setattr(kops, attr, right)
+        caught = not within_logit_limits(bad, RG_CHUNKED_LIMITS)
+        log("  " + show_readings(f"{name}, vs chunked", bad, RG_CHUNKED_LIMITS)
+            + (": caught" if caught else ": within the limits"))
+        if not caught:
+            failures.append(f"the prefill limits do not catch {name}: {bad}")
+    del want
+
+    # check 3: teacher-forced decode over DECODE_STEPS tokens (past the
+    # window: the local layers' ring buffers wrap) against the forward at
+    # every position.  Decode runs no K5 and no K6: rglru_decode's one-step
+    # recurrence and the ring buffer's einsum attention.
+    steps = DECODE_STEPS
+    dtoks = toks[:, :steps].contiguous()
+    with torch.inference_mode():
+        ref = transformer.logits(params, transformer.hidden(params, dtoks, cfg), cfg)
+    for c in counters.values():
+        c.reset()
+    t = time.perf_counter()
+    sums = torch.zeros(3, dtype=torch.float64, device=dev)   # max, sum of means, agreement
+    with torch.inference_mode():
+        cache = transformer.cache_init(cfg, PREFILL_BATCH, steps, dev)
+        for i in range(steps):
+            lg, cache = transformer.decode_step(params, dtoks[:, i], cache, cfg)
+            d = (lg - ref[:, i]).abs()
+            sums[0] = torch.maximum(sums[0], d.max())
+            sums[1] += d.mean()
+            sums[2] += (lg.argmax(-1) == ref[:, i].argmax(-1)).double().mean()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    assert all(c.launches == 0 for c in counters.values()), "decode launched K5 or K6"
+    worst, total, agree = sums.tolist()
+    readings = (worst, total / steps, agree / steps)
+    log(f"  teacher-forced decode, {PREFILL_BATCH} x {steps} steps: {wall:.1f} s "
+        f"({wall / steps * 1e3:.3f} ms a step), no K5 / K6 launch")
+    log("  " + show_readings("decode vs the K5 / K6 forward at every position", readings,
+                             RG_DECODE_LIMITS))
+    if not within_logit_limits(readings, RG_DECODE_LIMITS):
+        failures.append(f"decode vs forward outside the limits: {readings}")
+    del ref, cache, model, params
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
     return launches
 
 
@@ -1181,6 +1604,8 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import block_transpose as bt
     from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import linear_scan as ls
     from repro_torch.kernels import onehot_encode as oh
     from repro_torch.kernels import segment_reduce as sr
     from repro_torch.kernels import window_scan as ws
@@ -1205,19 +1630,23 @@ def main() -> int:
     check_onehot(torch, oh, dev)
     check_window_scan(torch, ws, dev)
     check_decode_attention(torch, da, dev)
+    check_linear_scan(torch, ls, dev)
+    check_flash_attention(torch, fa, dev)
     check_wide_aggregate(torch, dev)
-    timings = time_kernels(torch, sr, bt, oh, ws, da, dev, pool)
+    timings = time_kernels(torch, sr, bt, oh, ws, da, ls, fa, dev, pool)
     for rec in timings.values():
+        lib = "none" if rec["library_ms"] is None else f"{rec['library_ms']:.4f} ms"
         log(f"  {rec['name']} {rec['shape']}: kernel {rec['ms']:.4f} ms (on the device "
             f"{rec['device_ms']:.4f} ms), plain "
-            f"{rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms, bound "
+            f"{rec['plain_ms']:.4f} ms, library {lib}, bound "
             f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), max |err| {rec['max_abs_err']:.3g}")
     torch.cuda.empty_cache()
     log(f"[kernels] {time.perf_counter() - t0:.1f} s")
 
     counters = {"segment_reduce": sr.counter, "block_transpose": bt.counter,
                 "onehot_encode": oh.counter, "window_scan": ws.counter,
-                "decode_attention": da.counter}
+                "decode_attention": da.counter, "linear_scan": ls.counter,
+                "flash_attention": fa.counter}
     launches = dict.fromkeys(counters, 0)
 
     t0 = time.perf_counter()
@@ -1273,15 +1702,27 @@ def main() -> int:
     log(f"[serve] {SERVE_ARCH} at full width through ServeEngine on {dev}")
     for c in counters.values():
         c.reset()
-    launches["decode_attention"] += serving_phase(torch, np, da, dev, card)
+    k7, k6 = serving_phase(torch, np, da, dev, card)
+    launches["decode_attention"] += k7
+    launches["flash_attention"] += k6
     log(f"[serve] {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    log(f"[prefill] {PREFILL_ARCH} at full width through Model.prefill on {dev}")
+    for c in counters.values():
+        c.reset()
+    for k, n in prefill_phase(torch, np, fa, ls, dev, card).items():
+        launches[k] += n
+    log(f"[prefill] {time.perf_counter() - t0:.1f} s")
 
     record = []
     for k in ("segment_reduce", "block_transpose", "onehot_encode", "window_scan",
-              "decode_attention"):
+              "linear_scan", "flash_attention", "decode_attention"):
         rec = dict(timings[k])
         rec["launches"] = launches[k]
         record.append(rec)
+    missing = [k for k in record if k["launches"] == 0]
+    assert not missing, f"kernels no main path launched: {missing}"
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": record}), flush=True)

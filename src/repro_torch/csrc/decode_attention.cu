@@ -30,7 +30,7 @@
 //           (max -inf, sum 0).
 //   pass 2  grid (head, slot).  The splits' partials combine in split
 //           order into the output, in q's type; a row with no valid key is
-//           0, as the Pallas kernel's l == 0 guard makes it.
+//           0, the value the Pallas kernel's l == 0 guard is written for.
 // The split count is a function of S alone, so a slot's result does not
 // depend on the other slots or on the lengths of its neighbours.  No
 // atomics: the result is bit-identical from run to run.  The lengths stay

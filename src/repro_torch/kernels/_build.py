@@ -25,7 +25,8 @@ __all__ = ["library", "check", "build_seconds", "SOURCES"]
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("segment_reduce.cu", "block_transpose.cu", "onehot_encode.cu",
-           "window_scan.cu", "decode_attention.cu")
+           "window_scan.cu", "decode_attention.cu", "linear_scan.cu",
+           "flash_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -44,6 +45,11 @@ _SIGNATURES = {
     "repro_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32,
                                _I32, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
                                _I64, _I64, _I32, _F32, _P),
+    "repro_linear_scan": (_P, _P, _P, _P, _P, _I32, _I64, _I32, _I64, _I64, _I64, _I64,
+                          _I32, _P),
+    "repro_flash_attention": (_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I64, _I64,
+                              _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
+                              _I32, _I64, _F32, _P),
 }
 
 _LOCK = threading.Lock()

@@ -13,8 +13,9 @@ single-sequence call of the reference, q (H, D), caches (S, KVH, D) and an
 int or 0-d length, is the B = 1 case.  H = KVH * G.  Softmax and
 accumulation in float32; the scale defaults to 1/sqrt(D); a length past S
 makes all S slots valid.  Where no slot is valid (length 0) the kernel gives
-0, as the Pallas kernel does, and the plain version the mean of V, as
-``repro.kernels.ref.decode_attention`` does (ROADMAP, known divergences);
+0, the value the Pallas kernel's ``l == 0`` guard is written for (its finite
+-1e30 mask never lets the guard fire), and the plain version the mean of V,
+as ``repro.kernels.ref.decode_attention`` does (ROADMAP, known divergences);
 decode always has length >= 1.
 """
 from __future__ import annotations

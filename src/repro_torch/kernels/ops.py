@@ -12,12 +12,15 @@ import torch
 from ._util import narrow_from_kernel, widen_for_kernel
 from .block_transpose import block_transpose as _transpose
 from .decode_attention import decode_attention as _decode
+from .flash_attention import flash_attention as _flash
+from .linear_scan import linear_scan as _linscan
 from .onehot_encode import onehot_encode as _onehot
 from .segment_reduce import segment_reduce as _segred
 from .window_scan import window_scan as _winscan
 
 __all__ = ["transpose", "segment_reduce", "segment_reduce_multi",
-           "window_scan", "onehot_encode", "decode_attention"]
+           "window_scan", "linear_scan", "onehot_encode", "flash_attention",
+           "decode_attention"]
 
 _FLT_MAX = torch.finfo(torch.float32).max
 
@@ -84,8 +87,16 @@ def window_scan(x, op: str = "cumsum") -> torch.Tensor:
     return _winscan(x.to(torch.float32), op)
 
 
+def linear_scan(a, b) -> torch.Tensor:
+    return _linscan(a.to(torch.float32), b.to(torch.float32))
+
+
 def onehot_encode(codes, num_classes: int) -> torch.Tensor:
     return _onehot(codes.to(torch.int32), num_classes)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, scale=None, window=None):
+    return _flash(q, k, v, causal=causal, scale=scale, window=window)
 
 
 def decode_attention(q, k_cache, v_cache, length, *, scale=None) -> torch.Tensor:

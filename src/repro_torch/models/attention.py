@@ -5,10 +5,11 @@ Execution paths, selected by ``impl`` as in the reference
 (``repro/models/attention.py``):
   * "xla"     — einsum attention with explicit masks; fine for short S.
   * "chunked" — query-chunked attention: never materializes S×S.
-  * "pallas"  — the fused kernels.  At decode, ``decode_self_attention``
-                sends it to ``kernels.ops.decode_attention`` (K7: the CUDA
-                kernel on a CUDA tensor, its plain version on the CPU).  The
-                forward's flash kernel (K6) is not ported yet.
+  * "pallas"  — the fused kernels, each the CUDA kernel on a CUDA tensor
+                and its plain version on the CPU: the forward's
+                ``multihead_attention`` calls ``kernels.ops.flash_attention``
+                (K6) on the un-repeated KV heads, and ``decode_self_attention``
+                calls ``kernels.ops.decode_attention`` (K7).
 
 Shapes: x (B, S, d); params store the q/k/v projections (d, H·Dh).  KV
 caches are (B, S_max, K, Dh) with a per-slot length (B,).
@@ -108,18 +109,20 @@ def _chunked_attention(q, k, v, *, causal: bool, window: int | None,
 
 
 def _pallas_attention(q, k, v, *, causal: bool, window: int | None):
-    raise NotImplementedError(
-        "attn_impl='pallas' in forward/prefill runs the flash-attention kernel K6 "
-        "(repro/kernels/flash_attention.py), which the port has not brought over yet "
-        "(ROADMAP M10, the next slice); use attn_impl 'auto', 'xla' or 'chunked'")
+    """K6 over q (B,Sq,H,D) and k/v (B,Sk,Hkv,D) as they are: the kernel
+    reads the KV heads through their strides, so neither the reference's
+    KV repeat (repro/models/attention.py:143) nor its (B·H, S, D)
+    transposes (:131-133) become copies."""
+    return kops.flash_attention(q, k, v, causal=causal, window=window)
 
 
 def multihead_attention(q, k, v, *, causal=True, window=None, impl="xla", kv_len=None):
-    """q (B,Sq,H,D), k/v (B,Sk,Hkv,D) — GQA-expands kv then dispatches."""
-    groups = q.shape[2] // k.shape[2]
-    k, v = _repeat_kv(k, groups), _repeat_kv(v, groups)
+    """q (B,Sq,H,D), k/v (B,Sk,Hkv,D) — dispatches; the einsum paths
+    GQA-expand kv first."""
     if impl == "pallas" and kv_len is None:
         return _pallas_attention(q, k, v, causal=causal, window=window)
+    groups = q.shape[2] // k.shape[2]
+    k, v = _repeat_kv(k, groups), _repeat_kv(v, groups)
     if impl == "chunked":
         return _chunked_attention(q, k, v, causal=causal, window=window, kv_len=kv_len)
     return _xla_attention(q, k, v, causal=causal, window=window, kv_len=kv_len)

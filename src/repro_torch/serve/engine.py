@@ -64,16 +64,17 @@ class ServeEngine:
                 self._next_feed[i] = req.prompt_ids[0]
 
     def _reset_slot(self, i: int) -> None:
-        """Zero slot i's K/V in every layer and its length (length gating
-        makes stale data inert, but zeroing keeps restarts reproducible).
-        The reference picks lanes by shape and, at max_batch equal to the
-        number of scanned layer repeats, zeroes layer i of every slot instead
-        (ROADMAP, known divergences); the port's per-layer caches make the
-        lanes explicit."""
+        """Zero slot i's state in every layer (attention K/V, local ring
+        buffers, the RG-LRU's h and conv_buf) and its length.  Length gating
+        makes stale K/V inert, but a recurrent state carries into the next
+        request, so it must be zeroed.  The reference picks lanes by shape
+        and, at max_batch equal to the number of scanned layer repeats,
+        zeroes layer i of every slot instead (ROADMAP, known divergences);
+        the port's per-layer caches make the lanes explicit."""
         with torch.inference_mode():
             for c in self.cache["layers"]:
-                c["k"][i].zero_()
-                c["v"][i].zero_()
+                for t in c.values():
+                    t[i].zero_()
             self.cache["length"][i] = 0
 
     # ------------------------------------------------------------------

@@ -446,7 +446,7 @@ def test_cuda_decode_attention_matches_plain(rng, cuda, h, kvh, s, length, d):
 def test_cuda_decode_attention_bf16_main_shape(rng, cuda):
     """yi-6b's serving shape, bf16, within about one bf16 ulp at |x| < 1
     (4e-3; the kernel reads 1.2e-4 to 2.4e-4 there on an H100); a zero
-    length gives 0, as the Pallas kernel does."""
+    length gives 0 (ROADMAP, known divergences)."""
     b, h, kvh, s, d = 8, 32, 4, 1024, 128
     q, k, v = (_t(a).to(cuda, torch.bfloat16) for a in _decode_inputs(rng, b, h, kvh, s, d))
     lengths = torch.tensor([1, 200, 511, 512, 513, 1000, s, s + 7], dtype=torch.int32, device=cuda)
@@ -468,3 +468,215 @@ def test_cuda_decode_attention_refuses_mixed_dtypes(rng, cuda):
         da_mod.decode_attention(q, k.bfloat16(), v.bfloat16(), lengths)
     with pytest.raises(ValueError, match="all float32 or all bfloat16"):
         da_mod.decode_attention(q.bfloat16(), k, v, lengths)
+
+
+# ---- linear_scan (K5) ---------------------------------------------------------
+# rtol = atol = 2e-3, the tolerance of tests/test_kernels.py's
+# test_linear_scan; the reference's three shapes (T, N), a in [0, 0.95)
+from repro.kernels.linear_scan import linear_scan as pallas_linscan  # noqa: E402
+from repro_torch.kernels import linear_scan as ls_mod  # noqa: E402
+
+SCAN_TOL = dict(rtol=2e-3, atol=2e-3)
+LINSCAN_SHAPES = [(16, 8), (300, 17), (1025, 64)]
+
+
+def _linscan_inputs(rng, shape):
+    return ((rng.random(shape) * 0.95).astype(np.float32),
+            rng.standard_normal(shape).astype(np.float32))
+
+
+@pytest.mark.parametrize("t,n", LINSCAN_SHAPES)
+def test_linear_scan_plain_matches_ref(rng, t, n):
+    a, b = _linscan_inputs(rng, (t, n))
+    exp = np.asarray(rref.linear_scan(jnp.asarray(a), jnp.asarray(b)))
+    np.testing.assert_allclose(tref.linear_scan(_t(a), _t(b)).numpy(), exp, **SCAN_TOL)
+    np.testing.assert_allclose(tops.linear_scan(_t(a), _t(b)).numpy(), exp, **SCAN_TOL)
+
+
+@pytest.mark.parametrize("t,n", LINSCAN_SHAPES)
+def test_linear_scan_plain_matches_pallas(rng, use_pallas_kernels, t, n):
+    """The Pallas kernel in interpret mode, through the reference's ops
+    dispatch and directly."""
+    a, b = _linscan_inputs(rng, (t, n))
+    assert rops.use_pallas()
+    got = tref.linear_scan(_t(a), _t(b)).numpy()
+    np.testing.assert_allclose(got, np.asarray(rops.linear_scan(jnp.asarray(a), jnp.asarray(b))),
+                               **SCAN_TOL)
+    np.testing.assert_allclose(got, np.asarray(pallas_linscan(jnp.asarray(a), jnp.asarray(b))),
+                               **SCAN_TOL)
+
+
+def test_linear_scan_plain_batched_is_per_row(rng):
+    """The (B, T, N) call is the reference's (T, N) call row by row (what
+    rglru_block's jax.vmap computes); T = 0 and T = 1 keep their shapes."""
+    a, b = _linscan_inputs(rng, (3, 70, 5))
+    got = tref.linear_scan(_t(a), _t(b))
+    assert got.shape == (3, 70, 5) and got.dtype == torch.float32
+    for i in range(3):
+        np.testing.assert_allclose(
+            got[i].numpy(), np.asarray(rref.linear_scan(jnp.asarray(a[i]), jnp.asarray(b[i]))),
+            **SCAN_TOL)
+        assert torch.equal(got[i], tref.linear_scan(_t(a[i]), _t(b[i])))
+    assert tref.linear_scan(_t(a[:, :0]), _t(b[:, :0])).shape == (3, 0, 5)
+    assert torch.equal(tref.linear_scan(_t(a[:, :1]), _t(b[:, :1])), _t(b[:, :1]))
+
+
+@pytest.mark.parametrize("t,c", [(1, 1), (63, 1), (64, 1), (65, 2), (4096, 64)])
+def test_linear_scan_chunk_plan(t, c):
+    """The kernel cuts T steps into ceil(T / 64) chunks: a function of T."""
+    assert ls_mod.chunks(t) == c
+
+
+def test_linear_scan_cpu_takes_the_plain_path(rng):
+    ls_mod.counter.reset()
+    a, b = (_t(x) for x in _linscan_inputs(rng, (2, 9, 4)))
+    assert torch.equal(tops.linear_scan(a, b), ls_mod.linear_scan_plain(a, b))
+    assert ls_mod.counter.launches == 0
+    with pytest.raises(ValueError, match="all be on the CPU or all on one CUDA"):
+        ls_mod.linear_scan(a, b.to("meta"))
+    with pytest.raises(ValueError, match="one shape"):
+        ls_mod.linear_scan(a, b[:, :3])
+
+
+# ---- flash_attention (K6) -------------------------------------------------------
+# f32 at rtol = atol = 2e-3 and bf16 at 5e-2, the tolerances of
+# tests/test_kernels.py's flash cases, at its shapes (H, Sq, Sk, D)
+from repro.kernels.flash_attention import flash_attention as pallas_flash  # noqa: E402
+from repro_torch.kernels import flash_attention as fa_mod  # noqa: E402
+
+FLASH_TOL = dict(rtol=2e-3, atol=2e-3)
+FLASH_SHAPES = [(2, 128, 128, 64), (4, 200, 200, 64), (1, 64, 256, 128), (2, 333, 333, 80)]
+
+
+def _flash_inputs(rng, h, sq, sk, d, kvh=None):
+    kvh = kvh or h
+    return (rng.standard_normal((h, sq, d)).astype(np.float32),
+            rng.standard_normal((kvh, sk, d)).astype(np.float32),
+            rng.standard_normal((kvh, sk, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("h,sq,sk,d", FLASH_SHAPES)
+@pytest.mark.parametrize("window", [None, 32])
+def test_flash_attention_plain_matches_ref(rng, h, sq, sk, d, window):
+    q, k, v = _flash_inputs(rng, h, sq, sk, d)
+    exp = np.asarray(rref.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                          causal=True, window=window))
+    for fn in (tref.flash_attention, tops.flash_attention):
+        got = fn(_t(q), _t(k), _t(v), causal=True, window=window)
+        assert got.shape == (h, sq, d)
+        np.testing.assert_allclose(got.numpy(), exp, **FLASH_TOL)
+
+
+@pytest.mark.parametrize("h,sq,sk,d", [(2, 128, 128, 64), (1, 64, 256, 128)])
+@pytest.mark.parametrize("window", [None, 32])
+def test_flash_attention_plain_matches_pallas(rng, use_pallas_kernels, h, sq, sk, d, window):
+    """The Pallas kernel in interpret mode, through the reference's ops
+    dispatch as on the TPU."""
+    q, k, v = _flash_inputs(rng, h, sq, sk, d)
+    assert rops.use_pallas()
+    exp = np.asarray(rops.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                          causal=True, window=window))
+    np.testing.assert_allclose(tref.flash_attention(_t(q), _t(k), _t(v), window=window).numpy(),
+                               exp, **FLASH_TOL)
+
+
+def test_flash_attention_plain_bf16_matches_ref(rng):
+    q, k, v = (_t(x).to(torch.bfloat16) for x in _flash_inputs(rng, 2, 128, 128, 64))
+    got = tref.flash_attention(q, k, v, causal=True)
+    assert got.dtype == torch.bfloat16
+    as_jnp = [jnp.asarray(x.float().numpy()).astype(jnp.bfloat16) for x in (q, k, v)]
+    exp = rref.flash_attention(*as_jnp, causal=True)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(exp.astype(jnp.float32)),
+                               rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 5), (False, None), (False, 5)])
+def test_flash_attention_plain_gqa_model_layout(rng, causal, window):
+    """The model's call, q (B, Sq, H, D) with k, v (B, Sk, KVH, D), against
+    the reference's per-sequence call with the KV heads repeated, as the
+    reference's model does; Sq < Sk aligns the queries to the keys' end."""
+    b, sq, sk, h, kvh, d = 2, 9, 13, 6, 2, 8
+    q = rng.standard_normal((b, sq, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, sk, kvh, d)).astype(np.float32)
+    v = rng.standard_normal((b, sk, kvh, d)).astype(np.float32)
+    got = tops.flash_attention(_t(q), _t(k), _t(v), causal=causal, window=window).numpy()
+    assert got.shape == (b, sq, h, d)
+    for i in range(b):
+        rep = [np.repeat(x[i].transpose(1, 0, 2), h // kvh, axis=0) for x in (k, v)]
+        exp = rref.flash_attention(jnp.asarray(q[i].transpose(1, 0, 2)), *map(jnp.asarray, rep),
+                                   causal=causal, window=window)
+        np.testing.assert_allclose(got[i], np.asarray(exp).transpose(1, 0, 2), **FLASH_TOL)
+
+
+def test_flash_attention_plain_unseen_rows_are_ref_mean_of_v(rng):
+    """Sq > Sk places the first causal queries before every key: the plain
+    version gives the mean of V there, as repro.kernels.ref does (the
+    kernels give 0; ROADMAP, known divergences).  The forward has Sq = Sk."""
+    q, k, v = _flash_inputs(rng, 2, 10, 4, 8)
+    got = tref.flash_attention(_t(q), _t(k), _t(v)).numpy()
+    exp = np.asarray(rref.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
+    np.testing.assert_allclose(got, exp, **FLASH_TOL)
+    np.testing.assert_allclose(got[:, :6], np.broadcast_to(v.mean(1)[:, None], (2, 6, 8)),
+                               **FLASH_TOL)
+
+
+def test_pallas_flash_unseen_rows_average_the_padded_keys(rng):
+    """The reference's Pallas flash kernel masks with a finite -1e30, so its
+    l == 0 guard (flash_attention.py:70) never fires: a row with no visible
+    key gets p = 1 for every key of its tiles and returns the sum of V over
+    the key axis padded to the 128-key tile, over 128 (ROADMAP, known
+    divergences).  ref and the plain version give the mean of V; the CUDA
+    kernel gives 0."""
+    q, k, v = _flash_inputs(rng, 1, 10, 4, 8)
+    got = np.asarray(pallas_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
+    np.testing.assert_allclose(got[0, :6], np.broadcast_to(v[0].sum(0) / 128, (6, 8)),
+                               **FLASH_TOL)
+    assert np.abs(got[0, :6] - v[0].mean(0)).max() > 0.1
+
+
+def test_flash_attention_cpu_takes_the_plain_path(rng):
+    fa_mod.counter.reset()
+    q, k, v = (_t(x) for x in _flash_inputs(rng, 2, 7, 7, 8))
+    assert torch.equal(tops.flash_attention(q, k, v, window=3),
+                       fa_mod.flash_attention_plain(q, k, v, window=3))
+    assert fa_mod.counter.launches == 0
+    with pytest.raises(ValueError, match="all be on the CPU or all on one CUDA"):
+        fa_mod.flash_attention(q, k, v.to("meta"))
+
+
+# ---- K5 and K6 on the card -------------------------------------------------------
+@pytest.mark.parametrize("shape", LINSCAN_SHAPES + [(0, 5), (1, 5), (3, 129, 70), (2, 700, 4096)])
+def test_cuda_linear_scan_matches_plain(rng, cuda, shape):
+    a, b = (_t(x).to(cuda) for x in _linscan_inputs(rng, shape))
+    out = ls_mod.linear_scan(a, b)
+    assert out.shape == a.shape and torch.equal(out, ls_mod.linear_scan(a, b))
+    torch.testing.assert_close(out, ls_mod.linear_scan_plain(a, b), **SCAN_TOL)
+
+
+@pytest.mark.parametrize("h,sq,sk,d", FLASH_SHAPES)
+@pytest.mark.parametrize("window", [None, 32])
+def test_cuda_flash_attention_matches_plain(rng, cuda, h, sq, sk, d, window):
+    q, k, v = (_t(x).to(cuda) for x in _flash_inputs(rng, h, sq, sk, d))
+    out = fa_mod.flash_attention(q, k, v, window=window)
+    assert torch.equal(out, fa_mod.flash_attention(q, k, v, window=window))
+    torch.testing.assert_close(out, fa_mod.flash_attention_plain(q, k, v, window=window),
+                               **FLASH_TOL)
+
+
+def test_cuda_flash_attention_gqa_bf16_and_unseen_rows(rng, cuda):
+    """The model's GQA layout in bf16, within one bf16 ulp (2^-7 |x|) plus
+    1e-5 of the plain version: both round one float32 result, as
+    chip_smoke.py's limit has it; causal rows before every key give 0
+    (ROADMAP, known divergences)."""
+    b, sq, h, kvh, d = 2, 300, 8, 2, 128
+    q = _t(rng.standard_normal((b, sq, h, d)).astype(np.float32)).to(cuda, torch.bfloat16)
+    k = _t(rng.standard_normal((b, sq, kvh, d)).astype(np.float32)).to(cuda, torch.bfloat16)
+    v = _t(rng.standard_normal((b, sq, kvh, d)).astype(np.float32)).to(cuda, torch.bfloat16)
+    for window in (None, 100):
+        out = fa_mod.flash_attention(q, k, v, window=window)
+        want = fa_mod.flash_attention_plain(q, k, v, window=window)
+        torch.testing.assert_close(out.float(), want.float(), rtol=2.0 ** -7, atol=1e-5)
+    short = fa_mod.flash_attention(q, k[:, :100], v[:, :100])
+    assert torch.equal(short[:, :200], torch.zeros_like(short[:, :200]))
+    with pytest.raises(ValueError, match="all float32 or all bfloat16"):
+        fa_mod.flash_attention(q, k.float(), v.float())

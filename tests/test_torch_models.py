@@ -1,5 +1,6 @@
 """Model layer of the PyTorch port against the JAX package: layers, attention
-(decode included) and whole smoke models.
+(forward and decode) and whole smoke models, the recurrent and windowed
+archs included.
 
 Inputs come from numpy seeds; the reference runs on CPU JAX and the port on
 the CPU (its kernel wrappers take their plain versions there).  Tolerances:
@@ -28,6 +29,8 @@ from repro_torch.convert import params_from_arrays
 from repro_torch.models import attention as tattn
 from repro_torch.models import build_model, layers as tlayers, transformer
 from repro_torch.kernels import decode_attention as da_mod
+from repro_torch.kernels import flash_attention as fa_mod
+from repro_torch.kernels import linear_scan as ls_mod
 
 TOL = dict(rtol=2e-3, atol=2e-3)
 LOGIT_TOL = 0.02
@@ -161,23 +164,35 @@ def test_chunked_attention_matches_reference(rng):
     np.testing.assert_allclose(got, full, **TOL)
 
 
-def test_pallas_forward_raises_naming_k6():
-    q = torch.zeros((1, 4, 2, 8))
-    with pytest.raises(NotImplementedError, match="K6"):
-        tattn.multihead_attention(q, q, q, impl="pallas")
+@pytest.mark.parametrize("window", [None, 4])
+@pytest.mark.parametrize("ref_impl", ["xla", "pallas"])
+def test_pallas_forward_attention_matches_reference(rng, use_pallas_kernels, ref_impl, window):
+    """The forward's "pallas" path, K6's plain version on the un-repeated KV
+    heads, against the reference's einsum path and its Pallas flash kernel
+    (interpret mode, KV repeated to every head), causal with GQA, f32."""
+    q = rng.standard_normal((2, 10, 4, 8)).astype(np.float32)
+    k = rng.standard_normal((2, 10, 2, 8)).astype(np.float32)
+    v = rng.standard_normal((2, 10, 2, 8)).astype(np.float32)
+    exp = np.asarray(rattn.multihead_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                               causal=True, window=window, impl=ref_impl))
+    got = tattn.multihead_attention(_t(q), _t(k), _t(v), causal=True, window=window,
+                                    impl="pallas").numpy()
+    np.testing.assert_allclose(got, exp, **TOL)
 
 
 # ---- whole smoke models -----------------------------------------------------------
 SMOKE = {"yi-6b": {}, "qwen1.5-4b": {},
          # the other MLP and norm of this slice, on yi-6b's widths
-         "yi-6b-gelu-layernorm": dict(mlp="gelu", norm="layernorm")}
+         "yi-6b-gelu-layernorm": dict(mlp="gelu", norm="layernorm"),
+         # rglru, rglru, local (window 8) x 1 + a tail of 2; local x 5 + attn
+         "recurrentgemma-9b": {}, "gemma3-12b": {}}
 
 
 @pytest.fixture(scope="module")
 def smoke_models():
-    """The reference's smoke yi-6b, qwen1.5-4b (QKV bias) and yi-6b with a
-    GELU MLP and LayerNorm, with bf16 parameters, and the port's models
-    holding the same parameters."""
+    """The reference's smoke yi-6b, qwen1.5-4b (QKV bias), yi-6b with a
+    GELU MLP and LayerNorm, recurrentgemma-9b and gemma3-12b, with bf16
+    parameters, and the port's models holding the same parameters."""
     out = {}
     for arch, change in SMOKE.items():
         base = arch.split("-gelu")[0]
@@ -192,7 +207,8 @@ def smoke_models():
 @pytest.mark.parametrize("arch", list(SMOKE))
 def test_decode_and_forward_match_reference(smoke_models, arch):
     """decode_step teacher-forced over 12 steps and forward on the same
-    tokens, both packages, bf16: logits within LOGIT_TOL."""
+    tokens, both packages, bf16: logits within LOGIT_TOL.  12 steps pass the
+    smoke window of 8, so the local layers' ring buffers wrap."""
     rm, rp, tm, tp = smoke_models[arch]
     b, s = 2, 12
     toks = np.random.default_rng(3).integers(0, rm.cfg.vocab, (b, s)).astype(np.int32)
@@ -217,6 +233,26 @@ def test_decode_and_forward_match_reference(smoke_models, arch):
     assert np.abs(tfull - rfull).max() < LOGIT_TOL, np.abs(tfull - rfull).max()
     assert np.abs(tdec - tfull).max() < LOGIT_TOL
     assert tcache["length"].tolist() == [s] * b
+
+
+@pytest.mark.parametrize("ref_kernels", [False, True])
+@pytest.mark.parametrize("arch", ["yi-6b", "recurrentgemma-9b", "gemma3-12b"])
+def test_forward_matches_reference_kernel_paths(smoke_models, monkeypatch, arch, ref_kernels):
+    """The port's forward with attn_impl "pallas" and "auto" (K6 and K5's
+    plain versions here) against the reference's forward with "pallas" on
+    its plain ``ref`` functions and on its Pallas kernels in interpret mode
+    (REPRO_USE_KERNELS=1), S = 12 past the smoke window of 8: logits
+    within LOGIT_TOL."""
+    if ref_kernels:
+        monkeypatch.setenv("REPRO_USE_KERNELS", "1")
+    rm, rp, tm, tp = smoke_models[arch]
+    toks = np.random.default_rng(5).integers(0, rm.cfg.vocab, (2, 12)).astype(np.int32)
+    rcfg = dataclasses.replace(rm.cfg, attn_impl="pallas")
+    exp = np.asarray(r_build(rcfg).forward(rp, jnp.asarray(toks)))
+    for impl in ("pallas", "auto"):
+        with torch.inference_mode():
+            got = transformer.forward(tp, _t(toks), dataclasses.replace(tm.cfg, attn_impl=impl))[0]
+        assert np.abs(got.numpy() - exp).max() < LOGIT_TOL, (impl, np.abs(got.numpy() - exp).max())
 
 
 def test_decode_routes_through_the_kernel_wrapper(smoke_models, monkeypatch):
@@ -256,6 +292,80 @@ def test_params_convert_bit_exact(smoke_models):
     assert tp["layers"][0]["ln1"]["scale"].dtype == torch.float32
 
 
+def test_params_convert_bit_exact_recurrent_layout(smoke_models):
+    """recurrentgemma-9b's heterogeneous stack: one scanned repeat of
+    (rglru, rglru, local) plus a tail of two rglru layers, in layer order,
+    every leaf bit-exact (f32 Λ included)."""
+    rm, rp, tm, tp = smoke_models["recurrentgemma-9b"]
+    assert rm.cfg.repeats_and_tail() == (1, 2)
+    kinds = [("rglru" if "rglru" in p else "attn") for p in tp["layers"]]
+    assert kinds == ["rglru", "rglru", "attn", "rglru", "rglru"]
+    ref_layers = [_index(rp["blocks"][pi], 0) for pi in range(3)] + list(rp["tail"])
+    for ref, port in zip(ref_layers, tp["layers"]):
+        leaves = jax.tree_util.tree_leaves_with_path(ref)
+        assert len(leaves) == sum(1 for _ in _walk(port))
+        for path, leaf in leaves:
+            t = port
+            for key in path:
+                t = t[key.key]
+            a = np.asarray(leaf)
+            assert tuple(t.shape) == a.shape and str(t.dtype).endswith(str(a.dtype))
+            if a.dtype.name == "bfloat16":
+                np.testing.assert_array_equal(t.view(torch.int16).numpy(), a.view(np.int16))
+            else:
+                np.testing.assert_array_equal(t.numpy(), a)
+
+
+def _index(tree, r):
+    return jax.tree.map(lambda x: x[r], tree)
+
+
+def _walk(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _walk(v)
+        else:
+            yield v
+
+
+@pytest.mark.parametrize("arch,k5,k6", [("recurrentgemma-9b", 4, 1), ("gemma3-12b", 0, 6),
+                                        ("yi-6b", 0, 2)])
+def test_forward_routes_through_the_kernel_wrappers(smoke_models, monkeypatch, arch, k5, k6):
+    """attn_impl "auto" and "pallas" send every forward attention through
+    kernels.ops.flash_attention (local layers with their window) and every
+    RG-LRU recurrence through kernels.ops.linear_scan, one call a layer;
+    "xla" and "chunked" keep attention on the einsum paths.  The four agree,
+    and prefill is forward's last position."""
+    _, _, tm, tp = smoke_models[arch]
+    calls = {"flash": [], "scan": []}
+
+    def counting(name, real):
+        def fn(*a, **k):
+            calls[name].append(k.get("window"))
+            return real(*a, **k)
+        return fn
+
+    monkeypatch.setattr("repro_torch.kernels.ops._flash", counting("flash", fa_mod.flash_attention))
+    monkeypatch.setattr("repro_torch.kernels.ops._linscan", counting("scan", ls_mod.linear_scan))
+    toks = torch.from_numpy(np.random.default_rng(4).integers(0, 256, (2, 13)).astype(np.int32))
+    outs = {}
+    for impl in ("auto", "pallas", "xla", "chunked"):
+        cfg = dataclasses.replace(tm.cfg, attn_impl=impl)
+        for v in calls.values():
+            v.clear()
+        with torch.inference_mode():
+            outs[impl], _ = transformer.forward(tp, toks, cfg)
+            assert len(calls["scan"]) == k5
+            kernel = impl in ("auto", "pallas")
+            assert len(calls["flash"]) == (k6 if kernel else 0)
+            if kernel and arch != "yi-6b":
+                assert calls["flash"].count(tm.cfg.window) == (k6 if k5 else k6 - 1)
+            last = transformer.prefill(tp, toks, cfg)
+        torch.testing.assert_close(last, outs[impl][:, -1], rtol=0, atol=1e-5)
+    for impl in ("pallas", "xla", "chunked"):
+        torch.testing.assert_close(outs[impl], outs["auto"], rtol=0, atol=LOGIT_TOL)
+
+
 def test_model_holds_params_under_reference_names(smoke_models):
     _, rp, tm, _ = smoke_models["yi-6b"]
     names = dict(tm.named_parameters())
@@ -265,6 +375,25 @@ def test_model_holds_params_under_reference_names(smoke_models):
         assert key in names, key
     n = sum(p.numel() for p in tm.parameters())
     assert n == tm.param_count()[0] == sum(np.asarray(a).size for a in jax.tree.leaves(rp))
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "gemma3-12b"])
+def test_port_init_builds_the_reference_tree(smoke_models, arch):
+    """The port's own init gives the converted reference tree's keys,
+    shapes and dtypes, layer by layer (rglru: Λ float32, the rest bf16)."""
+    _, rp, tm, tp = smoke_models[arch]
+    own = build_model(tm.cfg, "cpu").init(torch.Generator().manual_seed(0))
+
+    def sig(tree):
+        if isinstance(tree, dict):
+            return {k: sig(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [sig(v) for v in tree]
+        return tuple(tree.shape), tree.dtype
+
+    assert sig(own) == sig(tp)
+    n = sum(np.asarray(a).size for a in jax.tree.leaves(rp))
+    assert sum(p.numel() for p in tm.parameters()) == n
 
 
 def test_port_init_follows_reference_distributions():
@@ -293,8 +422,7 @@ def test_full_configs_copy_the_reference(arch):
         assert round(total / 1e9, 2) == 6.06
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "granite-moe-3b-a800m", "whisper-base",
-                                  "gemma3-12b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "granite-moe-3b-a800m", "whisper-base"])
 def test_unported_configs_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP M10"):
         build_model(get_smoke_config(arch), "cpu")

@@ -3,7 +3,7 @@
 reference's on the same converted parameters, and the two reference
 behaviours the port documents (ROADMAP, known divergences).
 
-Smoke yi-6b (2 layers, d 64) on the CPU.  Token streams of two bf16
+Smoke yi-6b (2 layers, d 64) and recurrentgemma-9b (5 layers) on the CPU.  Token streams of two bf16
 implementations may part at a near-tie, so the engine comparison holds
 each request's tokens equal up to the first one whose reference top-1 −
 top-2 logit margin is below twice the model-level tolerance
@@ -40,14 +40,25 @@ def served():
     return cfg, model, params
 
 
-@pytest.fixture(scope="module")
-def both():
-    """The reference's smoke yi-6b and the port holding its parameters."""
-    rm = r_build(r_smoke("yi-6b"))
+def _both(arch):
+    """The reference's smoke model and the port holding its parameters."""
+    rm = r_build(r_smoke(arch))
     rp = rm.init(jax.random.PRNGKey(0))
-    tm = build_model(get_smoke_config("yi-6b"), "cpu")
+    tm = build_model(get_smoke_config(arch), "cpu")
     tp = tm.load(params_from_arrays(jax.tree.map(np.asarray, rp), tm.cfg, "cpu"))
     return rm, rp, tm, tp
+
+
+@pytest.fixture(scope="module")
+def both():
+    return _both("yi-6b")
+
+
+@pytest.fixture(scope="module")
+def both_recurrent():
+    """Smoke recurrentgemma-9b: (rglru, rglru, local) x 1 + two rglru, a
+    local window of 8."""
+    return _both("recurrentgemma-9b")
 
 
 # ---- the reference's engine cases, on the port -------------------------------
@@ -154,6 +165,60 @@ def test_engine_matches_reference(both, max_batch):
     assert min(lengths) > MAX_SEQ
 
 
+@pytest.mark.parametrize("max_batch", [2, 3])
+def test_recurrent_engine_matches_reference(both_recurrent, max_batch):
+    """Smoke recurrentgemma-9b through both engines: RG-LRU states and the
+    local layers' ring buffers (lengths pass the window of 8) carried across
+    steps; at max_batch 2 the third request reuses a slot.  The reference's
+    _reset_slot bug needs max_batch == its 1 scanned repeat, so it does not
+    trigger here.  Equal tokens up to each request's first near-tie, and
+    the same lengths."""
+    rm, rp, tm, tp = both_recurrent
+    assert rm.cfg.repeats_and_tail() == (1, 2)
+    ref_out, ref_len, margins = _serve_ref(rm, rp, max_batch)
+    out, lengths = _serve_port(tm, tp, max_batch)
+    compared = 0
+    for rid, (a, b) in enumerate(zip(out, ref_out)):
+        m = margins[rid]
+        upto = next((j for j, x in enumerate(m) if x < MARGIN), len(m))
+        assert a[:upto] == b[:upto], (rid, a, b, m)
+        if upto == len(m):          # no near-tie: the same stream, EOS included
+            assert a == b
+        compared += upto
+    assert compared >= 5, margins
+    assert lengths == ref_len
+
+
+def test_reused_slot_starts_from_zero_state(both_recurrent):
+    """A request admitted to a slot another request used first gets zero
+    state in every layer (RG-LRU h and conv_buf, the ring buffers' K/V)
+    and the tokens it gets alone in a fresh engine."""
+    _, _, tm, tp = both_recurrent
+    prompt = [1, 9, 12, 5]
+    alone = ServeEngine(tm, tp, max_batch=1, max_seq=MAX_SEQ)
+    first = Request(rid=0, prompt_ids=prompt, max_new_tokens=6)
+    alone.submit(first)
+    alone.run_until_done()
+
+    eng = ServeEngine(tm, tp, max_batch=1, max_seq=MAX_SEQ)
+    reset = eng._reset_slot
+    states = []
+
+    def recording(i):
+        dirty = all(bool(t[i].any()) for c in eng.cache["layers"] for t in c.values())
+        reset(i)
+        states.append((dirty, [t[i].clone() for c in eng.cache["layers"] for t in c.values()]))
+
+    eng._reset_slot = recording
+    second = Request(rid=1, prompt_ids=prompt, max_new_tokens=6)
+    eng.submit(Request(rid=0, prompt_ids=PROMPTS[0], max_new_tokens=6))
+    eng.submit(second)
+    eng.run_until_done()
+    assert [dirty for dirty, _ in states] == [False, True]
+    assert all(not t.any() for t in states[1][1])
+    assert second.out_ids == first.out_ids
+
+
 # ---- the reference's divergences, documented -----------------------------------
 def test_lengths_past_max_seq_are_kept(both):
     """Idle slots step too, so lengths pass max_seq; the reference lets
@@ -186,6 +251,15 @@ def test_launch_serve_smoke_on_cpu(capsys):
                 "--max-new", "4", "--max-batch", "2"])
     assert out["tokens_out"] == 12 and out["device"] == "cpu"
     assert '"tokens_out": 12' in capsys.readouterr().out
+
+
+def test_launch_serve_recurrent_smoke_on_cpu(capsys):
+    """recurrentgemma-9b through the launcher: RG-LRU and local layers."""
+    from repro_torch.launch.serve import main
+    out = main(["--arch", "recurrentgemma-9b", "--smoke", "--device", "cpu", "--requests", "3",
+                "--max-new", "4", "--max-batch", "2"])
+    assert 0 < out["tokens_out"] <= 12 and out["device"] == "cpu"
+    assert '"tokens_out"' in capsys.readouterr().out
 
 
 def test_serving_defaults_to_cuda():
