@@ -18,10 +18,14 @@ Phases (any failure raises and the script exits non-zero):
                  shape in bf16, ten reruns bit-identical; linear_scan (K5)
                  at the reference's three shapes, T = 0 and 1, a batched
                  call and phase 8's (2, 4096, 4096) as the RG-LRU makes it,
-                 ten reruns bit-identical; flash_attention (K6) at the
+                 ten reruns bit-identical; flash_attention (K6: bf16 on
+                 the tensor cores, f32 on the FMA kernel) at the
                  reference's four shapes x window (None, 32) in f32 and
                  bf16, at yi-6b's and recurrentgemma-9b's prefill shapes in
                  bf16 (ten reruns bit-identical), rows before every key 0
+                 (f32 and bf16), and in bf16: windows 63, 64 and 65 at Sq =
+                 Sk and Sq < Sk, D 33 through the wrapper's padded copy, q /
+                 k / v as views of one fused projection
   (4, 5 and 6 time each step unprofiled, then run the steps once more under
   the CUDA profiler for the device's busy time within each)
   4. fig6      — the Fig. 6 mix at 16,000,000 rows of taxi_like_frame in an
@@ -54,12 +58,14 @@ Phases (any failure raises and the script exits non-zero):
                  tokens; a run with max_seq=64 and a 100-token request (every
                  length passes max_seq) matches its "xla" run.  Then a
                  prefill of 4 x 1,024 tokens, every layer's attention on K6
-                 (32 launches), against "xla" at every 128th position
+                 (32 launches, all on the tensor-core route), against "xla"
+                 at every 128th position
   8. prefill   — recurrentgemma-9b at full width (38 layers: 26 RG-LRU, 12
                  local with window 2048; d 4096, vocab 256,000; 7.5e9
                  random bf16 parameters, Λ as Griffin initialises it) through
                  Model.prefill, B 2 x 4,096 tokens: K5 26 and K6 12 launches
-                 a forward, timed, then once under the CUDA profiler.
+                 (tensor-core route) a forward, timed, then once under the
+                 CUDA profiler.
                  Checks: the "chunked" forward at every 64th position within
                  RG_CHUNKED_LIMITS, which K6 ignoring the window and K5
                  dropping its chunk carry must each break; 2,112
@@ -523,10 +529,14 @@ def bf16_ratio(torch, got, want) -> float:
 
 
 def check_flash_attention(torch, fa, dev) -> None:
-    """The reference's four shapes x window (None, 32) in f32 at K6_F32_TOL
-    and in bf16 at the bf16 limit; both main shapes in bf16, ten reruns
-    bit-identical; causal rows before every key (Sq > Sk) give 0 (ROADMAP,
-    known divergences)."""
+    """The reference's four shapes x window (None, 32) in f32 (the FMA
+    kernel) at K6_F32_TOL and in bf16 (the tensor-core kernel) at the bf16
+    limit; both main shapes in bf16, ten reruns bit-identical; causal rows
+    before every key (Sq > Sk) give 0 in f32 and bf16 (ROADMAP, known
+    divergences); in bf16, windows one short of, at and past the 64-key
+    tile at Sq = Sk and Sq < Sk, D 33 (the wrapper's zero-padded copy), and
+    q, k, v as views of one fused projection (read in place by TMA).  The
+    f32 calls must take the "fma" route, the bf16 ones "tc"."""
     gen = torch.Generator(device=dev).manual_seed(6)
     worst32 = worst16 = 0.0
     for h, sq, sk, d in FLASH_SHAPES:
@@ -562,12 +572,48 @@ def check_flash_attention(torch, fa, dev) -> None:
         del q, k, v, got, want
     q = torch.randn((2, 300, 8, 64), generator=gen, device=dev)
     kv = torch.randn((2, 100, 2, 64), generator=gen, device=dev)
-    unseen = fa.flash_attention(q, kv, kv)[:, :200]
-    assert torch.equal(unseen, torch.zeros_like(unseen)), "flash_attention: unseen rows are not 0"
+    for x, y in ((q, kv), (q.bfloat16(), kv.bfloat16())):
+        got = fa.flash_attention(x, y, y)
+        unseen = got[:, :200]
+        assert torch.equal(unseen, torch.zeros_like(unseen)), \
+            f"flash_attention {x.dtype}: unseen rows are not 0"
+        if x.dtype == torch.bfloat16:
+            r = bf16_ratio(torch, got[:, 200:], fa.flash_attention_plain(x, y, y)[:, 200:])
+            assert r <= 1.0, f"flash_attention bf16 past the unseen rows: {r:.3g} of the limit"
+    edges = []
+
+    def bf16_case(tag, q, k, v, **kw):
+        got = fa.flash_attention(q, k, v, **kw)
+        if not torch.equal(got, fa.flash_attention(q, k, v, **kw)):
+            raise AssertionError(f"flash_attention {tag}: runs differ")
+        r = bf16_ratio(torch, got, fa.flash_attention_plain(q, k, v, **kw))
+        assert r <= 1.0, f"flash_attention {tag} bf16: {r:.3g} of the limit"
+        edges.append(r)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).bfloat16()
+    for sq in (256, 200):
+        for window in (63, 64, 65):
+            bf16_case(f"Sq {sq} Sk 256 window {window}", rnd(2, sq, 4, 64), rnd(2, 256, 2, 64),
+                      rnd(2, 256, 2, 64), window=window)
+    for window in (None, 40):
+        bf16_case(f"D 33 window {window}", rnd(2, 150, 4, 33), rnd(2, 150, 4, 33),
+                  rnd(2, 150, 4, 33), window=window)
+    fused = rnd(2, 200, 12, 128)
+    views = fused[:, :, :8], fused[:, :, 8:10], fused[:, :, 10:]
+    assert all(fa.tma_operand(t) is t for t in views), "fused views: TMA cannot read them in place"
+    bf16_case("fused projection views", *views)
+    fa.counter.reset()
+    fa.flash_attention(q, kv, kv)
+    fa.flash_attention(q.bfloat16(), kv.bfloat16(), kv.bfloat16())
+    assert fa.counter.routes == {"fma": 1, "tc": 1}, fa.counter.routes
     log(f"  flash_attention: {len(FLASH_SHAPES)} shapes x window (None, 32) f32 within "
         f"{K6_F32_TOL} (worst {worst32:.3g}), bf16 within {K6_BF16_RTOL:.4g}|x| + "
         f"{K6_BF16_ATOL} (worst {worst16:.3g} of it), reruns bit-identical; main shapes bf16, "
-        f"10 reruns bit-identical: {'; '.join(msgs)}; rows before every key give 0")
+        f"10 reruns bit-identical: {'; '.join(msgs)}; rows before every key give 0 (f32, "
+        f"bf16); bf16 windows 63 / 64 / 65 at Sq 256 and 200 over Sk 256, D 33 (padded "
+        f"copy), fused projection views: worst {max(edges):.3g} of the limit, reruns "
+        f"bit-identical; f32 took route fma, bf16 route tc")
 
 
 def check_wide_aggregate(torch, dev) -> None:
@@ -709,8 +755,10 @@ def time_kernels(torch, sr, bt, oh, ws, da, ls, fa, dev, pool: int) -> dict:
         library_ms=None, bound_ms=b_bound, bound_by=by)
     del a, b
     # flash attention: one local layer of phase 8's prefill (the JSON row)
-    # and one layer of phase 7's yi-6b prefill; the library call is
-    # scaled_dot_product_attention with enable_gqa and a causal / band mask
+    # and one layer of phase 7's yi-6b prefill, bf16 on the tensor cores;
+    # the library call is scaled_dot_product_attention with enable_gqa and
+    # a causal / band mask.  TFLOP/s count the function's 4 D operations a
+    # visible pair (the kernel does 6 D: P . V twice, P split in two).
     for which in ("rg", "yi"):
         q, k, v, window = flash_main_inputs(torch, dev, which)
         bsz, s, h, d = q.shape
@@ -727,20 +775,41 @@ def time_kernels(torch, sr, bt, oh, ws, da, ls, fa, dev, pool: int) -> dict:
         b_bound, by = bound_ms(2 * (q.numel() + k.numel() + v.numel() + q.numel()), 4 * d * pairs,
                                BF16_OPS_PER_S)
         rec = dict(
-            name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+            name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention_tc.cu",
             replaces="src/repro/kernels/flash_attention.py:75", shape=[bsz, s, h, kvh, d, window],
             max_abs_err=float((got.float() - want.float()).abs().max()),
             ms=cuda_ms(lambda: fa.flash_attention(q, k, v, window=window), iters=10),
-            device_ms=device_ms(lambda: fa.flash_attention(q, k, v, window=window), ("flash_fwd",),
+            device_ms=device_ms(lambda: fa.flash_attention(q, k, v, window=window), ("flash_tc",),
                                 iters=10),
             plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, window=window), iters=3,
                              warmup=1),
             library_ms=cuda_ms(lib, iters=10), bound_ms=b_bound, bound_by=by)
-        log(f"  flash_attention {rec['shape']}: {pairs} visible pairs, {4 * d * pairs / 1e9:.4g} "
-            f"GFLOP at {4 * d * pairs / rec['device_ms'] / 1e9:.4g} TFLOP/s on the device; "
-            f"scaled_dot_product_attention off the plain version by {lib_err:.3g}")
+        log(f"  flash_attention bf16 (route tc) {rec['shape']}: {pairs} visible pairs, "
+            f"{4 * d * pairs / 1e9:.4g} GFLOP at {4 * d * pairs / rec['device_ms'] / 1e9:.4g} "
+            f"TFLOP/s on the device ({4 * d * pairs / rec['device_ms'] / 1e9 / 989:.1%} of the "
+            f"bf16 tensor cores' 989); scaled_dot_product_attention off the plain version by "
+            f"{lib_err:.3g}")
         out["flash_attention" if which == "rg" else "flash_attention_yi"] = rec
         del q, k, v, got, want, mask, qs, ks, vs
+    # the FMA route: float32 at the reference's largest shape, causal; its
+    # bound is the float32 CUDA cores' rate
+    h, sq, sk, d = FLASH_SHAPES[-1]
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q, k, v = (torch.randn((h, n, d), generator=gen, device=dev) for n in (sq, sk, sk))
+    pairs = int(fa._mask(sq, sk, True, None, dev).sum()) * h
+    b_bound, by = bound_ms(4 * (2 * q.numel() + k.numel() + v.numel()), 4 * d * pairs)
+    rec = dict(
+        name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:75", shape=[1, sq, h, h, d, None],
+        max_abs_err=float((fa.flash_attention(q, k, v) - fa.flash_attention_plain(q, k, v)).abs().max()),
+        ms=cuda_ms(lambda: fa.flash_attention(q, k, v)),
+        device_ms=device_ms(lambda: fa.flash_attention(q, k, v), ("flash_fwd",)),
+        plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v)),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)),
+        bound_ms=b_bound, bound_by=by)
+    log(f"  flash_attention f32 (route fma) {rec['shape']}: {pairs} visible pairs at "
+        f"{4 * d * pairs / rec['device_ms'] / 1e9:.4g} TFLOP/s on the device")
+    out["flash_attention_f32"] = rec
     return out
 
 
@@ -1270,9 +1339,11 @@ def prefill_ms(torch, model, params, toks, runs: int = 3) -> list:
     return times[1:]
 
 
-def profile_window(torch, fn, per: int, label: str) -> None:
+def profile_window(torch, fn, per: int, label: str, mine: dict | None = None) -> None:
     """Run ``fn`` under the CUDA profiler; print the device's busy share of
-    the window's wall and its largest device activities, per ``per``."""
+    the window's wall and its largest device activities, per ``per``; and
+    for each of ``mine`` (label: kernel names) the device time and share of
+    the busy time of the kernels whose names contain one of the names."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1292,11 +1363,16 @@ def profile_window(torch, fn, per: int, label: str) -> None:
         f"largest, device ms each (calls each):")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"    {e.self_device_time_total / per / 1e3:.4f} ({e.count / per:.0f})  {e.key[:90]}")
+    for what, names in (mine or {}).items():
+        hit = [e for e in events if any(n in e.key for n in names)]
+        ms = sum(e.self_device_time_total for e in hit) / per / 1e3
+        log(f"    {what}: {ms:.4f} ms ({sum(e.count for e in hit) / per:.0f} calls), "
+            f"{ms / (busy * 1e3 / per):.2%} of the busy time")
 
 
-def serving_phase(torch, np, da, dev, card: str) -> tuple[int, int]:
+def serving_phase(torch, np, da, dev, card: str) -> tuple[int, dict]:
     """Phase 7; returns K7's launches in the main serving run and K6's in
-    the main prefill run."""
+    the main prefill run, by route."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import build_model, transformer
@@ -1356,7 +1432,8 @@ def serving_phase(torch, np, da, dev, card: str) -> tuple[int, int]:
     def twenty():
         for _ in range(20):
             weng.step()
-    profile_window(torch, twenty, 20, "step (profiled window, steps 41-60)")
+    profile_window(torch, twenty, 20, "step (profiled window, steps 41-60)",
+                   {"K7": ("decode_split", "decode_combine")})
     del warm, weng
 
     # check 2: the same requests, attention on the einsum path
@@ -1413,16 +1490,22 @@ def serving_phase(torch, np, da, dev, card: str) -> tuple[int, int]:
     with torch.inference_mode():
         model.prefill(params, ptoks)
     torch.cuda.synchronize()
-    k6 = fa.counter.launches
-    if k6 != cfg.n_layers:
-        raise AssertionError(f"yi-6b prefill launched flash_attention {k6} times, not {cfg.n_layers}")
+    k6, k6_routes = fa.counter.launches, dict(fa.counter.routes)
+    if k6_routes != {"tc": cfg.n_layers}:
+        raise AssertionError(f"yi-6b prefill launched flash_attention {k6} times by route "
+                             f"{k6_routes}, not {cfg.n_layers} on the tensor cores (tc)")
     times = prefill_ms(torch, model, params, ptoks)
     positions = list(range(127, YI_PREFILL_SEQ, 128))
     readings = logit_readings(logits_at(torch, transformer, params, ptoks, cfg, positions),
                               logits_at(torch, transformer, params, ptoks, xla, positions))
     log(f"  prefill {YI_PREFILL_BATCH} x {YI_PREFILL_SEQ} tokens, attn_impl auto (K6): "
-        f"flash_attention launches {k6} = {cfg.n_layers} layers; wall ms {times} (median "
-        f"{np.median(times):.3f}) | {card}")
+        f"flash_attention launches {k6} = {cfg.n_layers} layers, by route {k6_routes}; wall ms "
+        f"{times} (median {np.median(times):.3f}) | {card}")
+
+    def yi_prefill():
+        with torch.inference_mode():
+            model.prefill(params, ptoks)
+    profile_window(torch, yi_prefill, 1, "prefill (profiled)", {"K6": ("flash_tc", "flash_fwd")})
     log("  " + show_readings(f"K6 vs xla at positions 127, 255, ..., {YI_PREFILL_SEQ - 1}",
                              readings, YI_PREFILL_LIMITS))
     assert within_logit_limits(readings, YI_PREFILL_LIMITS), readings
@@ -1448,14 +1531,15 @@ def serving_phase(torch, np, da, dev, card: str) -> tuple[int, int]:
         f"near-tie, max |logit diff| {worst:.4g}")
     del runs, model, oracle_model, params
     torch.cuda.empty_cache()
-    return launches, k6
+    return launches, k6_routes
 
 
 # -----------------------------------------------------------------------------
 # phase 8: prefill of recurrentgemma-9b at full width
 # -----------------------------------------------------------------------------
-def prefill_phase(torch, np, fa, ls, dev, card: str) -> dict:
-    """Phase 8; returns K5's and K6's launches in the main prefill run."""
+def prefill_phase(torch, np, fa, ls, dev, card: str) -> tuple[dict, dict]:
+    """Phase 8; returns K5's and K6's launches in the main prefill run, and
+    K6's by route."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops as kops
@@ -1493,21 +1577,26 @@ def prefill_phase(torch, np, fa, ls, dev, card: str) -> dict:
         last = model.prefill(params, toks)
     torch.cuda.synchronize()
     launches = {k: c.launches for k, c in counters.items()}
+    k6_routes = dict(fa.counter.routes)
     want = {"linear_scan": kinds.count("rglru"), "flash_attention": kinds.count("local")}
-    if launches != want:
-        raise AssertionError(f"prefill launches {launches}, want {want}")
+    if launches != want or k6_routes != {"tc": want["flash_attention"]}:
+        raise AssertionError(f"prefill launches {launches} (K6 by route {k6_routes}), want "
+                             f"{want}, K6 all on the tensor cores (tc)")
     assert last.shape == (PREFILL_BATCH, cfg.vocab) and bool(torch.isfinite(last).all())
     times = prefill_ms(torch, model, params, toks)
     peak = torch.cuda.max_memory_allocated()
     log(f"  prefill {PREFILL_BATCH} x {PREFILL_SEQ} tokens, attn_impl auto: launches "
-        f"{launches} = one a layer; wall ms {times} (median {np.median(times):.3f}, "
+        f"{launches} = one a layer, K6 by route {k6_routes}; wall ms {times} (median "
+        f"{np.median(times):.3f}, "
         f"{PREFILL_BATCH * PREFILL_SEQ / np.median(times) * 1e3:.1f} tokens/s); "
         f"max_memory_allocated {peak / 1e9:.3f} GB | {card}")
 
     def one_prefill():
         with torch.inference_mode():
             model.prefill(params, toks)
-    profile_window(torch, one_prefill, 1, "prefill (profiled)")
+    profile_window(torch, one_prefill, 1, "prefill (profiled)",
+                   {"K6": ("flash_tc", "flash_fwd"),
+                    "K5": ("lin_summaries", "lin_carries", "lin_apply")})
 
     # check 1: the "chunked" forward (einsum attention; K5 as well) at the
     # last position and every 64th.  Every check below runs and prints
@@ -1583,7 +1672,7 @@ def prefill_phase(torch, np, fa, ls, dev, card: str) -> dict:
     torch.cuda.empty_cache()
     if failures:
         raise AssertionError("; ".join(failures))
-    return launches
+    return launches, k6_routes
 
 
 # -----------------------------------------------------------------------------
@@ -1648,6 +1737,7 @@ def main() -> int:
                 "decode_attention": da.counter, "linear_scan": ls.counter,
                 "flash_attention": fa.counter}
     launches = dict.fromkeys(counters, 0)
+    flash_routes = {"tc": 0, "fma": 0}     # K6's main-path launches by route
 
     t0 = time.perf_counter()
     log(f"[fig6] EAGER sessions on {dev}, {TAXI_ROWS} rows")
@@ -1702,17 +1792,22 @@ def main() -> int:
     log(f"[serve] {SERVE_ARCH} at full width through ServeEngine on {dev}")
     for c in counters.values():
         c.reset()
-    k7, k6 = serving_phase(torch, np, da, dev, card)
+    k7, k6_routes = serving_phase(torch, np, da, dev, card)
     launches["decode_attention"] += k7
-    launches["flash_attention"] += k6
+    for route, n in k6_routes.items():
+        launches["flash_attention"] += n
+        flash_routes[route] += n
     log(f"[serve] {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     log(f"[prefill] {PREFILL_ARCH} at full width through Model.prefill on {dev}")
     for c in counters.values():
         c.reset()
-    for k, n in prefill_phase(torch, np, fa, ls, dev, card).items():
+    phase8, k6_routes = prefill_phase(torch, np, fa, ls, dev, card)
+    for k, n in phase8.items():
         launches[k] += n
+    for route, n in k6_routes.items():
+        flash_routes[route] += n
     log(f"[prefill] {time.perf_counter() - t0:.1f} s")
 
     record = []
@@ -1720,6 +1815,8 @@ def main() -> int:
               "linear_scan", "flash_attention", "decode_attention"):
         rec = dict(timings[k])
         rec["launches"] = launches[k]
+        if k == "flash_attention":
+            rec["launches_by_route"] = flash_routes
         record.append(rec)
     missing = [k for k in record if k["launches"] == 0]
     assert not missing, f"kernels no main path launched: {missing}"

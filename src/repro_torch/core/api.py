@@ -15,6 +15,7 @@ opportunistic (§6.1.1, the default).  Frames live on the session's device
 from __future__ import annotations
 
 import itertools
+import math
 from typing import Any, Callable, Sequence
 
 import torch
@@ -135,6 +136,22 @@ def _unwrap(o):
     if isinstance(o, alg.Expr):
         return o
     return alg.Lit(o)
+
+
+def _fill_scalar(value, dtype: torch.dtype, device) -> torch.Tensor:
+    """``value`` as a 0-d tensor of ``dtype``.  For an integer column it
+    raises what the reference's ``jnp.asarray`` raises where ``torch.tensor``
+    would raise RuntimeError: ValueError for NaN, OverflowError for +-inf or
+    a value outside the type's range.  Other values truncate alike (1.5 -> 1)."""
+    if not (dtype.is_floating_point or dtype == torch.bool) and isinstance(value, (int, float)):
+        if math.isnan(value):
+            raise ValueError("cannot convert float NaN to integer")
+        if math.isinf(value):
+            raise OverflowError("cannot convert float infinity to integer")
+        info = torch.iinfo(dtype)
+        if not info.min <= math.trunc(value) <= info.max:
+            raise OverflowError(f"fill value {value!r} out of range for {dtype}")
+    return torch.tensor(value, dtype=dtype, device=device)
 
 
 # =============================================================================
@@ -328,7 +345,7 @@ class DataFrame:
                                          device=c.device)
                         out[n] = Column(p.data, p.domain, p.mask, p.dictionary)
                     else:
-                        fill = torch.tensor(value, dtype=c.data.dtype, device=c.device)
+                        fill = _fill_scalar(value, c.data.dtype, c.device)
                         out[n] = Column(torch.where(c.mask, c.data, fill),
                                         c.domain, None, None)
                 else:

@@ -1,8 +1,10 @@
-// Fused (flash) attention of the forward / prefill pass, every batch row and
-// head in one launch: out[b, i, h] = softmax(q[b, i, h] . K[b, :, h / G]^T *
-// scale, masked) . V[b, :, h / G], with query positions aligned to the end
-// of the key axis (query i sits at position i + Sk - Sq), a causal mask
-// (key <= position) and a local window (key > position - window).
+// Fused (flash) attention of the forward / prefill pass in float32, every
+// batch row and head in one launch: out[b, i, h] = softmax(q[b, i, h] .
+// K[b, :, h / G]^T * scale, masked) . V[b, :, h / G], with query positions
+// aligned to the end of the key axis (query i sits at position i + Sk -
+// Sq), a causal mask (key <= position) and a local window (key > position -
+// window).  bf16 takes the tensor cores (flash_attention_tc.cu) through the
+// same entry point, repro_flash_attention.
 //
 // Replaces: src/repro/kernels/flash_attention.py, _flash_single (Pallas
 // body _flash_kernel).  The TPU kernel is vmapped over batch x heads (the
@@ -14,14 +16,14 @@
 // Bound on the H100: operations.  4 * D flops for each visible (query, key)
 // pair; bytes are q, k, v read once and out written once.
 //
-// Design, simple and right first (float32 FMA on the CUDA cores; wgmma and
-// TMA tiling are later work):
+// Design (float32 FMA on the CUDA cores: TF32 tensor cores would round the
+// operands; bf16 inputs take flash_attention_tc.cu):
 //   grid (query tile, head, batch row); a CTA of 8 warps owns 64 query rows
 //   of one head, each warp 8 rows.  The tile's queries, pre-scaled, sit in
-//   shared memory as float32.  The CTA walks only the key tiles that meet
-//   its causal / window band (the Pallas kernel reads every tile and masks;
-//   the function is the same), in key order, 32 keys a tile staged in
-//   shared memory as float32.  Per tile:
+//   shared memory.  The CTA walks only the key tiles that meet its causal /
+//   window band (the Pallas kernel reads every tile and masks; the function
+//   is the same), in key order, 32 keys a tile staged in shared memory.
+//   Per tile:
 //     scores  lane j of a warp scores key j against the warp's 8 rows, a
 //             sequential dot over D (float4 reads of q and k);
 //     softmax the warp folds the tile into each row's running max and sum
@@ -37,9 +39,8 @@
 // q is read through strides (B, Sq, H, D) and k / v through (B, Sk, KVH, D),
 // the last dimension contiguous, so the model's GQA layout needs neither a
 // K/V repeat nor a transpose; head h reads KV head h / G.  out is
-// contiguous (B, Sq, H, D) in q's type.  D <= 256: the kernel is compiled
-// for D up to 64, 128 and 256, the unused columns zero.
-#include <cuda_bf16.h>
+// contiguous (B, Sq, H, D).  D <= 256: the kernel is compiled for D up to
+// 64, 128 and 256, the unused columns zero.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -53,18 +54,6 @@ constexpr int kTileQ = kWarps * kRows;     // 64 query rows per CTA (the wrapper
 constexpr int kTileK = 32;                 // keys per tile: one per lane
 constexpr int kLoads = 8;                  // loads in flight per thread per tensor
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -97,7 +86,7 @@ struct Args {
   float scale;
 };
 
-template <typename T, int DMAX>
+template <int DMAX>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd(Args args) {
   constexpr int kPitch = DMAX + 4;
@@ -107,9 +96,9 @@ flash_fwd(Args args) {
   float* kt = qs + kTileQ * kPitch;             // (kTileK, kPitch)
   float* vt = kt + kTileK * kPitch;             // (kTileK, DMAX)
 
-  const T* __restrict__ q = static_cast<const T*>(args.q);
-  const T* __restrict__ k = static_cast<const T*>(args.k);
-  const T* __restrict__ v = static_cast<const T*>(args.v);
+  const float* __restrict__ q = static_cast<const float*>(args.q);
+  const float* __restrict__ k = static_cast<const float*>(args.k);
+  const float* __restrict__ v = static_cast<const float*>(args.v);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long qtile = (long long)gridDim.x - 1 - blockIdx.x;   // heavy tiles first
   const int h = blockIdx.y, b = blockIdx.z;
@@ -119,11 +108,11 @@ flash_fwd(Args args) {
   const long long off = args.sk - args.sq;       // query i sits at key position i + off
 
   // the tile's queries, scaled, columns past D zero
-  const T* qbase = q + b * args.qb + h * args.qh;
+  const float* qbase = q + b * args.qb + h * args.qh;
   for (int i = tid; i < kTileQ * DMAX; i += kThreads) {
     const int r = i / DMAX, j = i - r * DMAX;
     float x = 0.f;
-    if (j < d && q0 + r < args.sq) x = to_f32(qbase[(q0 + r) * args.qs + j]) * args.scale;
+    if (j < d && q0 + r < args.sq) x = qbase[(q0 + r) * args.qs + j] * args.scale;
     qs[r * kPitch + j] = x;
   }
 
@@ -146,8 +135,8 @@ flash_fwd(Args args) {
     for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
   }
 
-  const T* kbase = k + b * args.kb + kvh * args.kh;
-  const T* vbase = v + b * args.vb + kvh * args.vh;
+  const float* kbase = k + b * args.kb + kvh * args.kh;
+  const float* vbase = v + b * args.vb + kvh * args.vh;
   const int row0 = warp * kRows;
   for (long long k0 = k_begin; k0 < k_end; k0 += kTileK) {
     const int nt = (int)(args.sk - k0 < kTileK ? args.sk - k0 : kTileK);
@@ -160,8 +149,8 @@ flash_fwd(Args args) {
         const int t = i / DMAX, j = i - t * DMAX;
         kx[u] = vx[u] = 0.f;
         if (i < kTileK * DMAX && t < nt && j < d) {
-          kx[u] = to_f32(kbase[(k0 + t) * args.ks + j]);
-          vx[u] = to_f32(vbase[(k0 + t) * args.vs + j]);
+          kx[u] = kbase[(k0 + t) * args.ks + j];
+          vx[u] = vbase[(k0 + t) * args.vs + j];
         }
       }
 #pragma unroll
@@ -230,49 +219,51 @@ flash_fwd(Args args) {
     }
   }
 
-  T* out = static_cast<T*>(args.out);
+  float* out = static_cast<float*>(args.out);
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const long long qi = q0 + row0 + i;
     if (qi >= args.sq) continue;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
-    T* orow = out + ((b * args.sq + qi) * args.heads + h) * (long long)d;
+    float* orow = out + ((b * args.sq + qi) * args.heads + h) * (long long)d;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int j = lane + 32 * c;
-      if (j < d) orow[j] = from_f32<T>(l[i] > 0.f ? acc[i][c] * inv : 0.f);
+      if (j < d) orow[j] = l[i] > 0.f ? acc[i][c] * inv : 0.f;
     }
   }
 }
 
-template <typename T, int DMAX>
+template <int DMAX>
 int launch(const Args& args, int batch, cudaStream_t stream) {
   const size_t smem = smem_bytes<DMAX>();
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd<T, DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        flash_fwd<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const unsigned tiles = (unsigned)((args.sq + kTileQ - 1) / kTileQ);
-  flash_fwd<T, DMAX><<<dim3(tiles, args.heads, batch), kThreads, smem, stream>>>(args);
+  flash_fwd<DMAX><<<dim3(tiles, args.heads, batch), kThreads, smem, stream>>>(args);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_d(const Args& args, int batch, cudaStream_t stream) {
-  if (args.d <= 64) return launch<T, 64>(args, batch, stream);
-  if (args.d <= 128) return launch<T, 128>(args, batch, stream);
-  return launch<T, 256>(args, batch, stream);
 }
 
 }  // namespace
 
+// flash_attention_tc.cu: the bf16 kernel on the tensor cores
+int flash_tc_launch(const void* q, const void* k, const void* v, void* out, int batch,
+                    int heads, int kvheads, int d, long long sq, long long sk, long long qb,
+                    long long qs, long long qh, long long kb, long long ks, long long kh,
+                    long long vb, long long vs, long long vh, int causal, long long window,
+                    float scale, cudaStream_t stream);
+
 // q (B, Sq, H, D) through strides (qb, qs, qh); k, v (B, Sk, KVH, D)
 // through (kb, ks, kh) and (vb, vs, vh); the last dimension contiguous in
 // all three; out (B, Sq, H, D) contiguous; q, k, v and out of one type,
-// bfloat16 (bf16 = 1) or float32 (0).  1 <= D <= 256, H a multiple of KVH,
-// Sq >= 1, Sk >= 1, B and H <= 65535; window 0 for none, else >= 1.
-// Returns the cudaError_t of the launch.
+// bfloat16 (bf16 = 1: flash_tc on the tensor cores, which also needs the
+// bases 16-byte aligned and the strides multiples of 8) or float32 (0:
+// flash_fwd).  1 <= D <= 256, H a multiple of KVH, Sq >= 1, Sk >= 1, B and
+// H <= 65535; window 0 for none, else >= 1.  Returns the cudaError_t of the
+// launch (flash_tc_launch: or 10000 + a tensor-map encode's CUresult).
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* out, int bf16, int batch,
     int heads, int kvheads, int d, long long sq, long long sk, long long qb,
@@ -283,9 +274,13 @@ extern "C" int repro_flash_attention(
       heads % kvheads || d < 1 || d > 256 || sq < 1 || sk < 1 || window < 0 ||
       (sq + kTileQ - 1) / kTileQ > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return flash_tc_launch(q, k, v, out, batch, heads, kvheads, d, sq, sk, qb, qs, qh, kb, ks,
+                           kh, vb, vs, vh, causal, window, scale, st);
   const Args args{q, k, v, out, heads, kvheads, d, sq, sk, qb, qs, qh,
                   kb, ks, kh, vb, vs, vh, causal, window, scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16) return launch_d<__nv_bfloat16>(args, batch, st);
-  return launch_d<float>(args, batch, st);
+  if (d <= 64) return launch<64>(args, batch, st);
+  if (d <= 128) return launch<128>(args, batch, st);
+  return launch<256>(args, batch, st);
 }

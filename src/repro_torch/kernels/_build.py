@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("segment_reduce.cu", "block_transpose.cu", "onehot_encode.cu",
            "window_scan.cu", "decode_attention.cu", "linear_scan.cu",
-           "flash_attention.cu")
+           "flash_attention.cu", "flash_attention_tc.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 

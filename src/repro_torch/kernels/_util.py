@@ -49,17 +49,22 @@ def cuda_stream(t: torch.Tensor) -> int:
 
 
 class LaunchCounter:
-    """Counts kernel launches.  Pool threads launch concurrently, so the
-    increment is under a lock."""
+    """Counts kernel launches, and per route where a wrapper has more than
+    one kernel.  Pool threads launch concurrently, so the increment is under
+    a lock."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self.launches = 0
+        self.routes: dict[str, int] = {}
 
-    def bump(self) -> None:
+    def bump(self, route: str | None = None) -> None:
         with self._lock:
             self.launches += 1
+            if route is not None:
+                self.routes[route] = self.routes.get(route, 0) + 1
 
     def reset(self) -> None:
         with self._lock:
             self.launches = 0
+            self.routes = {}

@@ -2,11 +2,17 @@
 local-window masks, GQA, query positions aligned to the end of the key axis.
 
 ``flash_attention`` dispatches on the device of its tensors: CPU tensors
-take the plain PyTorch version below, CUDA tensors the hand-written kernel in
-``csrc/flash_attention.cu`` (one CTA per 64 query rows of a head, key tiles
-of the causal / window band in order, online softmax in float32,
-bit-identical from run to run; see the note there), which replaces the TPU
-kernel ``repro/kernels/flash_attention.py:_flash_single``.
+take the plain PyTorch version below, CUDA tensors a hand-written kernel
+that replaces the TPU kernel ``repro/kernels/flash_attention.py:_flash_single``
+(one CTA per 64 query rows of a head, key tiles of the causal / window band
+in order, online softmax in float32, bit-identical from run to run).  bf16
+runs on the tensor cores (``csrc/flash_attention_tc.cu``: TMA loads, wgmma,
+P split into two bf16 halves for P . V; route "tc"), float32 on the CUDA
+cores (``csrc/flash_attention.cu``, FMA; route "fma").  The tensor-core
+kernel loads through TMA, which needs 16-byte aligned bases and strides:
+an operand that is not (an odd head dimension, a view at an odd offset) is
+copied first into a contiguous tensor with its head dimension zero-padded
+to a multiple of 16 (``tma_operand``), and the same kernel runs.
 
 Shapes: the model's call, q (B, Sq, H, D) with k, v (B, Sk, KVH, D), read
 through their strides (head h reads KV head h // (H / KVH)) → (B, Sq, H, D)
@@ -27,7 +33,7 @@ import torch
 from . import _build
 from ._util import LaunchCounter, cuda_stream, on_cpu
 
-__all__ = ["flash_attention", "flash_attention_plain", "counter", "TILE_Q"]
+__all__ = ["flash_attention", "flash_attention_plain", "tma_operand", "counter", "TILE_Q"]
 
 TILE_Q = 64                # the kernel's kTileQ: query rows per CTA
 MAX_HEAD_DIM = 256
@@ -83,6 +89,21 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, scale=None, window=No
     return _unbatched(out.to(q.dtype), rank)
 
 
+def tma_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (B, S, heads, D) as the tensor-core kernel loads it: ``t`` itself
+    where a TMA tensor map can read it (a 16-byte aligned base; B, S and
+    heads strides positive multiples of 16 bytes), else a contiguous copy
+    with D zero-padded to a multiple of 16, of which the kernel reads the
+    first D columns."""
+    size = t.element_size()
+    if t.data_ptr() % 16 == 0 and all(st > 0 and st * size % 16 == 0 for st in t.stride()[:3]):
+        return t
+    b, s, h, d = t.shape
+    padded = t.new_zeros((b, s, h, -(-d // 16) * 16))
+    padded[..., :d] = t
+    return padded
+
+
 def flash_attention(q, k, v, *, causal: bool = True, scale=None, window=None):
     """q (B, Sq, H, D), k / v (B, Sk, KVH, D) → (B, Sq, H, D); or the
     reference's (H, Sq, D) / (Sq, D) call."""
@@ -110,14 +131,17 @@ def flash_attention(q, k, v, *, causal: bool = True, scale=None, window=None):
     if out.numel() == 0 or sk == 0:     # no key at all: every row is 0
         return _unbatched(out.zero_(), rank)
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    bf16 = qb.dtype == torch.bfloat16
+    if bf16:
+        qb, kb, vb = tma_operand(qb), tma_operand(kb), tma_operand(vb)
     lib = _build.library()
     with torch.cuda.device(qb.device):
         rc = lib.repro_flash_attention(
             qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), out.data_ptr(),
-            int(qb.dtype == torch.bfloat16), b, h, kvh, d, sq, sk,
+            int(bf16), b, h, kvh, d, sq, sk,
             qb.stride(0), qb.stride(1), qb.stride(2), kb.stride(0), kb.stride(1),
             kb.stride(2), vb.stride(0), vb.stride(1), vb.stride(2), int(causal),
             0 if window is None else int(window), float(scale), cuda_stream(qb))
     _build.check(rc, "flash_attention")
-    counter.bump()
+    counter.bump("tc" if bf16 else "fma")
     return _unbatched(out, rank)

@@ -287,3 +287,26 @@ def test_ordered_slice_matches_reference(mode):
     finally:
         rs.close()
         ts.close()
+
+
+@pytest.mark.parametrize("value,error", [(float("nan"), ValueError), (float("inf"), OverflowError),
+                                         (float("-inf"), OverflowError), (2**31, OverflowError),
+                                         (-2**31 - 1, OverflowError)])
+def test_fillna_int_column_unholdable_value_raises_as_reference(both, value, error):
+    """A fill value an int32 column cannot hold raises the reference's
+    exception type (``jnp.asarray``) in both packages."""
+    got = []
+    for api, s in zip((R, T), both):
+        df = api.DataFrame({"a": [1, None, 3], "b": [0.5, 1.5, 2.5]}, session=s)
+        with pytest.raises(Exception) as info:
+            df.fillna(value).collect()
+        got.append(type(info.value))
+    assert got == [error, error]
+
+
+def test_fillna_int_column_truncates_as_reference(both):
+    rs, ts = both
+    ref, port = (api.DataFrame({"a": [1, None, 3]}, session=s).fillna(1.5).collect()
+                 for api, s in ((R, rs), (T, ts)))
+    _same(ref, port)
+    assert port.col("a").to_pylist() == [1, 1, 3]

@@ -644,6 +644,61 @@ def test_flash_attention_cpu_takes_the_plain_path(rng):
         fa_mod.flash_attention(q, k, v.to("meta"))
 
 
+# The tensor-core route (bf16) against the plain version: one bf16 ulp
+# (2^-7 |x|) plus 1e-5, chip_smoke.py's K6_BF16_RTOL / K6_BF16_ATOL.  Both
+# round one float32 result, so they may part by one ulp.
+BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-5)
+
+
+def _bf16_ratio(got, want) -> float:
+    """max |got - want| / (1e-5 + 2^-7 |want|): at most 1 within BF16_TOL."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() / (BF16_TOL["atol"] + BF16_TOL["rtol"] * want.abs())).max())
+
+
+def test_flash_tc_split_p_keeps_the_bf16_limit(rng):
+    """The numerics of the tensor-core kernel's P . V, emulated in float32
+    at a seeded causal (2, 1024, 4, 64) case: P split into bf16 hi + lo
+    stays inside BF16_TOL of the plain version; P rounded once to bf16
+    does not (a 2^-9 relative error on every term)."""
+    b, s, h, d = 2, 1024, 4, 64
+    q, k, v = (_t(rng.standard_normal((b, s, h, d)).astype(np.float32)).bfloat16()
+               for _ in range(3))
+    want = fa_mod.flash_attention_plain(q, k, v)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * d ** -0.5
+    scores = scores.masked_fill(~fa_mod._mask(s, s, True, None, "cpu"), float("-inf"))
+    p = torch.exp(scores - scores.amax(-1, keepdim=True))
+    norm = p.sum(-1, keepdim=True)
+
+    def out(*parts):
+        acc = sum(torch.einsum("bhqk,bkhd->bhqd", part, v.float()) for part in parts)
+        return (acc / norm).transpose(1, 2).bfloat16()
+
+    hi = p.bfloat16().float()
+    lo = (p - hi).bfloat16().float()
+    split, once = _bf16_ratio(out(hi, lo), want), _bf16_ratio(out(hi), want)
+    print(f"P split: {split:.4g} of the bf16 limit; P rounded once: {once:.4g}")
+    assert split <= 1.0 < once
+
+
+def test_flash_tma_operand_copies_only_what_tma_cannot_read():
+    """TMA needs 16-byte aligned bases and strides: views of a fused
+    projection pass as they are; an odd head dimension, or a view at an odd
+    offset, becomes a contiguous copy with D zero-padded to a multiple of 16."""
+    b, s, h, kvh, d = 2, 10, 4, 2, 64
+    fused = torch.randn(b, s, (h + 2 * kvh) * d).bfloat16().view(b, s, h + 2 * kvh, d)
+    for view in (fused[:, :, :h], fused[:, :, h:h + kvh], fused[:, :, h + kvh:]):
+        assert fa_mod.tma_operand(view) is view
+    odd = torch.randn(b, s, 3, 33).bfloat16()
+    got = fa_mod.tma_operand(odd)
+    assert got.shape == (b, s, 3, 48) and got.is_contiguous()
+    assert torch.equal(got[..., :33], odd) and not got[..., 33:].any()
+    shifted = torch.randn(s * 2 * d + 1).bfloat16()[1:].view(1, s, 2, d)
+    assert shifted.data_ptr() % 16 != 0
+    got = fa_mod.tma_operand(shifted)
+    assert got.data_ptr() % 16 == 0 and got.shape == shifted.shape and torch.equal(got, shifted)
+
+
 # ---- K5 and K6 on the card -------------------------------------------------------
 @pytest.mark.parametrize("shape", LINSCAN_SHAPES + [(0, 5), (1, 5), (3, 129, 70), (2, 700, 4096)])
 def test_cuda_linear_scan_matches_plain(rng, cuda, shape):
@@ -680,3 +735,99 @@ def test_cuda_flash_attention_gqa_bf16_and_unseen_rows(rng, cuda):
     assert torch.equal(short[:, :200], torch.zeros_like(short[:, :200]))
     with pytest.raises(ValueError, match="all float32 or all bfloat16"):
         fa_mod.flash_attention(q, k.float(), v.float())
+
+
+def _tc_checked(q, k, v, **kw):
+    """The bf16 call on the card: one launch of the tensor-core route,
+    rerun bit-identical, within BF16_TOL of the plain version."""
+    fa_mod.counter.reset()
+    out = fa_mod.flash_attention(q, k, v, **kw)
+    assert fa_mod.counter.routes == {"tc": 1}
+    assert torch.equal(out, fa_mod.flash_attention(q, k, v, **kw))
+    torch.testing.assert_close(out.float(), fa_mod.flash_attention_plain(q, k, v, **kw).float(),
+                               **BF16_TOL)
+    return out
+
+
+def _bf16_on(cuda, *arrays):
+    return tuple(_t(a).to(cuda, torch.bfloat16) for a in arrays)
+
+
+@pytest.mark.parametrize("h,sq,sk,d", FLASH_SHAPES)
+@pytest.mark.parametrize("window", [None, 32])
+def test_cuda_flash_tc_bf16_matches_plain(rng, cuda, h, sq, sk, d, window):
+    _tc_checked(*_bf16_on(cuda, *_flash_inputs(rng, h, sq, sk, d)), window=window)
+
+
+@pytest.mark.parametrize("h,kvh,d", [(8, 2, 128), (16, 1, 256)])
+@pytest.mark.parametrize("window", [None, 100])
+def test_cuda_flash_tc_gqa_and_mqa_model_layout(rng, cuda, h, kvh, d, window):
+    b, s = 2, 300
+    q, k, v = _bf16_on(cuda, *(rng.standard_normal(shape).astype(np.float32)
+                               for shape in ((b, s, h, d), (b, s, kvh, d), (b, s, kvh, d))))
+    _tc_checked(q, k, v, window=window)
+
+
+def test_cuda_flash_tc_views_of_a_fused_projection(rng, cuda):
+    """q, k and v as strided views of one (B, S, (H + 2 KVH) D) tensor:
+    TMA reads them in place."""
+    b, s, h, kvh, d = 2, 200, 8, 2, 128
+    (fused,) = _bf16_on(cuda, rng.standard_normal((b, s, (h + 2 * kvh) * d)).astype(np.float32))
+    fused = fused.view(b, s, h + 2 * kvh, d)
+    q, k, v = fused[:, :, :h], fused[:, :, h:h + kvh], fused[:, :, h + kvh:]
+    assert all(fa_mod.tma_operand(t) is t for t in (q, k, v))
+    _tc_checked(q, k, v)
+
+
+def test_cuda_flash_tc_odd_head_dim_through_the_padded_copy(rng, cuda):
+    """D 33 cannot give TMA 16-byte strides: the wrapper's zero-padded copy
+    goes to the same kernel, which reads 33 columns; likewise a view at an
+    odd offset."""
+    q, k, v = _bf16_on(cuda, *(rng.standard_normal((2, 150, 4, 33)).astype(np.float32)
+                               for _ in range(3)))
+    for window in (None, 40):
+        _tc_checked(q, k, v, window=window)
+    (flat,) = _bf16_on(cuda, rng.standard_normal(3 * 150 * 4 * 64 + 1).astype(np.float32))
+    q, k, v = flat[1:].view(3, 150, 4, 64).unbind(0)
+    _tc_checked(q[None], k[None], v[None])
+
+
+@pytest.mark.parametrize("window", [63, 64, 65])
+@pytest.mark.parametrize("sq", [256, 200])
+def test_cuda_flash_tc_window_edges_at_the_tile(rng, cuda, window, sq):
+    """Windows one short of, at and one past the 64-key tile; Sq = Sk and
+    Sq < Sk (queries aligned to the keys' end)."""
+    b, sk, h, kvh, d = 2, 256, 4, 2, 64
+    q, k, v = _bf16_on(cuda, rng.standard_normal((b, sq, h, d)).astype(np.float32),
+                       *(rng.standard_normal((b, sk, kvh, d)).astype(np.float32)
+                         for _ in range(2)))
+    _tc_checked(q, k, v, window=window)
+
+
+def test_cuda_flash_tc_rows_before_every_key_are_zero(rng, cuda):
+    """Sq > Sk, causal: the first Sq - Sk rows see no key and give 0 (the
+    plain version gives the mean of V; ROADMAP, known divergences); the
+    rest hold BF16_TOL."""
+    q, k, v = _bf16_on(cuda, rng.standard_normal((2, 300, 8, 64)).astype(np.float32),
+                       *(rng.standard_normal((2, 100, 2, 64)).astype(np.float32)
+                         for _ in range(2)))
+    out = fa_mod.flash_attention(q, k, v)
+    assert torch.equal(out[:, :200], torch.zeros_like(out[:, :200]))
+    want = fa_mod.flash_attention_plain(q, k, v)
+    torch.testing.assert_close(out[:, 200:].float(), want[:, 200:].float(), **BF16_TOL)
+
+
+def test_cuda_flash_tc_reruns_bit_identical(rng, cuda):
+    q, k, v = _bf16_on(cuda, *(rng.standard_normal((2, 1024, h, 128)).astype(np.float32)
+                               for h in (8, 1, 1)))
+    out = fa_mod.flash_attention(q, k, v, window=300)
+    for _ in range(10):
+        assert torch.equal(out, fa_mod.flash_attention(q, k, v, window=300))
+
+
+def test_cuda_flash_attention_f32_takes_the_fma_route(rng, cuda):
+    q, k, v = (_t(x).to(cuda) for x in _flash_inputs(rng, 2, 128, 128, 64))
+    fa_mod.counter.reset()
+    fa_mod.flash_attention(q, k, v)
+    fa_mod.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    assert fa_mod.counter.routes == {"fma": 1, "tc": 1} and fa_mod.counter.launches == 2
