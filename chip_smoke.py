@@ -11,9 +11,19 @@ Phases (any failure raises and the script exits non-zero):
                  float64 sum), an all-column aggregate of a 3,000-column
                  frame on the card vs the CPU; times kernel, plain version
                  and one library call with CUDA events, and each kernel's
-                 device time under the profiler; window_scan at edge
-                 shapes, strided columns and one of more than 2^31 elements,
-                 every case run twice and bit-identical; decode_attention
+                 device time under the profiler (K3 and K4 also the host's
+                 enqueue time a call, theirs and the library call's);
+                 onehot_encode at G = 1, 3, 4, 5, 7, 1000, ragged M, codes
+                 -1 and >= G, codes at an odd offset, bit-exact; window_scan
+                 at edge shapes, strided columns and one of more than 2^31
+                 elements, every case run twice and bit-identical, 50 reruns
+                 bit-identical at (2,000,000,) and (16,000,000,) (past the
+                 grid's shared memory), cumsum bit-equal to the float32
+                 emulation of its stated association order at five
+                 lengths up to 16,000,000, one launch a call under the
+                 profiler; K3 timed at Figure-1's 4 x 4 and at one block of
+                 get_dummies(payment_type), 2,000,000 x 3; K4 at one block,
+                 (2,000,000,), and at the whole column; decode_attention
                  (K7) at the reference's four f32 shapes and at the serving
                  shape in bf16, ten reruns bit-identical; linear_scan (K5)
                  at the reference's three shapes, T = 0 and 1, a batched
@@ -30,8 +40,9 @@ Phases (any failure raises and the script exits non-zero):
   the CUDA profiler for the device's busy time within each)
   4. fig6      — the Fig. 6 mix at 16,000,000 rows of taxi_like_frame in an
                  EAGER session: fillna, groupby(n).count(), count(), a
-                 groupby(n).agg(sum, mean, min, max), and .T.T of a
-                 1,600,000 x 64 matrix frame, each checked against numpy
+                 groupby(n).agg(sum, mean, min, max), get_dummies of
+                 payment_type (onehot_encode, one launch a block), and .T.T
+                 of a 1,600,000 x 64 matrix frame, each checked against numpy
   5. figure1   — the paper's Figure-1 workflow in OPPORTUNISTIC mode on CUDA,
                  compared with the same workflow on the CPU
   6. ordered   — the ordered path on phase 4's 16,000,000-row frame: EAGER
@@ -89,6 +100,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 FP32_OPS_PER_S = 67e12             # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12            # H100 SXM bf16 tensor cores, dense
 TAXI_ROWS = 16_000_000             # about one month of NYC yellow-cab trips
+PAYMENT = ("card", "cash", "dispute")   # taxi_like_frame's payment_type values
 SERVE_ARCH = "yi-6b"
 SERVE_BATCH, SERVE_SEQ = 8, 1024   # engine slots, cache positions per slot
 SERVE_REQUESTS, SERVE_NEW = 16, 32
@@ -157,24 +169,48 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, names: tuple, iters: int = 20) -> float:
+def device_ms(fn, names: tuple | None, iters: int = 20) -> float:
     """Device time of one call: the summed durations, under the CUDA
-    profiler, of the kernels whose names contain one of ``names``, per
-    call.  ``cuda_ms`` also counts the gaps in which the card waits for the
-    host to launch the next call."""
+    profiler, of the kernels whose names contain one of ``names`` (every
+    kernel and copy when ``names`` is None), per call.  ``cuda_ms`` also
+    counts the gaps in which the card waits for the host to launch the next
+    call."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     # CPU activity too: with CUDA activity alone one kernel's records came
-    # back short of its bytes bound
+    # back short of its bytes bound.  Only the device's own records count:
+    # an aten op's row carries the durations of the kernels it launched too.
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.key_averages()
-               if any(n in e.key for n in names)) / iters / 1e3
+               if e.device_type == DeviceType.CUDA
+               and (names is None or any(n in e.key for n in names))) / iters / 1e3
+
+
+# K3's and K4's rows time events over as many calls as their host times:
+# over 20 calls the host's clock moved their event times by up to 2x
+EVENT_CALLS = 200
+
+
+def host_ms(fn, iters: int = EVENT_CALLS) -> float:
+    """Host time of one call: the host clock over ``iters`` back-to-back
+    calls, read before the sync (the enqueue, not the device's work)."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = (time.perf_counter() - t0) / iters * 1e3
+    torch.cuda.synchronize()
+    return host
 
 
 def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
@@ -265,14 +301,23 @@ def check_transpose(torch, bt, dev, pool: int) -> None:
 
 
 def check_onehot(torch, oh, dev) -> None:
+    """Bit-exact against the plain version: G = 1, 3, 4, 5, 7 and 1000 at
+    ragged M (not a multiple of 4, past one 8192-element span), codes -1 and
+    >= G (zero rows), codes read at an odd offset (the scalar path), the
+    (2,000,000,) x 3 shape of get_dummies(payment_type), and one output of
+    more than 2^31 elements."""
     # the last shape has M * G = 2,160,000,000 > 2^31 elements
     shapes = [(1, 1), (4, 4), (1000, 3), (513, 1000), (100_003, 7), (2048, 70_000),
+              (4097, 1), (3, 3), (10_001, 4), (10_003, 5), (1001, 1000), (2_000_000, 3),
               (36_000, 60_000)]
     for m, g in shapes:
-        codes = torch.randint(-1, g + 3, (m,), dtype=torch.int32, device=dev)
-        if not torch.equal(oh.onehot_encode(codes, g), oh.onehot_encode_plain(codes, g)):
-            raise AssertionError(f"onehot_encode {(m, g)} differs")
-    log(f"  onehot_encode: {len(shapes)} shapes bit-exact (codes -1 and >= G give zero rows)")
+        codes = torch.randint(-1, g + 3, (m + 1,), dtype=torch.int32, device=dev)
+        for what, c in (("aligned", codes[:m]), ("odd offset", codes[1:])):
+            if not torch.equal(oh.onehot_encode(c, g), oh.onehot_encode_plain(c, g)):
+                raise AssertionError(f"onehot_encode {(m, g)} {what} differs")
+        del codes
+    log(f"  onehot_encode: {len(shapes)} shapes x (aligned, odd offset) codes bit-exact "
+        f"(codes -1 and >= G give zero rows)")
 
 
 def scan_sum_ratio(torch, got, x) -> float:
@@ -318,7 +363,9 @@ def check_window_scan(torch, ws, dev) -> None:
     one shape of more than 2^31 elements.  max / min bit-equal the plain
     version; cumsum of kernel and plain within SUM_RTOL * sum|v| of a
     float64 prefix sum at every row; cumprod of power-of-two factors (exact
-    in any order) equal; every case run twice and bit-identical."""
+    in any order) equal; every case run twice and bit-identical; cumsum
+    bit-equal to ws.emulated_cumsum (the kernel's stated order) at five
+    lengths."""
     gen = torch.Generator(device=dev).manual_seed(1)
     ms = (1, 2, 31, 32, 33, 1023, 1024, 1025, 65_537, 2_000_000)
     worst, cases = 0.0, 0
@@ -362,6 +409,47 @@ def check_window_scan(torch, ws, dev) -> None:
         raise AssertionError("window_scan cummax (16777259, 130): differs from the plain version")
     del big
     torch.cuda.empty_cache()
+    # 50 reruns bit-identical where the column stays in shared memory
+    # (2,000,000 rows) and where it streams (16,000,000 rows)
+    for m in (2_000_000, TAXI_ROWS):
+        x = torch.randn(m, generator=gen, device=dev)
+        for op in ("cumsum", "cummax", "cummin", "cumprod"):
+            inp = 1.0 + 1e-3 * x if op == "cumprod" else x
+            first = ws.window_scan(inp, op)
+            for _ in range(50):
+                if not torch.equal(first.view(torch.int32), ws.window_scan(inp, op).view(torch.int32)):
+                    raise AssertionError(f"window_scan {op} ({m},): a rerun differs")
+            if op == "cumsum":
+                r = scan_sum_ratio(torch, first, x)
+                assert r <= 1.0, f"window_scan cumsum ({m},): {r:.3g}x the tolerance"
+                worst = max(worst, r)
+            elif op != "cumprod":
+                want = ws.window_scan_plain(inp, op)
+                assert torch.equal(first.view(torch.int32), want.view(torch.int32)), (op, m)
+        del x, inp, first
+    # cumsum in the association order the kernel's header states: bit-equal
+    # to its float32 emulation on the CPU, within shared memory and past it
+    for m in (1, 4097, 2_000_000, 3_000_000, TAXI_ROWS):
+        x = torch.randn(m, generator=gen, device=dev)
+        got = ws.window_scan(x).cpu()
+        if not torch.equal(got.view(torch.int32), ws.emulated_cumsum(x).view(torch.int32)):
+            raise AssertionError(f"window_scan cumsum ({m},): differs from the emulated order")
+    log("  window_scan cumsum bit-equal to the float32 emulation of its stated order at "
+        f"(1,), (4097,), (2000000,), (3000000,), ({TAXI_ROWS},)")
+    # one launch a call: the profiler's device records over 5 calls
+    x = torch.randn(2_000_000, generator=gen, device=dev)
+    ws.window_scan(x)
+    torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            ws.window_scan(x)
+        torch.cuda.synchronize()
+    records = {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    assert sum(records.values()) == 5 and all("scan_one_pass" in k for k in records), records
+    log(f"  window_scan: 50 reruns bit-identical at (2000000,) and ({TAXI_ROWS},) x 4 ops; "
+        f"5 calls gave the profiler {records}: one launch a call")
     log(f"  window_scan: {cases} cases x reruns bit-identical; max/min bit-equal, exact "
         f"cumprod equal, cumsum of kernel and plain within {SUM_RTOL}*sum|v| of a float64 "
         f"prefix (worst {worst:.3g} of it); (16777259, 130) cummax bit-equal")
@@ -679,39 +767,57 @@ def time_kernels(torch, sr, bt, oh, ws, da, ls, fa, dev, pool: int) -> dict:
         plain_ms=cuda_ms(lambda: bt.block_transpose_plain(x)),
         library_ms=cuda_ms(lambda: x.t().contiguous()),
         bound_ms=b, bound_by=by)
-    # get_dummies of Figure-1's Display column: 4 rows, 4 categories
-    codes = torch.tensor([0, 1, 2, 3], dtype=torch.int32, device=dev)
-    codes64 = codes.long()
-    err = float((oh.onehot_encode(codes, 4) - oh.onehot_encode_plain(codes, 4)).abs().max())
-    assert err == 0.0, err
-    b, by = bound_ms((4 * 4 + 4) * 4, 0)
-    out["onehot_encode"] = dict(
-        name="onehot_encode", route="cuda", source="src/repro_torch/csrc/onehot_encode.cu",
-        replaces="src/repro/kernels/onehot_encode.py:29", shape=[4, 4],
-        max_abs_err=err,
-        ms=cuda_ms(lambda: oh.onehot_encode(codes, 4)),
-        device_ms=device_ms(lambda: oh.onehot_encode(codes, 4), ("onehot",)),
-        plain_ms=cuda_ms(lambda: oh.onehot_encode_plain(codes, 4)),
-        library_ms=cuda_ms(lambda: F.one_hot(codes64, 4)),
-        bound_ms=b, bound_by=by)
-    # WINDOW: one column of one block of the 16M-row frame
-    m = -(-TAXI_ROWS // pool)
-    x = torch.randn(m, device=dev)
-    k, plain, lib = ws.window_scan(x), ws.window_scan_plain(x), torch.cumsum(x, 0)
-    ratios = [scan_sum_ratio(torch, r, x) for r in (k, plain, lib)]
-    assert ratios[0] <= 1.0 and ratios[1] <= 1.0, ratios
-    log(f"  window_scan [{m}] cumsum against a float64 prefix sum: kernel {ratios[0]:.3g} of "
-        f"the tolerance, plain {ratios[1]:.3g}, float32 torch.cumsum {ratios[2]:.3g}")
-    b, by = bound_ms(2 * m * 4, m)
-    out["window_scan"] = dict(
-        name="window_scan", route="cuda", source="src/repro_torch/csrc/window_scan.cu",
-        replaces="src/repro/kernels/window_scan.py:58", shape=[m],
-        max_abs_err=float((k - plain).abs().max()),
-        ms=cuda_ms(lambda: ws.window_scan(x)),
-        device_ms=device_ms(lambda: ws.window_scan(x), ("scan_totals", "scan_carries", "scan_apply")),
-        plain_ms=cuda_ms(lambda: ws.window_scan_plain(x)),
-        library_ms=cuda_ms(lambda: torch.cumsum(x, 0)),
-        bound_ms=b, bound_by=by)
+    # get_dummies: Figure-1's Display column (4 rows, 4 categories) and one
+    # block of the 16M-row frame's payment_type (2,000,000 rows, 3 categories;
+    # the JSON row, phase 4's shape).  F.one_hot gives int64 and takes codes
+    # in [0, G) only.
+    for m, g in ((4, 4), (-(-TAXI_ROWS // pool), 3)):
+        codes = (torch.tensor([0, 1, 2, 3], dtype=torch.int32, device=dev) if m == 4 else
+                 torch.randint(0, g, (m,), dtype=torch.int32, device=dev))
+        codes64 = codes.long()
+        err = float((oh.onehot_encode(codes, g) - oh.onehot_encode_plain(codes, g)).abs().max())
+        assert err == 0.0, err
+        b, by = bound_ms((m * g + m) * 4, m * g)
+        rec = dict(
+            name="onehot_encode", route="cuda", source="src/repro_torch/csrc/onehot_encode.cu",
+            replaces="src/repro/kernels/onehot_encode.py:29", shape=[m, g],
+            max_abs_err=err,
+            ms=cuda_ms(lambda: oh.onehot_encode(codes, g), iters=EVENT_CALLS),
+            device_ms=device_ms(lambda: oh.onehot_encode(codes, g), ("onehot_span",)),
+            host_ms=host_ms(lambda: oh.onehot_encode(codes, g)),
+            plain_ms=cuda_ms(lambda: oh.onehot_encode_plain(codes, g)),
+            library_ms=cuda_ms(lambda: F.one_hot(codes64, g), iters=EVENT_CALLS),
+            library_device_ms=device_ms(lambda: F.one_hot(codes64, g), None),
+            library_host_ms=host_ms(lambda: F.one_hot(codes64, g)),
+            bound_ms=b, bound_by=by)
+        if m == 4:
+            out["onehot_encode_figure1"] = rec
+        else:
+            out["onehot_encode"] = rec
+    # WINDOW: one column of one block of the 16M-row frame (the JSON row),
+    # and the whole column, past the grid's shared memory
+    for m in (-(-TAXI_ROWS // pool), TAXI_ROWS):
+        x = torch.randn(m, device=dev)
+        k, plain, lib = ws.window_scan(x), ws.window_scan_plain(x), torch.cumsum(x, 0)
+        ratios = [scan_sum_ratio(torch, r, x) for r in (k, plain, lib)]
+        assert ratios[0] <= 1.0 and ratios[1] <= 1.0, ratios
+        log(f"  window_scan [{m}] cumsum against a float64 prefix sum: kernel {ratios[0]:.3g} of "
+            f"the tolerance, plain {ratios[1]:.3g}, float32 torch.cumsum {ratios[2]:.3g}")
+        b, by = bound_ms(2 * m * 4, m)
+        rec = dict(
+            name="window_scan", route="cuda", source="src/repro_torch/csrc/window_scan.cu",
+            replaces="src/repro/kernels/window_scan.py:58", shape=[m],
+            max_abs_err=float((k - plain).abs().max()),
+            ms=cuda_ms(lambda: ws.window_scan(x), iters=EVENT_CALLS),
+            device_ms=device_ms(lambda: ws.window_scan(x), ("scan_one_pass",)),
+            host_ms=host_ms(lambda: ws.window_scan(x)),
+            plain_ms=cuda_ms(lambda: ws.window_scan_plain(x)),
+            library_ms=cuda_ms(lambda: torch.cumsum(x, 0), iters=EVENT_CALLS),
+            library_device_ms=device_ms(lambda: torch.cumsum(x, 0), None),
+            library_host_ms=host_ms(lambda: torch.cumsum(x, 0)),
+            bound_ms=b, bound_by=by)
+        out["window_scan" if m < TAXI_ROWS else "window_scan_16m"] = rec
+        del x, k, plain, lib
     # decode attention: one serving step's layer, 8 slots over a 1024-slot cache
     q, k, v, lengths = decode_main_inputs(torch, dev)
     b_, h, d = q.shape
@@ -857,7 +963,7 @@ def fig6_data(dev):
 def fig6_steps(run, dev, frame, mat) -> dict:
     """The Fig. 6 mix in fresh EAGER sessions; ``run(label, thunk)`` runs
     each step (timed, or under the profiler)."""
-    from repro_torch.core import DataFrame, EvalMode, Session
+    from repro_torch.core import DataFrame, EvalMode, Session, get_dummies
     s = Session(mode=EvalMode.EAGER, device=dev)
     # .T.T with rewriting off: R1 would cancel the pair and run no transpose
     st = Session(mode=EvalMode.EAGER, optimize=False, device=dev)
@@ -868,7 +974,9 @@ def fig6_steps(run, dev, frame, mat) -> dict:
            "count_1": run('df["f0"].count()', lambda: df["f0"].count()),
            "agg": run("groupby(passenger_count).agg(f0: sum, mean, min, max)",
                       lambda: df.groupby("passenger_count").agg(
-                          {"f0": ["sum", "mean", "min", "max"]}).collect())}
+                          {"f0": ["sum", "mean", "min", "max"]}).collect()),
+           "dummies": run("get_dummies(payment_type)",
+                          lambda: get_dummies(df, ["payment_type"]).collect())}
     t = run(".T", lambda: dm.T)
     out["back"] = run(".T (second) + collect", lambda: t.T.collect())
     s.close()
@@ -878,16 +986,17 @@ def fig6_steps(run, dev, frame, mat) -> dict:
 
 def taxi_numpy(np):
     """taxi_like_frame(TAXI_ROWS, seed=0) in numpy: passenger_count, the six
-    float columns and their null masks (taxi_like_frame's calls, in order)."""
+    float columns and their null masks, and the payment_type index into
+    PAYMENT (taxi_like_frame's calls, in order)."""
     n = TAXI_ROWS
     rng = np.random.default_rng(0)
     pc = rng.integers(1, 7, n)
-    rng.choice(3, n)
+    pay = rng.choice(3, n)
     cols, nulls = [], []
     for _ in range(6):
         cols.append(rng.standard_normal(n).astype(np.float32))
         nulls.append(rng.random(n) < 0.01)
-    return pc, cols, nulls
+    return pc, cols, nulls, pay
 
 
 def check_fig6(torch, np, dev, out: dict) -> None:
@@ -895,7 +1004,7 @@ def check_fig6(torch, np, dev, out: dict) -> None:
     from repro_torch.core import Domain
     from repro_torch.core.frame import host
     n = TAXI_ROWS
-    pc, cols, nulls = taxi_numpy(np)
+    pc, cols, nulls, pay = taxi_numpy(np)
 
     filled = out["filled"]
     assert filled.shape == (n, 8), filled.shape
@@ -926,6 +1035,14 @@ def check_fig6(torch, np, dev, out: dict) -> None:
         seg = cols[0][valid][key == gi]
         assert a.col("f0_min").to_pylist()[gi] == float(seg.min())
         assert a.col("f0_max").to_pylist()[gi] == float(seg.max())
+
+    d = out["dummies"]
+    labels = d.col_labels.to_list()
+    assert d.shape == (n, 10), d.shape
+    for j, val in enumerate(PAYMENT):
+        col = d.columns[labels.index(f"payment_type_{val}")]
+        want = torch.from_numpy((pay == j).astype(np.int32)).to(dev)
+        assert col.mask is None and torch.equal(col.data, want), val
 
     back = out["back"]
     want = np.random.default_rng(0).standard_normal((MATRIX_ROWS, MATRIX_COLS)).astype(np.float32)
@@ -1094,7 +1211,7 @@ def check_ordered(torch, np, dev, out: dict, serial: dict) -> None:
     from repro_torch.core import Domain
     from repro_torch.core.frame import host
     n = TAXI_ROWS
-    pc, cols, nulls = taxi_numpy(np)
+    pc, cols, nulls, _ = taxi_numpy(np)
     filled = [np.where(nl, 0.0, c).astype(np.float32) for c, nl in zip(cols, nulls)]
     dt = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
@@ -1725,8 +1842,14 @@ def main() -> int:
     timings = time_kernels(torch, sr, bt, oh, ws, da, ls, fa, dev, pool)
     for rec in timings.values():
         lib = "none" if rec["library_ms"] is None else f"{rec['library_ms']:.4f} ms"
+        if "host_ms" in rec:
+            host = f", host {rec['host_ms']:.4f} ms a call"
+            lib += (f" (on the device {rec['library_device_ms']:.4f} ms, host "
+                    f"{rec['library_host_ms']:.4f} ms a call)")
+        else:
+            host = ""
         log(f"  {rec['name']} {rec['shape']}: kernel {rec['ms']:.4f} ms (on the device "
-            f"{rec['device_ms']:.4f} ms), plain "
+            f"{rec['device_ms']:.4f} ms{host}), plain "
             f"{rec['plain_ms']:.4f} ms, library {lib}, bound "
             f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), max |err| {rec['max_abs_err']:.3g}")
     torch.cuda.empty_cache()
@@ -1748,7 +1871,7 @@ def main() -> int:
     for k, c in counters.items():
         launches[k] += c.launches
     log(f"[fig6] launches {dict((k, c.launches) for k, c in counters.items())}")
-    for k in ("segment_reduce", "block_transpose"):
+    for k in ("segment_reduce", "block_transpose", "onehot_encode"):
         assert counters[k].launches > 0, f"the Fig. 6 mix never launched {k}"
     check_fig6(torch, np, dev, out)
     del out
@@ -1815,6 +1938,10 @@ def main() -> int:
               "linear_scan", "flash_attention", "decode_attention"):
         rec = dict(timings[k])
         rec["launches"] = launches[k]
+        if k == "onehot_encode":
+            rec["at_figure1"] = timings["onehot_encode_figure1"]
+        if k == "window_scan":
+            rec["at_16m"] = timings["window_scan_16m"]
         if k == "flash_attention":
             rec["launches_by_route"] = flash_routes
         record.append(rec)

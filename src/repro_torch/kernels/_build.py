@@ -41,7 +41,7 @@ _SIGNATURES = {
                              _I32, _I32, _I64, _I32, _P),
     "repro_block_transpose": (_P, _P, _I64, _I64, _P),
     "repro_onehot_encode": (_P, _P, _I64, _I64, _P),
-    "repro_window_scan": (_P, _P, _P, _I64, _I32, _I64, _I64, _I32, _I64, _P),
+    "repro_window_scan": (_P, _P, _P, _I64, _I64, _I64, _I64, _I32, _I64, _P),
     "repro_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32,
                                _I32, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
                                _I64, _I64, _I32, _F32, _P),
@@ -105,8 +105,12 @@ def _compile(target: Path) -> None:
 
 
 def library() -> ctypes.CDLL:
-    """The kernel library, built on first use (thread-safe)."""
+    """The kernel library, built on first use (thread-safe; once loaded,
+    returned without taking the lock)."""
     global _LIB, _BUILD_SECONDS
+    lib = _LIB
+    if lib is not None:
+        return lib
     with _LOCK:
         if _LIB is not None:
             return _LIB

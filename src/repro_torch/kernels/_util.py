@@ -2,11 +2,12 @@
 kernel boundary, device dispatch checks, and launch counters."""
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import torch
 
-__all__ = ["widen_for_kernel", "narrow_from_kernel", "on_cpu", "cuda_stream",
+__all__ = ["widen_for_kernel", "narrow_from_kernel", "on_cpu", "on_device", "cuda_stream",
            "LaunchCounter"]
 
 
@@ -32,20 +33,35 @@ def on_cpu(kernel: str, *tensors: torch.Tensor) -> bool:
     the CPU (the plain version runs), False when every tensor lies on one
     CUDA device (the kernel runs).  Anything else raises — there is no
     fallback from a CUDA tensor to the plain version."""
-    devs = {t.device for t in tensors}
-    if all(d.type == "cpu" for d in devs):
+    first = tensors[0]
+    if first.is_cuda:
+        dev = first.get_device()
+        if all(t.is_cuda and t.get_device() == dev for t in tensors[1:]):
+            return False
+    elif all(t.device.type == "cpu" for t in tensors):
         return True
-    if len(devs) == 1 and next(iter(devs)).type == "cuda":
-        return False
     raise ValueError(f"{kernel}: tensors must all be on the CPU or all on one "
-                     f"CUDA device, got {sorted(str(d) for d in devs)}")
+                     f"CUDA device, got {sorted(str(t.device) for t in tensors)}")
+
+
+_SAME_DEVICE = contextlib.nullcontext()
+
+
+def on_device(t: torch.Tensor):
+    """The context a launch runs in: ``torch.cuda.device`` of ``t``'s device
+    where that is not the current one, else nothing to enter."""
+    dev = t.get_device()
+    if dev == torch.cuda.current_device():
+        return _SAME_DEVICE
+    return torch.cuda.device(dev)
 
 
 def cuda_stream(t: torch.Tensor) -> int:
-    """PyTorch's current stream on ``t``'s device, as the raw handle.  The
-    launch itself runs under ``torch.cuda.device(t.device)``, so the stream
-    and the runtime's current device agree."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """PyTorch's current stream on ``t``'s device, as the raw handle (no
+    ``torch.cuda.Stream`` object is built).  The launch itself runs under
+    ``on_device(t)``, so the stream and the runtime's current device
+    agree."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 class LaunchCounter:

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ._util import LaunchCounter, cuda_stream, on_cpu
+from ._util import LaunchCounter, cuda_stream, on_cpu, on_device
 
 __all__ = ["block_transpose", "block_transpose_plain", "counter"]
 
@@ -39,7 +39,7 @@ def block_transpose(x: torch.Tensor) -> torch.Tensor:
     # the kernel reads row-major rows: a strided view is copied first
     x = x.contiguous()
     lib = _build.library()
-    with torch.cuda.device(x.device):
+    with on_device(x):
         rc = lib.repro_block_transpose(x.data_ptr(), out.data_ptr(), m, n,
                                        cuda_stream(x))
     _build.check(rc, "block_transpose")

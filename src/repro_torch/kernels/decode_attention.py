@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ._util import LaunchCounter, cuda_stream, on_cpu
+from ._util import LaunchCounter, cuda_stream, on_cpu, on_device
 
 __all__ = ["decode_attention", "decode_attention_plain", "counter", "splits",
            "SPLIT_KEYS"]
@@ -98,7 +98,7 @@ def decode_attention(q, k_cache, v_cache, length, *, scale=None):
     part_acc = torch.empty((b, kvh, ns, g, d), dtype=torch.float32, device=qb.device)
     part_ml = torch.empty((b, kvh, ns, g, 2), dtype=torch.float32, device=qb.device)
     lib = _build.library()
-    with torch.cuda.device(qb.device):
+    with on_device(qb):
         rc = lib.repro_decode_attention(
             qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), lb.data_ptr(),
             part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(),

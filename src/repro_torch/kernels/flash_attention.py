@@ -31,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ._util import LaunchCounter, cuda_stream, on_cpu
+from ._util import LaunchCounter, cuda_stream, on_cpu, on_device
 
 __all__ = ["flash_attention", "flash_attention_plain", "tma_operand", "counter", "TILE_Q"]
 
@@ -135,7 +135,7 @@ def flash_attention(q, k, v, *, causal: bool = True, scale=None, window=None):
     if bf16:
         qb, kb, vb = tma_operand(qb), tma_operand(kb), tma_operand(vb)
     lib = _build.library()
-    with torch.cuda.device(qb.device):
+    with on_device(qb):
         rc = lib.repro_flash_attention(
             qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), out.data_ptr(),
             int(bf16), b, h, kvh, d, sq, sk,

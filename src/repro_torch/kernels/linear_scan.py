@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ._util import LaunchCounter, cuda_stream, on_cpu
+from ._util import LaunchCounter, cuda_stream, on_cpu, on_device
 
 __all__ = ["linear_scan", "linear_scan_plain", "counter", "chunks", "CHUNK_STEPS"]
 
@@ -66,7 +66,7 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     sa = torch.empty((batch, c, n), dtype=torch.float32, device=a.device)
     sb = torch.empty_like(sa)
     lib = _build.library()
-    with torch.cuda.device(a.device):
+    with on_device(a):
         rc = lib.repro_linear_scan(a3.data_ptr(), b3.data_ptr(), out.data_ptr(),
                                    sa.data_ptr(), sb.data_ptr(), batch, t, n,
                                    a3.stride(0), a3.stride(1), b3.stride(0), b3.stride(1),

@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ._util import LaunchCounter, cuda_stream, on_cpu
+from ._util import LaunchCounter, cuda_stream, on_cpu, on_device
 
 __all__ = ["segment_reduce", "segment_reduce_plain", "counter", "plan",
            "slab_width"]
@@ -118,7 +118,7 @@ def segment_reduce(values: torch.Tensor, codes: torch.Tensor,
         w = min(width, c - lo)
         chunks, rows, tile_g = plan(m, w, g)
         scratch = torch.empty((chunks, g, w), dtype=torch.float32, device=v.device)
-        with torch.cuda.device(v.device):
+        with on_device(v):
             rc = lib.repro_segment_reduce(
                 v[:, lo:].data_ptr(), codes.data_ptr(), out[:, lo:].data_ptr(),
                 scratch.data_ptr(), m, w, c, c, g, OPS[op], chunks, rows, tile_g,

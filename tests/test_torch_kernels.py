@@ -150,12 +150,45 @@ def test_window_scan_reads_strided_columns(rng):
                            ws_mod.window_scan(t[:, 2:5].contiguous(), op))
 
 
-@pytest.mark.parametrize("m,chunks", [(1, 1), (4095, 1), (4096, 1), (4097, 2),
-                                      (2_000_000, 489), (2 ** 31 + 1, 524289)])
-def test_window_scan_chunk_plan(m, chunks):
-    """The kernel cuts rows into 4096-row chunks, one CTA each per column."""
-    assert ws_mod.chunks(m) == chunks
-    assert (chunks - 1) * ws_mod.CHUNK_ROWS < m <= chunks * ws_mod.CHUNK_ROWS
+@pytest.mark.parametrize("m,n,chunks", [
+    (1, 1, 1), (4095, 1, 1), (4096, 1, 1), (4097, 1, 2), (2_000_000, 1, 489),
+    (2 ** 31 + 1, 1, 524289), (16_000_000, 1, 3907), (513, 3, 2), (16_777_259, 130, 32769)])
+def test_window_scan_chunk_plan(m, n, chunks):
+    """A work item is 4096 elements: 4096 rows of the column when N == 1,
+    512 rows of a group of 8 columns otherwise."""
+    rows = ws_mod.CHUNK_ROWS if n == 1 else ws_mod.CHUNK_ROWS // ws_mod.GROUP
+    assert ws_mod.chunks(m, n) == chunks
+    assert (chunks - 1) * rows < m <= chunks * rows
+
+
+@pytest.mark.parametrize("m", [2_000_000, 3_000_000, 16_000_000])
+def test_window_scan_association_order_keeps_sum_rtol(rng, m):
+    """The kernel's fixed order, emulated in float32 on the CPU: within
+    1e-5 * sum|v| (chip_smoke.py's SUM_RTOL) of a float64 prefix sum at
+    every row, and the same bits on a second run.  Past 2,097,152 rows a
+    thread's run of chunk totals is longer than one."""
+    x = _t(rng.standard_normal(m).astype(np.float32))
+    got = ws_mod.emulated_cumsum(x)
+    assert torch.equal(got.view(torch.int32), ws_mod.emulated_cumsum(x).view(torch.int32))
+    exact = torch.cumsum(x.double(), 0)
+    ratio = float(((got.double() - exact).abs() / (1e-5 * torch.cumsum(x.double().abs(), 0))).max())
+    print(f"emulated K4 cumsum at ({m},): {ratio:.4g} of the tolerance")
+    assert ratio <= 1.0
+
+
+@pytest.mark.parametrize("g", [1, 3, 4, 5, 7, 1000])
+@pytest.mark.parametrize("rows", ["1", "3", "ragged, past 3 spans"])
+def test_onehot_span_plan_covers_every_element_once(rows, g):
+    """K3's split of the flat M * G output into 8192-element spans and
+    float4 vectors, in the kernel's integer steps: every element stored
+    once, at its own row and column, reading a staged code of its span.
+    M is not a multiple of 4 past one span."""
+    m = int(rows) if rows.isdigit() else 3 * oh_mod.SPAN // g + 3
+    seen = np.zeros(m * g, dtype=np.int64)
+    for e, row, col, slot, rows in oh_mod.span_plan(m, g):
+        assert (row, col) == divmod(e, g) and 0 <= slot < rows <= oh_mod.SPAN + 4
+        seen[e] += 1
+    assert (seen == 1).all()
 
 
 # ---- plain versions vs the Pallas kernels (interpret mode) ------------------
@@ -319,6 +352,40 @@ def test_cuda_window_scan_matches_plain(rng, cuda, m, n, op):
     else:
         tol = dict(rtol=0, atol=0) if op == "cumprod" else TOL
         torch.testing.assert_close(out, exp, equal_nan=True, **tol)
+
+
+@pytest.mark.parametrize("m", [1, 4097, 2_000_000, 3_000_000, 16_000_000])
+def test_cuda_window_scan_cumsum_is_the_stated_order(rng, cuda, m):
+    """The kernel's cumsum equals, bit for bit, the float32 emulation of the
+    association order its header states (adds only, so no contraction can
+    part them).  16,000,000 rows pass the grid's shared memory: part of the
+    column streams."""
+    x = rng.standard_normal(m).astype(np.float32)
+    got = ws_mod.window_scan(_t(x).to(cuda)).cpu()
+    assert torch.equal(got.view(torch.int32), ws_mod.emulated_cumsum(_t(x)).view(torch.int32))
+
+
+@pytest.mark.parametrize("m", [2_000_000, 16_000_000])
+@pytest.mark.parametrize("op", SCAN_OPS + ["cumprod"])
+def test_cuda_window_scan_50_reruns_bit_identical(rng, cuda, m, op):
+    x = _t(rng.standard_normal(m).astype(np.float32)).to(cuda)
+    if op == "cumprod":
+        x = 1.0 + 1e-3 * x
+    first = ws_mod.window_scan(x, op)
+    for _ in range(50):
+        assert torch.equal(first.view(torch.int32), ws_mod.window_scan(x, op).view(torch.int32))
+
+
+@pytest.mark.parametrize("g", [1, 3, 4, 5, 7, 1000])
+@pytest.mark.parametrize("m", [1, 3, 4097, 2_000_001])
+def test_cuda_onehot_every_g_matches_plain(rng, cuda, m, g):
+    """Codes -1 and >= G give zero rows; M not a multiple of 4; codes read
+    through the 16-byte path and, at an odd offset, the scalar one."""
+    if m * g > 2e8:
+        m = 200_001
+    c = _t(rng.integers(-1, g + 3, m + 1).astype(np.int32)).to(cuda)
+    for codes in (c[:m], c[1:]):
+        assert torch.equal(oh_mod.onehot_encode(codes, g), oh_mod.onehot_encode_plain(codes, g))
 
 
 # ---- decode_attention (K7) ----------------------------------------------------
