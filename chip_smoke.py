@@ -8,7 +8,11 @@ Phases (any failure raises and the script exits non-zero):
   2. build     — nvcc builds the kernels from src/repro_torch/csrc into build/
   3. kernels   — each kernel vs its plain version at edge shapes and at the
                  main path's shapes (segment_reduce sums both against a
-                 float64 sum), an all-column aggregate of a 3,000-column
+                 float64 sum; both its routes, "reg" and "table"; route
+                 reg's sum bit-equal to the float32 emulation of its stated
+                 order at (1 x 8), (4,097 x 8), (2,000,000 x 8) and
+                 (3,000,001 x 1), one launch a call under the
+                 profiler), an all-column aggregate of a 3,000-column
                  frame on the card vs the CPU; times kernel, plain version
                  and one library call with CUDA events, and each kernel's
                  device time under the profiler (K3 and K4 also the host's
@@ -24,8 +28,14 @@ Phases (any failure raises and the script exits non-zero):
                  profiler; K3 timed at Figure-1's 4 x 4 and at one block of
                  get_dummies(payment_type), 2,000,000 x 3; K4 at one block,
                  (2,000,000,), and at the whole column; decode_attention
-                 (K7) at the reference's four f32 shapes and at the serving
-                 shape in bf16, ten reruns bit-identical; linear_scan (K5)
+                 (K7) at the reference's four f32 shapes (route fma), at the
+                 serving shape in bf16 (route tc, ten reruns bit-identical,
+                 one launch a call under the profiler), at eight more
+                 bf16 shapes (G 1 to 64, D 16 to 256, S 129 to 32,768) and
+                 at G 1, 4, 8, 16 with lengths 0, 1, 127, 128, 129, S and
+                 S + 7; bf16 at D 40 refused;
+                 K1 and K7 timed with host enqueue times and the library
+                 call's device and host times; linear_scan (K5)
                  at the reference's three shapes, T = 0 and 1, a batched
                  call and phase 8's (2, 4096, 4096) as the RG-LRU makes it,
                  ten reruns bit-identical; flash_attention (K6: bf16 on
@@ -59,7 +69,8 @@ Phases (any failure raises and the script exits non-zero):
                  tokens each) through ServeEngine(max_batch=8, max_seq=1024),
                  every layer's decode attention on decode_attention (K7),
                  timed per step, then 20 steps under the CUDA profiler.
-                 Checks: K7 launched steps x 32 times; the same requests
+                 Checks: K7 launched steps x 32 times, all on route tc;
+                 the same requests
                  served with attn_impl="xla" (plain attention, same weights)
                  give the same tokens up to a near-tie, with the logits of
                  every compared step within FULL_LOGIT_TOL; 64 teacher-forced
@@ -169,33 +180,101 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, names: tuple | None, iters: int = 20) -> float:
+def lead_in(torch) -> None:
+    """The first device records of a profiling window: four spin kernels,
+    then a sync, so that a profiler which drops the first device records of
+    a window drops these and not the records a check counts.
+    ``device_window`` leaves the spin kernels out."""
+    for _ in range(4):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+
+
+def device_window(torch, run, cuda_only: bool = False,
+                  tries: int = 2) -> tuple[list | None, float]:
+    """Runs ``run()`` under the CUDA profiler behind the lead-in; returns the
+    device's own records of the window, the lead-in's spin kernels left
+    out, and the wall seconds of ``run`` (ending in a sync).  An aten op's
+    row carries the durations of the kernels it launched too, so only
+    device records count.  A window that kept none of the lead-in's records
+    lost all its device records: it is taken again, up to ``tries`` times,
+    and then the records are None.  On an H100 the profiler has, in some
+    runs, lost every window of a process from some point on, so a lost
+    window makes a measurement "not measured", and the one-launch checks
+    go to a fresh process (``one_launch``).  CPU activity is traced too
+    unless ``cuda_only``: with CUDA activity alone one kernel's records came
+    back short of its bytes bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] if cuda_only else [ProfilerActivity.CPU,
+                                                      ProfilerActivity.CUDA]
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            lead_in(torch)
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if any("spin_kernel" in e.key for e in events):
+            return [e for e in events if "spin_kernel" not in e.key], wall
+        log("  (the CUDA profiler kept no device record of a window, not even the "
+            "lead-in's)")
+    return None, wall
+
+
+def device_ms(fn, names: tuple | None, iters: int = 20) -> float | None:
     """Device time of one call: the summed durations, under the CUDA
     profiler, of the kernels whose names contain one of ``names`` (every
     kernel and copy when ``names`` is None), per call.  ``cuda_ms`` also
     counts the gaps in which the card waits for the host to launch the next
     call."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
-    torch.cuda.synchronize()
-    # CPU activity too: with CUDA activity alone one kernel's records came
-    # back short of its bytes bound.  Only the device's own records count:
-    # an aten op's row carries the durations of the kernels it launched too.
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and (names is None or any(n in e.key for n in names))) / iters / 1e3
+    events, _ = device_window(torch, lambda: [fn() for _ in range(iters)])
+    if events is None:
+        return None
+    return sum(e.self_device_time_total for e in events
+               if names is None or any(n in e.key for n in names)) / iters / 1e3
 
 
-# K3's and K4's rows time events over as many calls as their host times:
-# over 20 calls the host's clock moved their event times by up to 2x
+def ms_text(ms: float | None) -> str:
+    """A device time for the log: "not measured" where the profiler lost
+    its window."""
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+def tflops_text(flops: float, ms: float | None, share: bool = True) -> str:
+    """The rate of ``flops`` in ``ms`` of device time for the log, with its
+    share of the bf16 tensor cores' 989 TFLOP/s."""
+    if ms is None:
+        return "a rate not measured on the device"
+    rate = flops / ms / 1e9
+    return f"{rate:.4g} TFLOP/s on the device" + (
+        f" ({rate / 989:.1%} of the bf16 tensor cores' 989)" if share else "")
+
+
+# K1's, K3's, K4's and K7's rows time events over as many calls as their
+# host times: over 20 calls the host's clock moved their event times by up
+# to 2x
 EVENT_CALLS = 200
+# Device records of each route: K1 "reg" (one) and "table" (its two
+# passes); K7 "tc" (one) and "fma" (split, combine)
+SEG_KERNELS = ("seg_reg", "seg_pass")
+DECODE_KERNELS = ("decode_tc", "decode_split", "decode_combine")
+# Every route of the kernels that have two, with its source and kernels:
+# the "kernels" line lists them beside each kernel's main-path launches
+KERNEL_ROUTES = {
+    "segment_reduce": {"reg": "src/repro_torch/csrc/segment_reduce.cu: seg_reg",
+                       "table": "src/repro_torch/csrc/segment_reduce.cu: seg_pass1, seg_pass2"},
+    "decode_attention": {"tc": "src/repro_torch/csrc/decode_attention_tc.cu: decode_tc",
+                         "fma": "src/repro_torch/csrc/decode_attention.cu: decode_split, "
+                                "decode_combine"},
+    "flash_attention": {"tc": "src/repro_torch/csrc/flash_attention_tc.cu: flash_tc",
+                        "fma": "src/repro_torch/csrc/flash_attention.cu: flash_fwd"},
+}
 
 
 def host_ms(fn, iters: int = EVENT_CALLS) -> float:
@@ -221,6 +300,59 @@ def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> tu
 # -----------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # -----------------------------------------------------------------------------
+def one_launch_case(torch, case: str, dev):
+    """(fn, kernel names) of phase 3's one-launch checks: K1's route reg at
+    one Fig. 6 block, K4 at (2,000,000,), K7's route tc at the serving
+    shape."""
+    if case == "seg_reg":
+        from repro_torch.kernels import segment_reduce as sr
+        v = torch.rand((2_000_000, 8), device=dev)
+        codes = torch.randint(0, 6, (v.shape[0],), dtype=torch.int32, device=dev)
+        return (lambda: sr.segment_reduce(v, codes, 6, "sum")), ("seg_reg",)
+    if case == "scan_one_pass":
+        from repro_torch.kernels import window_scan as ws
+        x = torch.randn(2_000_000, device=dev)
+        return (lambda: ws.window_scan(x)), ("scan_one_pass",)
+    from repro_torch.kernels import decode_attention as da
+    q, k, v, lengths = decode_main_inputs(torch, dev)
+    return (lambda: da.decode_attention(q, k, v, lengths)), ("decode_tc",)
+
+
+def launch_records(torch, case: str, dev, calls: int = 5) -> dict | None:
+    """{kernel name: records} of the device's activities over ``calls`` calls
+    of ``one_launch_case(case)`` under the CUDA profiler, after one call
+    outside it, or None where the profiler lost the window; raises unless
+    every record's name contains the case's kernel name and there is one a
+    call."""
+    fn, names = one_launch_case(torch, case, dev)
+    fn()
+    events, _ = device_window(torch, lambda: [fn() for _ in range(calls)])
+    if events is None:
+        return None
+    records = {e.key: e.count for e in events}
+    if sum(records.values()) != calls or not all(any(n in r for n in names) for r in records):
+        raise AssertionError(f"{calls} calls gave the profiler {records}, not one "
+                             f"{' / '.join(names)} record a call")
+    return records
+
+
+def one_launch(torch, case: str, dev) -> dict:
+    """``launch_records`` of a case; where the profiler lost the window in
+    this process, the same check in a fresh one, which prints its records
+    on a line of their own; raises if that loses it too."""
+    records = launch_records(torch, case, dev)
+    if records is not None:
+        return records
+    log(f"  {case}: the one-launch check again, in a fresh process")
+    run = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--one-launch", case],
+                         cwd=ROOT, capture_output=True, text=True, timeout=600)
+    found = [ln for ln in run.stdout.splitlines() if ln.startswith("ONE_LAUNCH ")]
+    if run.returncode != 0 or not found:
+        raise AssertionError(f"{case}: the one-launch check in a fresh process failed:\n"
+                             f"{run.stdout[-2000:]}{run.stderr[-2000:]}")
+    return json.loads(found[-1][len("ONE_LAUNCH "):])
+
+
 SUM_RTOL = 1e-5     # |sum - exact| <= SUM_RTOL * sum|v|, per segment and column
 
 
@@ -249,6 +381,7 @@ def check_segment_reduce(torch, sr, dev, pool: int) -> None:
     cases = [(1000, 6, 8, "normal"), (4097, 1, 1, "normal"), (12345, 6, 1, "normal"),
              (777, 65536, 1, "normal"), (300_001, 65536, 1, "normal"),
              (70_001, 6, 8, "normal"), (5, 3, 2, "normal"), (0, 4, 1, "normal"),
+             (9999, 7, 5, "normal"), (3001, 16, 3, "normal"), (100_003, 64, 1, "normal"),
              (2001, 6, 2000, "normal"), (1000, 65536, 1600, "normal"),
              (-(-TAXI_ROWS // pool), 6, 8, "uniform"), (-(-TAXI_ROWS // pool), 6, 8, "normal")]
     worst = 0.0
@@ -278,9 +411,28 @@ def check_segment_reduce(torch, sr, dev, pool: int) -> None:
                 torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True,
                                            msg=lambda s: f"segment_reduce {op} {(m, g, c)}: {s}")
         del v, codes, got, again, want
+    routes = dict(sr.counter.routes)
+    assert set(routes) == {"reg", "table"}, routes
     log(f"  segment_reduce: {len(cases)} shapes x 4 ops match the plain version "
         f"(count/min/max exact; sum of kernel and plain within {SUM_RTOL}*sum|v| of a "
-        f"float64 sum, worst {worst:.3g} of it; reruns bit-identical)")
+        f"float64 sum, worst {worst:.3g} of it; reruns bit-identical); launches by route "
+        f"{routes}")
+    # route reg's sum in the association order its header states: bit-equal
+    # to its float32 emulation on the CPU (finite inputs: NaN payloads are
+    # the card's own)
+    reg_shapes = ((1, 8), (4097, 8), (-(-TAXI_ROWS // pool), 8), (3_000_001, 1))
+    for m, c in reg_shapes:
+        v = torch.randn((m, c), generator=gen)
+        codes = torch.randint(-1, 6, (m,), generator=gen, dtype=torch.int32)
+        assert sr.route(c, 6) == "reg"
+        got = sr.segment_reduce(v.to(dev), codes.to(dev), 6, "sum").cpu()
+        if not torch.equal(got.view(torch.int32), sr.emulated_sum(v, codes, 6).view(torch.int32)):
+            raise AssertionError(f"segment_reduce reg sum ({m} x {c}): differs from the "
+                                 f"emulated order")
+    log("  segment_reduce route reg: sum bit-equal to the float32 emulation of its stated "
+        f"order at {', '.join(f'({m} x {c})' for m, c in reg_shapes)}, G 6")
+    records = one_launch(torch, "seg_reg", dev)
+    log(f"  segment_reduce route reg: 5 calls gave the profiler {records}: one launch a call")
 
 
 def check_transpose(torch, bt, dev, pool: int) -> None:
@@ -437,17 +589,7 @@ def check_window_scan(torch, ws, dev) -> None:
     log("  window_scan cumsum bit-equal to the float32 emulation of its stated order at "
         f"(1,), (4097,), (2000000,), (3000000,), ({TAXI_ROWS},)")
     # one launch a call: the profiler's device records over 5 calls
-    x = torch.randn(2_000_000, generator=gen, device=dev)
-    ws.window_scan(x)
-    torch.cuda.synchronize()
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            ws.window_scan(x)
-        torch.cuda.synchronize()
-    records = {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
-    assert sum(records.values()) == 5 and all("scan_one_pass" in k for k in records), records
+    records = one_launch(torch, "scan_one_pass", dev)
     log(f"  window_scan: 50 reruns bit-identical at (2000000,) and ({TAXI_ROWS},) x 4 ops; "
         f"5 calls gave the profiler {records}: one launch a call")
     log(f"  window_scan: {cases} cases x reruns bit-identical; max/min bit-equal, exact "
@@ -473,6 +615,11 @@ def check_window_scan(torch, ws, dev) -> None:
 
 DECODE_SHAPES = [(8, 2, 256, 100, 64), (16, 4, 333, 217, 64), (4, 4, 128, 128, 128),
                  (8, 1, 700, 1, 64)]   # (H, KVH, S, length, D): tests/test_kernels.py
+# (B, H, KVH, S, D) of K7's tensor-core route past the serving shape
+DECODE_TC_SHAPES = [(3, 16, 4, 333, 64), (3, 8, 1, 700, 64), (2, 32, 1, 300, 128),
+                    (2, 64, 1, 200, 64), (2, 16, 8, 4096, 256), (4, 8, 8, 129, 16),
+                    (2, 20, 20, 999, 128), (1, 8, 1, 32768, 128)]
+DECODE_TC_GROUPS = (1, 4, 8, 16)     # G of the edge-length checks, over 4 KV heads
 
 
 def decode_main_inputs(torch, dev):
@@ -489,9 +636,11 @@ def decode_main_inputs(torch, dev):
 
 def check_decode_attention(torch, da, dev) -> None:
     """The reference's four f32 shapes (three slots each: the shape's length,
-    S, and S + 5) at rtol = atol = 2e-3; the serving shape in bf16 at
-    K7_BF16_TOL, ten reruns bit-identical; a
-    zero length gives 0 (ROADMAP, known divergences)."""
+    S, and S + 5) at rtol = atol = 2e-3 on route fma; the serving shape in
+    bf16 at K7_BF16_TOL, ten reruns bit-identical, and route tc past it (G 1
+    to 64, D 16 to 256, clusters of 1 to 8, edge lengths at G 1, 4, 8, 16);
+    a zero length gives 0 (ROADMAP, known divergences); one launch a call
+    under the profiler."""
     gen = torch.Generator(device=dev).manual_seed(3)
     worst = 0.0
     for h, kvh, s, length, d in DECODE_SHAPES:
@@ -518,11 +667,57 @@ def check_decode_attention(torch, da, dev) -> None:
                                msg=lambda m: f"decode_attention serving shape bf16: {m}")
     zero = da.decode_attention(q, k, v, torch.zeros_like(lengths))
     assert torch.equal(zero, torch.zeros_like(zero)), "decode_attention: length 0 is not 0"
+    serving_err = float((got.float() - want.float()).abs().max())
+    # route tc past the serving shape: G 1 to 64 (several m-tiles past 16),
+    # D 16 to 256, clusters of 1 to 8 CTAs; bf16 at K7_BF16_TOL
+    tc_worst = 0.0
+    for b, h, kvh, s, d in DECODE_TC_SHAPES:
+        q = torch.randn((b, h, d), generator=gen, device=dev).bfloat16()
+        k = torch.randn((b, s, kvh, d), generator=gen, device=dev).bfloat16()
+        v = torch.randn((b, s, kvh, d), generator=gen, device=dev).bfloat16()
+        lengths = torch.tensor(([1, s, s + 9] + [1 + 137 * i % s for i in range(b)])[:b],
+                               dtype=torch.int32, device=dev)
+        got = da.decode_attention(q, k, v, lengths)
+        if not torch.equal(got, da.decode_attention(q, k, v, lengths)):
+            raise AssertionError(f"decode_attention tc {(b, h, kvh, s, d)}: runs differ")
+        want = da.decode_attention_plain(q, k, v, lengths)
+        torch.testing.assert_close(got.float(), want.float(), rtol=K7_BF16_TOL, atol=K7_BF16_TOL,
+                                   msg=lambda m: f"decode_attention tc {(b, h, kvh, s, d)}: {m}")
+        tc_worst = max(tc_worst, float((got.float() - want.float()).abs().max()))
+    # route tc at G 1, 4, 8, 16 over 4 KV heads with the edge lengths 0, 1,
+    # 127, 128, 129, S, S + 7: length 0 gives 0, the rest K7_BF16_TOL
+    lens = [0, 1, 127, 128, 129, SERVE_SEQ, SERVE_SEQ + 7]
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    for g in DECODE_TC_GROUPS:
+        q = torch.randn((len(lens), 4 * g, 128), generator=gen, device=dev).bfloat16()
+        k = torch.randn((len(lens), SERVE_SEQ, 4, 128), generator=gen, device=dev).bfloat16()
+        v = torch.randn((len(lens), SERVE_SEQ, 4, 128), generator=gen, device=dev).bfloat16()
+        got = da.decode_attention(q, k, v, lengths)
+        if not torch.equal(got, da.decode_attention(q, k, v, lengths)):
+            raise AssertionError(f"decode_attention tc G {g}: runs differ")
+        assert not got[0].any(), f"decode_attention tc G {g}: length 0 is not 0"
+        want = da.decode_attention_plain(q, k, v, lengths)
+        torch.testing.assert_close(got[1:].float(), want[1:].float(), rtol=K7_BF16_TOL,
+                                   atol=K7_BF16_TOL,
+                                   msg=lambda m: f"decode_attention tc G {g}: {m}")
+        tc_worst = max(tc_worst, float((got[1:].float() - want[1:].float()).abs().max()))
+    try:
+        da.decode_attention(q[..., :40], k[..., :40], v[..., :40], lengths)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("decode_attention: bf16 at D 40 was not refused")
+    routes = dict(da.counter.routes)
+    assert set(routes) == {"fma", "tc"}, routes
+    q, k = decode_main_inputs(torch, dev)[:2]
+    records = one_launch(torch, "decode_tc", dev)
     log(f"  decode_attention: {len(DECODE_SHAPES)} f32 shapes x lengths (n, S, S+5) within 2e-3 "
-        f"of the plain version (worst {worst:.3g}); serving shape {list(q.shape)} x "
-        f"{list(k.shape)} bf16 within {K7_BF16_TOL} (max |err| "
-        f"{float((got.float() - want.float()).abs().max()):.3g}), 10 reruns bit-identical; "
-        f"length 0 gives 0")
+        f"of the plain version on route fma (worst {worst:.3g}); serving shape "
+        f"{list(q.shape)} x {list(k.shape)} bf16 on route tc within {K7_BF16_TOL} (max |err| "
+        f"{serving_err:.3g}), 10 reruns bit-identical; {len(DECODE_TC_SHAPES)} more bf16 shapes "
+        f"and G {DECODE_TC_GROUPS} at lengths {lens} on route tc (worst {tc_worst:.3g}); "
+        f"length 0 gives 0; bf16 at D 40 refused; launches by route {routes}; "
+        f"5 calls at the serving shape gave the profiler {records}: one launch a call")
 
 
 # K5 and K6 against their plain versions.  f32 at the reference's 2e-3
@@ -735,7 +930,9 @@ def time_kernels(torch, sr, bt, oh, ws, da, ls, fa, dev, pool: int) -> dict:
     codes64 = codes.long()
     k = sr.segment_reduce(v, codes, g, "sum")
     plain = sr.segment_reduce_plain(v, codes, g, "sum")
-    lib = torch.zeros((g, c), device=dev).index_add_(0, codes64, v)
+    index_add = lambda: torch.zeros((g, c), device=dev).index_add_(0, codes64, v)
+    lib = index_add()
+    assert sr.route(c, g) == "reg"
     err = float((k - plain).abs().max())
     (k_abs, k_ratio), (p_abs, p_ratio), (l_abs, l_ratio) = (
         sum_error(torch, r, v, codes, g) for r in (k, plain, lib))
@@ -746,12 +943,15 @@ def time_kernels(torch, sr, bt, oh, ws, da, ls, fa, dev, pool: int) -> dict:
     b, by = bound_ms((m * c + m + g * c) * 4, m * c)
     out["segment_reduce"] = dict(
         name="segment_reduce", route="cuda", source="src/repro_torch/csrc/segment_reduce.cu",
-        replaces="src/repro/kernels/segment_reduce.py:75", shape=[m, c, g],
+        replaces="src/repro/kernels/segment_reduce.py:75", shape=[m, c, g], timed_route="reg",
         max_abs_err=err,
-        ms=cuda_ms(lambda: sr.segment_reduce(v, codes, g, "sum")),
-        device_ms=device_ms(lambda: sr.segment_reduce(v, codes, g, "sum"), ("seg_pass",)),
+        ms=cuda_ms(lambda: sr.segment_reduce(v, codes, g, "sum"), iters=EVENT_CALLS),
+        device_ms=device_ms(lambda: sr.segment_reduce(v, codes, g, "sum"), SEG_KERNELS),
+        host_ms=host_ms(lambda: sr.segment_reduce(v, codes, g, "sum")),
         plain_ms=cuda_ms(lambda: sr.segment_reduce_plain(v, codes, g, "sum")),
-        library_ms=cuda_ms(lambda: torch.zeros((g, c), device=dev).index_add_(0, codes64, v)),
+        library_ms=cuda_ms(index_add, iters=EVENT_CALLS),
+        library_device_ms=device_ms(index_add, None),
+        library_host_ms=host_ms(index_add),
         bound_ms=b, bound_by=by)
     # TRANSPOSE: one (rows/10, 64) float32 block of the matrix frame
     x = torch.randn((-(-MATRIX_ROWS // pool), MATRIX_COLS), device=dev)
@@ -831,16 +1031,20 @@ def time_kernels(torch, sr, bt, oh, ws, da, ls, fa, dev, pool: int) -> dict:
     assert lib_err <= 5e-2, lib_err
     keys = int(valid.sum())       # sum over slots of min(length, S)
     b, by = bound_ms(2 * keys * kvh * d * 2 + 2 * b_ * h * d * 2 + b_ * 4, 4 * keys * h * d)
+    sdpa = lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)
     out["decode_attention"] = dict(
-        name="decode_attention", route="cuda", source="src/repro_torch/csrc/decode_attention.cu",
+        name="decode_attention", route="cuda",
+        source="src/repro_torch/csrc/decode_attention_tc.cu",
         replaces="src/repro/kernels/decode_attention.py:65", shape=[b_, h, kvh, d, k.shape[1]],
+        timed_route="tc",
         max_abs_err=float((k_out.float() - plain.float()).abs().max()),
-        ms=cuda_ms(lambda: da.decode_attention(q, k, v, lengths)),
-        device_ms=device_ms(lambda: da.decode_attention(q, k, v, lengths),
-                            ("decode_split", "decode_combine")),
+        ms=cuda_ms(lambda: da.decode_attention(q, k, v, lengths), iters=EVENT_CALLS),
+        device_ms=device_ms(lambda: da.decode_attention(q, k, v, lengths), DECODE_KERNELS),
+        host_ms=host_ms(lambda: da.decode_attention(q, k, v, lengths)),
         plain_ms=cuda_ms(lambda: da.decode_attention_plain(q, k, v, lengths)),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=mask, enable_gqa=True)),
+        library_ms=cuda_ms(sdpa, iters=EVENT_CALLS),
+        library_device_ms=device_ms(sdpa, None),
+        library_host_ms=host_ms(sdpa),
         bound_ms=b, bound_by=by)
     log(f"  decode_attention {out['decode_attention']['shape']}: {keys} valid cache rows; "
         f"scaled_dot_product_attention (enable_gqa, length mask) off the plain version by "
@@ -891,10 +1095,8 @@ def time_kernels(torch, sr, bt, oh, ws, da, ls, fa, dev, pool: int) -> dict:
                              warmup=1),
             library_ms=cuda_ms(lib, iters=10), bound_ms=b_bound, bound_by=by)
         log(f"  flash_attention bf16 (route tc) {rec['shape']}: {pairs} visible pairs, "
-            f"{4 * d * pairs / 1e9:.4g} GFLOP at {4 * d * pairs / rec['device_ms'] / 1e9:.4g} "
-            f"TFLOP/s on the device ({4 * d * pairs / rec['device_ms'] / 1e9 / 989:.1%} of the "
-            f"bf16 tensor cores' 989); scaled_dot_product_attention off the plain version by "
-            f"{lib_err:.3g}")
+            f"{4 * d * pairs / 1e9:.4g} GFLOP at {tflops_text(4 * d * pairs, rec['device_ms'])}"
+            f"; scaled_dot_product_attention off the plain version by {lib_err:.3g}")
         out["flash_attention" if which == "rg" else "flash_attention_yi"] = rec
         del q, k, v, got, want, mask, qs, ks, vs
     # the FMA route: float32 at the reference's largest shape, causal; its
@@ -914,7 +1116,7 @@ def time_kernels(torch, sr, bt, oh, ws, da, ls, fa, dev, pool: int) -> dict:
         library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)),
         bound_ms=b_bound, bound_by=by)
     log(f"  flash_attention f32 (route fma) {rec['shape']}: {pairs} visible pairs at "
-        f"{4 * d * pairs / rec['device_ms'] / 1e9:.4g} TFLOP/s on the device")
+        f"{tflops_text(4 * d * pairs, rec['device_ms'], share=False)}")
     out["flash_attention_f32"] = rec
     return out
 
@@ -938,17 +1140,15 @@ def profiled(label: str, fn):
     in it (the summed durations of the kernels and copies the profiler saw)
     beside the profiled run's wall time, which the profiler lengthens."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy = sum(e.self_device_time_total for e in prof.key_averages()) / 1e6
+    out = []
+    events, wall = device_window(torch, lambda: out.append(fn()), cuda_only=True)
+    if events is None:
+        log(f"  {label}: device busy not measured ({wall:.3f} s profiled wall)")
+        return out[-1]
+    busy = sum(e.self_device_time_total for e in events) / 1e6
     log(f"  {label}: device busy {busy * 1e3:.3f} ms of {wall:.3f} s profiled wall "
         f"({100 * busy / wall:.2f}%)")
-    return out
+    return out[-1]
 
 
 def fig6_data(dev):
@@ -1461,18 +1661,11 @@ def profile_window(torch, fn, per: int, label: str, mine: dict | None = None) ->
     the window's wall and its largest device activities, per ``per``; and
     for each of ``mine`` (label: kernel names) the device time and share of
     the busy time of the kernels whose names contain one of the names."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-    # the device's own records only: an aten op's row carries the durations
-    # of the kernels it launched as well, so summing every row counts twice
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    events, wall = device_window(torch, fn)
+    if events is None:
+        log(f"  {label}: device busy not measured ({wall * 1e3:.3f} ms wall)")
+        return
+    events = [e for e in events if e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in events) / 1e6
     log(f"  {label}: device busy {busy * 1e3:.3f} ms of {wall * 1e3:.3f} ms wall "
         f"({100 * busy / wall:.2f}%), {wall / per * 1e3:.3f} ms a {label.split()[0]} under the "
@@ -1487,9 +1680,9 @@ def profile_window(torch, fn, per: int, label: str, mine: dict | None = None) ->
             f"{ms / (busy * 1e3 / per):.2%} of the busy time")
 
 
-def serving_phase(torch, np, da, dev, card: str) -> tuple[int, dict]:
+def serving_phase(torch, np, da, dev, card: str) -> tuple[dict, dict]:
     """Phase 7; returns K7's launches in the main serving run and K6's in
-    the main prefill run, by route."""
+    the main prefill run, each by route."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import build_model, transformer
@@ -1518,9 +1711,10 @@ def serving_phase(torch, np, da, dev, card: str) -> tuple[int, dict]:
     steps = int(eng.metrics["steps"])
     times = np.asarray(run["times"]) * 1e3
     peak = torch.cuda.max_memory_allocated()
-    if launches == 0 or launches != steps * cfg.n_layers:
-        raise AssertionError(f"decode_attention launched {launches} times in {steps} steps "
-                             f"of {cfg.n_layers} layers")
+    k7_routes = dict(da.counter.routes)
+    if launches == 0 or k7_routes != {"tc": steps * cfg.n_layers}:
+        raise AssertionError(f"decode_attention launched {k7_routes} (by route) in {steps} "
+                             f"steps of {cfg.n_layers} layers, not all on route tc")
     assert all(len(r.out_ids) == SERVE_NEW or r.out_ids[-1] == 2 for r in run["reqs"])
     lengths = eng.cache["length"].tolist()
     # the least a step can take: every weight read once (the embedding table
@@ -1539,7 +1733,8 @@ def serving_phase(torch, np, da, dev, card: str) -> tuple[int, dict]:
         f"min {times.min():.3f}, max {times.max():.3f}; bound {bound:.3f} ms "
         f"({step_bytes / 1e9:.3f} GB of weights read once at {HBM_BYTES_PER_S / 1e12} TB/s): "
         f"median {np.median(times) / bound:.2f}x the bound | {card}")
-    log(f"  decode_attention launches {launches} = {steps} steps x {cfg.n_layers} layers; "
+    log(f"  decode_attention launches {launches} = {steps} steps x {cfg.n_layers} layers, "
+        f"by route {k7_routes}; "
         f"max_memory_allocated {peak / 1e9:.3f} GB; final lengths {lengths}")
 
     # device busy share over 20 steps of the same traffic, under the profiler
@@ -1550,7 +1745,7 @@ def serving_phase(torch, np, da, dev, card: str) -> tuple[int, dict]:
         for _ in range(20):
             weng.step()
     profile_window(torch, twenty, 20, "step (profiled window, steps 41-60)",
-                   {"K7": ("decode_split", "decode_combine")})
+                   {"K7": DECODE_KERNELS})
     del warm, weng
 
     # check 2: the same requests, attention on the einsum path
@@ -1648,7 +1843,7 @@ def serving_phase(torch, np, da, dev, card: str) -> tuple[int, dict]:
         f"near-tie, max |logit diff| {worst:.4g}")
     del runs, model, oracle_model, params
     torch.cuda.empty_cache()
-    return launches, k6_routes
+    return k7_routes, k6_routes
 
 
 # -----------------------------------------------------------------------------
@@ -1844,12 +2039,12 @@ def main() -> int:
         lib = "none" if rec["library_ms"] is None else f"{rec['library_ms']:.4f} ms"
         if "host_ms" in rec:
             host = f", host {rec['host_ms']:.4f} ms a call"
-            lib += (f" (on the device {rec['library_device_ms']:.4f} ms, host "
+            lib += (f" (on the device {ms_text(rec['library_device_ms'])} ms, host "
                     f"{rec['library_host_ms']:.4f} ms a call)")
         else:
             host = ""
         log(f"  {rec['name']} {rec['shape']}: kernel {rec['ms']:.4f} ms (on the device "
-            f"{rec['device_ms']:.4f} ms{host}), plain "
+            f"{ms_text(rec['device_ms'])} ms{host}), plain "
             f"{rec['plain_ms']:.4f} ms, library {lib}, bound "
             f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), max |err| {rec['max_abs_err']:.3g}")
     torch.cuda.empty_cache()
@@ -1860,7 +2055,13 @@ def main() -> int:
                 "decode_attention": da.counter, "linear_scan": ls.counter,
                 "flash_attention": fa.counter}
     launches = dict.fromkeys(counters, 0)
-    flash_routes = {"tc": 0, "fma": 0}     # K6's main-path launches by route
+    # main-path launches by route of the kernels that have two
+    by_route = {"segment_reduce": {"reg": 0, "table": 0}, "decode_attention": {"tc": 0, "fma": 0},
+                "flash_attention": {"tc": 0, "fma": 0}}
+
+    def add_routes(kernel: str, routes: dict) -> None:
+        for route, n in routes.items():
+            by_route[kernel][route] += n
 
     t0 = time.perf_counter()
     log(f"[fig6] EAGER sessions on {dev}, {TAXI_ROWS} rows")
@@ -1870,6 +2071,7 @@ def main() -> int:
     out = fig6_steps(timed, dev, frame, mat)
     for k, c in counters.items():
         launches[k] += c.launches
+    add_routes("segment_reduce", sr.counter.routes)
     log(f"[fig6] launches {dict((k, c.launches) for k, c in counters.items())}")
     for k in ("segment_reduce", "block_transpose", "onehot_encode"):
         assert counters[k].launches > 0, f"the Fig. 6 mix never launched {k}"
@@ -1888,6 +2090,7 @@ def main() -> int:
     fig1 = {k: c.launches for k, c in counters.items()}
     for k in counters:
         launches[k] += fig1[k]
+    add_routes("segment_reduce", sr.counter.routes)
     assert fig1["onehot_encode"] > 0, "the Figure-1 workflow never launched onehot_encode"
     compare_figure1(np, gpu, figure1("cpu"))
     profiled("Figure-1 workflow on cuda", lambda: figure1(dev))
@@ -1901,6 +2104,7 @@ def main() -> int:
     ordered = {k: c.launches for k, c in counters.items()}
     for k in counters:
         launches[k] += ordered[k]
+    add_routes("segment_reduce", sr.counter.routes)
     log(f"[ordered] launches {ordered}")
     assert ordered["window_scan"] > 0, "the ordered path never launched window_scan"
     check_ordered(torch, np, dev, out, serial_steps(dev, frame))
@@ -1915,11 +2119,11 @@ def main() -> int:
     log(f"[serve] {SERVE_ARCH} at full width through ServeEngine on {dev}")
     for c in counters.values():
         c.reset()
-    k7, k6_routes = serving_phase(torch, np, da, dev, card)
-    launches["decode_attention"] += k7
-    for route, n in k6_routes.items():
-        launches["flash_attention"] += n
-        flash_routes[route] += n
+    k7_routes, k6_routes = serving_phase(torch, np, da, dev, card)
+    launches["decode_attention"] += sum(k7_routes.values())
+    launches["flash_attention"] += sum(k6_routes.values())
+    add_routes("decode_attention", k7_routes)
+    add_routes("flash_attention", k6_routes)
     log(f"[serve] {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -1929,8 +2133,7 @@ def main() -> int:
     phase8, k6_routes = prefill_phase(torch, np, fa, ls, dev, card)
     for k, n in phase8.items():
         launches[k] += n
-    for route, n in k6_routes.items():
-        flash_routes[route] += n
+    add_routes("flash_attention", k6_routes)
     log(f"[prefill] {time.perf_counter() - t0:.1f} s")
 
     record = []
@@ -1942,8 +2145,9 @@ def main() -> int:
             rec["at_figure1"] = timings["onehot_encode_figure1"]
         if k == "window_scan":
             rec["at_16m"] = timings["window_scan_16m"]
-        if k == "flash_attention":
-            rec["launches_by_route"] = flash_routes
+        rec["routes"] = KERNEL_ROUTES.get(k, {"cuda": rec["source"]})
+        if k in by_route:
+            rec["launches_by_route"] = by_route[k]
         record.append(rec)
     missing = [k for k in record if k["launches"] == 0]
     assert not missing, f"kernels no main path launched: {missing}"
@@ -1957,5 +2161,23 @@ def main() -> int:
     return 0
 
 
+def one_launch_child(case: str) -> int:
+    """``python3 chip_smoke.py --one-launch <case>``: phase 3's one-launch
+    check of ``case`` alone, in a process of its own (the kernels built
+    already); prints ``ONE_LAUNCH {records}``."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    records = launch_records(torch, case, dev)
+    if records is None:
+        print(f"{case}: the CUDA profiler lost the window here too", file=sys.stderr)
+        return 1
+    print("ONE_LAUNCH " + json.dumps(records), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--one-launch"]:
+        sys.exit(one_launch_child(sys.argv[2]))
     sys.exit(main())

@@ -1,36 +1,38 @@
-// One decode token's grouped-query attention over a KV cache, for every
-// batch slot in one launch: out[b, h] = softmax(q[b, h] . K[b, :len]^T * scale)
-// . V[b, :len], with len = min(lengths[b], S).  The serving step's attention.
+// One decode token's grouped-query attention over a float32 KV cache, for
+// every batch slot: out[b, h] = softmax(q[b, h] . K[b, :len]^T * scale) .
+// V[b, :len], with len = min(lengths[b], S).  The float32 route ("fma") of
+// K7; bf16, the serving step's type, runs on the tensor cores in
+// decode_attention_tc.cu (route "tc").
 //
 // Replaces: src/repro/kernels/decode_attention.py, _decode_single (Pallas
-// body _decode_kernel).  The TPU kernel is called per slot and per KV head
-// (vmapped), walks all S cache positions on a sequential grid with the
-// running max, sum and accumulator of the G query rows in VMEM scratch, and
-// masks positions past the length.  CUDA runs CTAs in no order, so nothing
-// carries from one CTA to the next; the walk is split instead.
+// body _decode_kernel), for float32 operands.  The TPU kernel is called per
+// slot and per KV head (vmapped), walks all S cache positions on a
+// sequential grid with the running max, sum and accumulator of the G query
+// rows in VMEM scratch, and masks positions past the length.  CUDA runs
+// CTAs in no order, so nothing carries from one CTA to the next; the walk
+// is split instead.
 //
 // Bound on the H100: device-memory bytes.  Each valid K and V row is read
-// once: 2 * sum_b min(len_b, S) * KVH * D * sizeof(cache element); the
-// arithmetic is 4 * G * D flops a key, far below the card's rate.
+// once: 2 * sum_b min(len_b, S) * KVH * D * 4; the arithmetic is 4 * G * D
+// flops a key, far below the card's rate.
 //
 // Design, simple and right first:
 //   pass 1  grid (split, KV head, slot).  A CTA holds the G query rows of
-//           its KV head (pre-scaled, float32) and walks its split's keys,
+//           its KV head (pre-scaled) and walks its split's keys,
 //           [split * kSplitKeys, (split + 1) * kSplitKeys) cut to the slot's
 //           valid prefix: positions past the length are never read (the
 //           Pallas kernel reads and masks them; the result is the same).
-//           Keys come in tiles of 32 staged in shared memory as float32 with
-//           a padded pitch, each thread issuing 8 loads of K and 8 of V
-//           before it stores any.  A warp owns query rows g = warp,
-//           warp + 4, ...; each lane scores one key (a sequential dot over
-//           D), the warp folds the tile into the row's running max and sum
-//           (online softmax, float32), and the CTA then adds p . V into a
-//           float32 accumulator in shared memory, each element summing its
-//           keys in order.  A split past the length writes an empty partial
-//           (max -inf, sum 0).
+//           Keys come in tiles of 32 staged in shared memory with a padded
+//           pitch, each thread issuing 8 loads of K and 8 of V before it
+//           stores any.  A warp owns query rows g = warp, warp + 4, ...;
+//           each lane scores one key (a sequential dot over D), the warp
+//           folds the tile into the row's running max and sum (online
+//           softmax), and the CTA then adds p . V into an accumulator in
+//           shared memory, each element summing its keys in order.  A split
+//           past the length writes an empty partial (max -inf, sum 0).
 //   pass 2  grid (head, slot).  The splits' partials combine in split
-//           order into the output, in q's type; a row with no valid key is
-//           0, the value the Pallas kernel's l == 0 guard is written for.
+//           order into the output; a row with no valid key is 0, the value
+//           the Pallas kernel's l == 0 guard is written for.
 // The split count is a function of S alone, so a slot's result does not
 // depend on the other slots or on the lengths of its neighbours.  No
 // atomics: the result is bit-identical from run to run.  The lengths stay
@@ -38,8 +40,7 @@
 // (B, S, KVH, D) with the last dimension contiguous, so the serving cache
 // needs no transpose copy.  The dot and p . V loops are unrolled so their
 // shared-memory loads issue ahead of the dependent FMA chain (the sums keep
-// their order).  wgmma / TMA tiling is later work.
-#include <cuda_bf16.h>
+// their order).
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -52,18 +53,6 @@ constexpr int kTile = 32;         // keys per tile: one per lane
 constexpr int kSplitKeys = 128;   // keys per CTA of pass 1 (the wrapper's SPLIT_KEYS)
 constexpr int kLoads = 8;         // loads in flight per thread per cache tensor
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // Butterfly reductions: every lane ends with the same bits.
 __device__ __forceinline__ float warp_max(float v) {
@@ -83,10 +72,9 @@ __host__ __device__ inline long long split_smem_floats(int g, int d) {
   return 2LL * g * d + 2LL * kTile * (d + 1) + (long long)g * kTile + 3LL * g;
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-decode_split(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const int* __restrict__ lengths,
+decode_split(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const int* __restrict__ lengths,
              float* __restrict__ part_acc, float* __restrict__ part_ml,
              int kvheads, int g_size, int d, long long s,
              long long qb, long long qh, long long kb, long long ks, long long kh,
@@ -109,10 +97,10 @@ decode_split(const T* __restrict__ q, const T* __restrict__ k,
   const long long s0 = (long long)split * kSplitKeys;
   const long long s1 = s0 + kSplitKeys < len ? s0 + kSplitKeys : len;
 
-  const T* qrow = q + b * qb + (long long)kvh * g_size * qh;
+  const float* qrow = q + b * qb + (long long)kvh * g_size * qh;
   for (int i = tid; i < g_size * d; i += kThreads) {
     const int g = i / d, j = i - g * d;
-    qs[i] = to_f32(qrow[g * qh + j]) * scale;
+    qs[i] = qrow[g * qh + j] * scale;
     acc[i] = 0.f;
   }
   for (int g = tid; g < g_size; g += kThreads) {
@@ -121,8 +109,8 @@ decode_split(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
 
-  const T* kbase = k + b * kb + kvh * kh;
-  const T* vbase = v + b * vb + kvh * vh;
+  const float* kbase = k + b * kb + kvh * kh;
+  const float* vbase = v + b * vb + kvh * vh;
   for (long long t0 = s0; t0 < s1; t0 += kTile) {
     const int nt = (int)(s1 - t0 < kTile ? s1 - t0 : kTile);
     // kLoads elements of K and of V a thread, all loads issued before the
@@ -136,8 +124,8 @@ decode_split(const T* __restrict__ q, const T* __restrict__ k,
         const int t = i / d, j = i - t * d;
         kx[u] = vx[u] = 0.f;
         if (i < kTile * d && t < nt) {
-          kx[u] = to_f32(kbase[(t0 + t) * ks + j]);
-          vx[u] = to_f32(vbase[(t0 + t) * vs + j]);
+          kx[u] = kbase[(t0 + t) * ks + j];
+          vx[u] = vbase[(t0 + t) * vs + j];
         }
       }
 #pragma unroll
@@ -191,10 +179,9 @@ decode_split(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
 decode_combine(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-               T* __restrict__ out, int heads, int kvheads, int g_size, int d,
+               float* __restrict__ out, int heads, int kvheads, int g_size, int d,
                int nsplit) {
   const int h = blockIdx.x, b = blockIdx.y;
   const int kvh = h / g_size, g = h - kvh * g_size;
@@ -209,7 +196,7 @@ decode_combine(const float* __restrict__ part_acc, const float* __restrict__ par
     const float* ml = part_ml + ((first + sp) * g_size + g) * 2;
     if (ml[1] > 0.f) denom += ml[1] * expf(ml[0] - mx);
   }
-  T* orow = out + ((long long)b * heads + h) * d;
+  float* orow = out + ((long long)b * heads + h) * d;
   for (int j = threadIdx.x; j < d; j += kThreads) {
     float o = 0.f;
     for (int sp = 0; sp < nsplit; ++sp) {
@@ -217,55 +204,39 @@ decode_combine(const float* __restrict__ part_acc, const float* __restrict__ par
       if (ml[1] > 0.f)
         o = fmaf(part_acc[((first + sp) * g_size + g) * d + j], expf(ml[0] - mx), o);
     }
-    orow[j] = from_f32<T>(denom > 0.f ? o / denom : 0.f);
+    orow[j] = denom > 0.f ? o / denom : 0.f;
   }
-}
-
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* lengths,
-           void* part_acc, void* part_ml, void* out, int batch, int heads,
-           int kvheads, int d, long long s, long long qb, long long qh,
-           long long kb, long long ks, long long kh, long long vb, long long vs,
-           long long vh, int nsplit, float scale, cudaStream_t stream) {
-  const int g_size = heads / kvheads;
-  const size_t smem = (size_t)split_smem_floats(g_size, d) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        decode_split<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  decode_split<T><<<dim3(nsplit, kvheads, batch), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(lengths), static_cast<float*>(part_acc),
-      static_cast<float*>(part_ml), kvheads, g_size, d, s, qb, qh, kb, ks, kh, vb, vs,
-      vh, nsplit, scale);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  decode_combine<T><<<dim3(heads, batch), kThreads, 0, stream>>>(
-      static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
-      static_cast<T*>(out), heads, kvheads, g_size, d, nsplit);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q (B, H, D) through strides (qb, qh); caches (B, S, KVH, D) through
-// strides (kb, ks, kh) and (vb, vs, vh), the last dimension contiguous;
-// lengths (B,) int32 on the device; out (B, H, D) contiguous; q, the caches
-// and out of one type, bfloat16 (bf16 = 1) or float32 (0); part_acc
-// (B, KVH, nsplit, G, D) and part_ml (B, KVH, nsplit, G, 2) float32 scratch.
-// Returns the cudaError_t of the launches.
+// q (B, H, D) float32 through strides (qb, qh); caches (B, S, KVH, D)
+// float32 through strides (kb, ks, kh) and (vb, vs, vh), the last dimension
+// contiguous; lengths (B,) int32 on the device; out (B, H, D) float32
+// contiguous; part_acc (B, KVH, nsplit, G, D) and part_ml (B, KVH, nsplit, G,
+// 2) float32 scratch.  Returns the cudaError_t of the launches.
 extern "C" int repro_decode_attention(
     const void* q, const void* k, const void* v, const void* lengths, void* part_acc,
-    void* part_ml, void* out, int bf16, int batch, int heads,
-    int kvheads, int d, long long s, long long qb, long long qh, long long kb,
-    long long ks, long long kh, long long vb, long long vs, long long vh, int nsplit,
-    float scale, void* stream) {
+    void* part_ml, void* out, int batch, int heads, int kvheads, int d, long long s,
+    long long qb, long long qh, long long kb, long long ks, long long kh, long long vb,
+    long long vs, long long vh, int nsplit, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define REPRO_DECODE_ARGS                                                         \
-  q, k, v, lengths, part_acc, part_ml, out, batch, heads, kvheads, d, s, qb, qh, \
-      kb, ks, kh, vb, vs, vh, nsplit, scale, st
-  if (bf16) return launch<__nv_bfloat16>(REPRO_DECODE_ARGS);
-  return launch<float>(REPRO_DECODE_ARGS);
-#undef REPRO_DECODE_ARGS
+  const int g_size = heads / kvheads;
+  const size_t smem = (size_t)split_smem_floats(g_size, d) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        decode_split, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  decode_split<<<dim3(nsplit, kvheads, batch), kThreads, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const int*>(lengths),
+      static_cast<float*>(part_acc), static_cast<float*>(part_ml), kvheads, g_size, d, s,
+      qb, qh, kb, ks, kh, vb, vs, vh, nsplit, scale);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  decode_combine<<<dim3(heads, batch), kThreads, 0, st>>>(
+      static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
+      static_cast<float*>(out), heads, kvheads, g_size, d, nsplit);
+  return (int)cudaGetLastError();
 }

@@ -25,8 +25,8 @@ __all__ = ["library", "check", "build_seconds", "SOURCES"]
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("segment_reduce.cu", "block_transpose.cu", "onehot_encode.cu",
-           "window_scan.cu", "decode_attention.cu", "linear_scan.cu",
-           "flash_attention.cu", "flash_attention_tc.cu")
+           "window_scan.cu", "decode_attention.cu", "decode_attention_tc.cu",
+           "linear_scan.cu", "flash_attention.cu", "flash_attention_tc.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -39,12 +39,17 @@ _F32 = ctypes.c_float
 _SIGNATURES = {
     "repro_segment_reduce": (_P, _P, _P, _P, _I64, _I32, _I64, _I64, _I32,
                              _I32, _I32, _I64, _I32, _P),
+    "repro_segment_reduce_reg": (_P, _P, _P, _P, _P, _I64, _I32, _I64, _I32, _I32, _I32,
+                                 _I64, _P),
     "repro_block_transpose": (_P, _P, _I64, _I64, _P),
     "repro_onehot_encode": (_P, _P, _I64, _I64, _P),
     "repro_window_scan": (_P, _P, _P, _I64, _I64, _I64, _I64, _I32, _I64, _P),
     "repro_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32,
-                               _I32, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
-                               _I64, _I64, _I32, _F32, _P),
+                               _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
+                               _I64, _I32, _F32, _P),
+    "repro_decode_attention_tc": (_P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I64, _I64,
+                                  _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I32, _I32,
+                                  _F32, _P),
     "repro_linear_scan": (_P, _P, _P, _P, _P, _I32, _I64, _I32, _I64, _I64, _I64, _I64,
                           _I32, _P),
     "repro_flash_attention": (_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I64, _I64,

@@ -284,12 +284,28 @@ def test_mixed_devices_raise():
 
 
 # ---- the wrapper's launch plans -----------------------------------------------
+def _reg_fits(c: int, g: int) -> bool:
+    """The "reg" kernel's templates: G padded to 8, 16, 32 or 64 times C
+    padded to 1, 2, 4 or 8, at most 64 accumulators a thread."""
+    gp = next(p for p in (8, 16, 32, 64, 1 << 30) if g <= p)
+    cp = next(p for p in (1, 2, 4, 8, 1 << 30) if c <= p)
+    return gp * cp <= 64
+
+
 @pytest.mark.parametrize("g", [1, 6, 4096, 65535, 65536])
 @pytest.mark.parametrize("cols", [1, 8, 1536, 2000])
 def test_segment_reduce_slabs_fit_one_launch_each(g, cols):
-    """Wide values are split into column slabs; every slab's launch keeps its
-    warp tables in 48 KB of shared memory and its g-tiles within grid.y."""
+    """Every (C, G) takes one route, by shape alone.  Route "reg" is one
+    launch whose accumulators fit its templates, over a plan that covers
+    every row; route "table" splits wide values into column slabs, and every
+    slab's launch keeps its warp tables in 48 KB of shared memory and its
+    g-tiles within grid.y (65,535).  The table plan holds for every shape."""
     m = 1_000_000
+    route = sr_mod.route(cols, g)
+    assert route == ("reg" if _reg_fits(cols, g) else "table")
+    if route == "reg":
+        ctas, per = sr_mod.reg_plan(m)
+        assert 1 <= ctas <= sr_mod.REG_CTAS and ctas * per >= m and per % 32 == 0
     width = sr_mod.slab_width(g)
     slabs = [(lo, min(width, cols - lo)) for lo in range(0, cols, width)]
     assert sum(w for _, w in slabs) == cols
@@ -297,6 +313,84 @@ def test_segment_reduce_slabs_fit_one_launch_each(g, cols):
         chunks, rows, tile_g = sr_mod.plan(m, w, g)
         assert 1 <= tile_g <= g and 8 * tile_g * w * 4 <= 48 * 1024
         assert -(-g // tile_g) <= 65535 and chunks * rows >= m
+
+
+@pytest.mark.parametrize("c,g,route", [
+    (8, 6, "reg"), (8, 8, "reg"), (8, 9, "table"), (1, 64, "reg"), (1, 65, "table"),
+    (3, 16, "reg"), (3, 17, "table"), (4, 16, "reg"), (9, 1, "table"), (2000, 6, "table"),
+    (1600, 65536, "table"), (1, 65536, "table"), (5, 8, "reg"), (2, 32, "reg"),
+    (3, 32, "table"), (7, 1, "reg")])
+def test_segment_reduce_route(c, g, route):
+    """"reg" where G padded to a power of two >= 8, times C padded to 1, 2, 4
+    or 8, is at most 64 accumulators; "table" elsewhere (the wide slabs and
+    G 65,536 among them).  The op does not enter."""
+    assert sr_mod.route(c, g) == route == ("reg" if _reg_fits(c, g) else "table")
+
+
+@pytest.mark.parametrize("m", [0, 1, 4, 5, 1000, 4097, 70_001, 1_048_577, 2_000_000, 16_000_000])
+def test_segment_reduce_reg_plan_covers_every_row_once(m):
+    """The "reg" plan, a function of M alone: at most REG_CTAS CTAs whose
+    row runs [b * per, (b + 1) * per) tile [0, M); inside a run, the rows a
+    lane reads, lo + 512 U k + 32 U w + 32 u + l, are every row of the run
+    once, for each U the kernel takes."""
+    ctas, per = sr_mod.reg_plan(m)
+    assert 1 <= ctas <= sr_mod.REG_CTAS and per % 32 == 0
+    assert ctas * per >= m and (ctas - 1) * per < max(m, 1)
+    for c, op in ((1, "sum"), (2, "sum"), (4, "sum"), (8, "sum"), (8, "count")):
+        u = sr_mod.reg_rows(c, op)
+        steps = -(-per // (sr_mod.REG_THREADS * u))
+        k, w, uu, lane = np.meshgrid(np.arange(steps), np.arange(sr_mod.REG_WARPS),
+                                     np.arange(u), np.arange(32), indexing="ij")
+        offs = (k * sr_mod.REG_THREADS * u + w * 32 * u + uu * 32 + lane).ravel()
+        assert np.array_equal(np.sort(offs), np.arange(steps * sr_mod.REG_THREADS * u))
+        assert steps * sr_mod.REG_THREADS * u >= per
+
+
+# (M, G, C) on route reg: ragged M (past one CTA, past one step, under a
+# warp), C 1 to 8 (3 and 5 through the scalar loads), G 1 to 64
+_K1_SHAPES = [(1000, 6, 8), (70_001, 6, 8), (4097, 1, 1), (12_345, 6, 1), (5000, 64, 1),
+              (3001, 16, 3), (5, 3, 2), (0, 4, 1), (1, 6, 8), (4097, 6, 8), (9999, 7, 5)]
+
+
+@pytest.mark.parametrize("m,g,c", _K1_SHAPES)
+def test_segment_reduce_emulated_sum_matches_plain_and_ref(rng, m, g, c):
+    """The "reg" route's stated order in float32 on the CPU: within
+    1e-5 * sum|v| (chip_smoke.py's SUM_RTOL) of the plain version's float64
+    sum, within the kernel tests' TOL of repro.kernels.ref, NaN where a
+    segment has one, and the same bits twice."""
+    v = rng.standard_normal((m, c)).astype(np.float32)
+    codes = rng.integers(-1, g, m).astype(np.int32)
+    if m > 10:
+        v[::97, 0] = np.nan
+    got = sr_mod.emulated_sum(_t(v), _t(codes), g)
+    assert torch.equal(got.view(torch.int32), sr_mod.emulated_sum(_t(v), _t(codes), g).view(torch.int32))
+    plain = sr_mod.segment_reduce_plain(_t(v), _t(codes), g, "sum")
+    assert torch.equal(torch.isnan(got), torch.isnan(plain))
+    keep = codes >= 0
+    absv = np.zeros((g, c))
+    np.add.at(absv, codes[keep], np.nan_to_num(np.abs(v[keep].astype(np.float64))))
+    err = np.abs(np.nan_to_num(got.numpy()) - np.nan_to_num(plain.numpy()))
+    assert (err <= 1e-5 * absv).all()
+    exp = np.asarray(rref.segment_reduce(jnp.asarray(v), jnp.asarray(codes), g, "sum"))
+    np.testing.assert_allclose(got.numpy(), exp, equal_nan=True, **TOL)
+
+
+def test_segment_reduce_emulated_sum_at_the_fig6_block(rng):
+    """One Fig. 6 GROUPBY block, 2,000,000 x 8 at G 6: the stated order
+    stays within 1e-5 * sum|v| of a float64 sum; a (M,) call is the C = 1
+    case."""
+    m, g, c = 2_000_000, 6, 8
+    v = rng.random((m, c), dtype=np.float32)
+    codes = rng.integers(0, g, m).astype(np.int32)
+    got = sr_mod.emulated_sum(_t(v), _t(codes), g).double()
+    exact = torch.zeros((g, c), dtype=torch.float64).index_add_(0, _t(codes).long(), _t(v).double())
+    ratio = float(((got - exact).abs() / (1e-5 * exact)).max())
+    print(f"emulated K1 sum at ({m} x {c}, G {g}): {ratio:.4g} of the tolerance")
+    assert ratio <= 1.0
+    one = sr_mod.emulated_sum(_t(v[:, 0]), _t(codes), g)
+    assert one.shape == (g,) and torch.equal(one, sr_mod.emulated_sum(_t(v[:, :1]), _t(codes), g)[:, 0])
+    with pytest.raises(ValueError, match="route table"):
+        sr_mod.emulated_sum(_t(v[:10]), _t(codes[:10]), 65)
 
 
 # ---- CUDA kernels vs plain versions (need a card) ----------------------------
@@ -318,6 +412,63 @@ def test_cuda_segment_reduce_matches_plain(rng, cuda, m, g, cols, op):
     torch.testing.assert_close(out, sr_mod.segment_reduce(v, c, g, op), rtol=0, atol=0)
     exp = sr_mod.segment_reduce_plain(v, c, g, op)
     tol = dict(rtol=0, atol=0) if op != "sum" else TOL
+    torch.testing.assert_close(out, exp, equal_nan=True, **tol)
+
+
+@pytest.mark.parametrize("m,g,c", _K1_SHAPES + [(2_000_000, 6, 8), (2_000_000, 6, 1),
+                                   (3_000_001, 6, 1)])
+def test_cuda_segment_reduce_reg_sum_is_the_stated_order(rng, cuda, m, g, c):
+    """The "reg" route's sum equals emulated_sum bit for bit, on every rerun."""
+    v = rng.standard_normal((m, c)).astype(np.float32)
+    codes = rng.integers(-1, g, m).astype(np.int32)
+    sr_mod.counter.reset()
+    got = sr_mod.segment_reduce(_t(v).to(cuda), _t(codes).to(cuda), g, "sum")
+    assert sr_mod.counter.routes == {"reg": 1}
+    want = sr_mod.emulated_sum(_t(v), _t(codes), g)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    for _ in range(3):
+        again = sr_mod.segment_reduce(_t(v).to(cuda), _t(codes).to(cuda), g, "sum")
+        assert torch.equal(again.view(torch.int32), got.view(torch.int32))
+
+
+def test_cuda_segment_reduce_reg_reads_unaligned_views(rng, cuda):
+    """Values at an offset of one float take the scalar loads of route reg,
+    codes at an odd offset too; the result is the aligned call's, bit for
+    bit (the same rows in the same order)."""
+    m, g, c = 10_001, 6, 8
+    flat = _t(rng.standard_normal(m * c + 1).astype(np.float32)).to(cuda)
+    codes = _t(rng.integers(-1, g, m + 1).astype(np.int32)).to(cuda)
+    v = flat[1:].view(m, c)
+    assert v.data_ptr() % 16 != 0
+    got = sr_mod.segment_reduce(v, codes[1:], g, "sum")
+    want = sr_mod.segment_reduce(v.clone(), codes[1:].clone(), g, "sum")
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("c", [1, 3, 8])
+@pytest.mark.parametrize("g", [1, 6, 64])
+@pytest.mark.parametrize("op", ["sum", "count", "min", "max"])
+def test_cuda_segment_reduce_register_route(rng, cuda, c, g, op):
+    """Route reg at C 1, 3, 8 and G 1, 6, 64 where its templates take the
+    shape (route table elsewhere): one launch a call, reruns bit-identical,
+    count / min / max exact against the plain version (NaN included), sum
+    within TOL."""
+    m = 100_003
+    v = rng.standard_normal((m, c)).astype(np.float32)
+    v[::1009, 0] = np.nan
+    v = _t(v).to(cuda)
+    codes = _t(rng.integers(-1, g + 2, m).astype(np.int32)).to(cuda)
+    sr_mod.counter.reset()
+    out = sr_mod.segment_reduce(v, codes, g, op)
+    route = sr_mod.route(c, g)
+    assert route == ("reg" if _reg_fits(c, g) else "table")
+    if route == "reg":
+        assert sr_mod.counter.routes == {"reg": 1}
+    for _ in range(5):
+        assert torch.equal(sr_mod.segment_reduce(v, codes, g, op).view(torch.int32),
+                           out.view(torch.int32))
+    exp = sr_mod.segment_reduce_plain(v, codes, g, op)
+    tol = TOL if op == "sum" else dict(rtol=0, atol=0)
     torch.testing.assert_close(out, exp, equal_nan=True, **tol)
 
 
@@ -481,11 +632,93 @@ def test_decode_attention_plain_length_zero_is_ref_mean_of_v(rng):
                                **DECODE_TOL)
 
 
-@pytest.mark.parametrize("s,n", [(1, 1), (127, 1), (128, 1), (129, 2), (1024, 8), (32768, 256)])
+@pytest.mark.parametrize("s,n", [(1, 1), (127, 1), (128, 1), (129, 2), (1024, 8), (32768, 8),
+                                 (333, 3), (1100, 8), (0, 1)])
 def test_decode_attention_split_plan(s, n):
-    """The kernel gives each (slot, KV head) ceil(S / 128) CTAs: a function
-    of S alone, so no slot's result depends on another's length."""
-    assert da_mod.splits(s) == n
+    """The tc kernel's cluster plan, a function of S alone (no slot's result
+    depends on another's length): min(8, ceil(S / 128)) CTAs, keys a CTA a
+    multiple of 64; CTA r's warp w owns the 16-key sub-tiles r * keys + 16
+    (w + 4 j), which cover every key of [0, S) exactly once.  The fma
+    kernel (float32) keeps ceil(S / 128) CTAs of 128 keys."""
+    keys = da_mod.split_keys(s)
+    assert da_mod.splits(s) == n and 1 <= n <= da_mod.MAX_SPLITS
+    assert keys % 64 == 0 and n * keys >= s
+    owned = np.zeros(n * keys, np.int64)
+    for r in range(n):
+        for w in range(4):
+            for start in range(r * keys + 16 * w, (r + 1) * keys, 64):
+                owned[start:start + 16] += 1
+    assert (owned == 1).all()
+    assert da_mod.fma_splits(s) == max(1, -(-s // 128))
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 128, "tc"), (torch.bfloat16, 64, "tc"), (torch.bfloat16, 256, "tc"),
+    (torch.bfloat16, 16, "tc"), (torch.bfloat16, 40, "tc"), (torch.float32, 128, "fma"),
+    (torch.float32, 40, "fma")])
+def test_decode_attention_route(dtype, d, route):
+    """The route is picked by dtype alone: bf16 on the tensor cores (where D
+    is not a multiple of 16 the card refuses it: see
+    test_cuda_decode_attention_bf16_refuses_odd_head_dim), float32 on fma."""
+    assert da_mod.route(dtype) == route
+
+
+K7_BF16_TOL = 4e-3   # chip_smoke.py's K7_BF16_TOL: about one bf16 ulp at |x| < 1
+
+
+def test_decode_tc_split_p_keeps_the_bf16_limit(rng):
+    """The numerics of the tc kernel at the serving shape's widths (8 slots,
+    32 heads over 4, D 128, S 1024), emulated in float32: q and K as bf16,
+    float32 scores, per (CTA, warp) of the split plan a partial (m, l, O)
+    with P split into bf16 hi + lo for P . V; each CTA's warps folded in
+    warp order with 2^(m_w - M), then the CTAs in split order with 2^(M_c -
+    M*); within K7_BF16_TOL of decode_attention_plain, and closer to it
+    than P rounded once."""
+    b, h, kvh, s, d = 8, 32, 4, 1024, 128
+    q, k, v = (_t(a).bfloat16() for a in _decode_inputs(rng, b, h, kvh, s, d))
+    lengths = torch.tensor([1, 147, 293, 440, 586, 733, s, s + 9], dtype=torch.int32)
+    want = da_mod.decode_attention_plain(q, k, v, lengths).float()
+    g = h // kvh
+    n, keys = da_mod.splits(s), da_mod.split_keys(s)
+    scale = d ** -0.5 * 1.4426950408889634
+    qg = q.float().reshape(b, kvh, g, d)
+    sc = torch.einsum("bkgd,bskd->bkgs", qg, k.float()) * scale          # (b, kvh, g, s)
+    cta = torch.arange(s) // keys
+    warp = (torch.arange(s) % keys // 16) % 4
+    valid = torch.arange(s)[None, :] < lengths.clamp(max=s)[:, None]      # (b, s)
+
+    def fold(parts):
+        """(m, l, O) partials folded in order with 2^(m - M), M their max."""
+        mx = torch.stack([m for m, _, _ in parts]).amax(0)
+        return (mx, sum(lsum * torch.exp2(m - mx) for m, lsum, _ in parts),
+                sum(a * torch.exp2(m - mx) for m, _, a in parts))
+
+    def out(split: bool):
+        res = torch.zeros(b, kvh, g, d)
+        for bi in range(b):
+            ctas = []
+            for c in range(n):                   # CTAs in split order
+                warps = []
+                for w in range(4):               # a CTA's warps in warp order
+                    sel = (cta == c) & (warp == w) & valid[bi]
+                    if not sel.any():
+                        continue
+                    x = sc[bi][..., sel]
+                    m = x.amax(-1, keepdim=True)
+                    p = torch.exp2(x - m)
+                    hi = p.bfloat16().float()
+                    vs = v[bi][sel].float().transpose(0, 1)             # (kvh, keys, d)
+                    acc = hi @ vs + ((p - hi).bfloat16().float() @ vs if split else 0)
+                    warps.append((m, p.sum(-1, keepdim=True), acc))
+                if warps:
+                    ctas.append(fold(warps))
+            _, den, num = fold(ctas)
+            res[bi] = num / den
+        return res.reshape(b, h, d).bfloat16().float()
+
+    split, once = (float((out(x) - want).abs().max()) for x in (True, False))
+    print(f"P split: max |err| {split:.4g}; P rounded once: {once:.4g} (limit {K7_BF16_TOL})")
+    assert split <= K7_BF16_TOL and split <= once
 
 
 def test_decode_attention_cpu_takes_the_plain_path(rng):
@@ -503,7 +736,9 @@ def test_decode_attention_cpu_takes_the_plain_path(rng):
 def test_cuda_decode_attention_matches_plain(rng, cuda, h, kvh, s, length, d):
     q, k, v = (_t(a).to(cuda) for a in _decode_inputs(rng, 3, h, kvh, s, d))
     lengths = torch.tensor([length, s, s + 5], dtype=torch.int32, device=cuda)
+    da_mod.counter.reset()
     out = da_mod.decode_attention(q, k, v, lengths)
+    assert da_mod.counter.routes == {"fma": 1}
     assert torch.equal(out, da_mod.decode_attention(q, k, v, lengths))
     torch.testing.assert_close(out, da_mod.decode_attention_plain(q, k, v, lengths), **DECODE_TOL)
     single = da_mod.decode_attention(q[0], k[0], v[0], length)
@@ -535,6 +770,55 @@ def test_cuda_decode_attention_refuses_mixed_dtypes(rng, cuda):
         da_mod.decode_attention(q, k.bfloat16(), v.bfloat16(), lengths)
     with pytest.raises(ValueError, match="all float32 or all bfloat16"):
         da_mod.decode_attention(q.bfloat16(), k, v, lengths)
+
+
+@pytest.mark.parametrize("b,h,kvh,s,d", [
+    (8, 32, 4, 1024, 128), (3, 16, 4, 333, 64), (3, 8, 1, 700, 64), (2, 32, 1, 300, 128),
+    (2, 64, 1, 200, 64), (2, 16, 8, 4096, 256), (4, 8, 8, 129, 16), (1, 8, 1, 32768, 128)])
+def test_cuda_decode_attention_tc_matches_plain(rng, cuda, b, h, kvh, s, d):
+    """The tensor-core route at G 1 to 64 (several m-tiles past 16), D 16 to
+    256 and clusters of 1 to 8 CTAs, within K7_BF16_TOL; one launch a call
+    on route tc; reruns bit-identical."""
+    q, k, v = (_t(a).to(cuda, torch.bfloat16) for a in _decode_inputs(rng, b, h, kvh, s, d))
+    lengths = torch.tensor(([1, s, s + 9] + [1 + 137 * i % s for i in range(b)])[:b],
+                           dtype=torch.int32, device=cuda)
+    da_mod.counter.reset()
+    out = da_mod.decode_attention(q, k, v, lengths)
+    assert da_mod.counter.routes == {"tc": 1}
+    assert torch.equal(out, da_mod.decode_attention(q, k, v, lengths))
+    torch.testing.assert_close(out.float(), da_mod.decode_attention_plain(q, k, v, lengths).float(),
+                               rtol=K7_BF16_TOL, atol=K7_BF16_TOL)
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 8, 16])
+def test_cuda_decode_attention_tc_groups_and_edge_lengths(rng, cuda, g):
+    """Route tc at G 1, 2, 4, 8, 16 (4 KV heads, D 128, S 1024: a cluster of
+    8 CTAs of 128 keys) with lengths 0, 1, 127, 128, 129, S and S + 7 (a
+    warp's first, last and next sub-tile, a CTA's edge, the whole cache):
+    within K7_BF16_TOL of the plain version, 0 at length 0, ten reruns
+    bit-identical, one launch a call."""
+    kvh, s, d = 4, 1024, 128
+    lens = [0, 1, 127, 128, 129, s, s + 7]
+    q, k, v = (_t(a).to(cuda, torch.bfloat16)
+               for a in _decode_inputs(rng, len(lens), g * kvh, kvh, s, d))
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    da_mod.counter.reset()
+    out = da_mod.decode_attention(q, k, v, lengths)
+    assert da_mod.counter.routes == {"tc": 1}
+    for _ in range(10):
+        assert torch.equal(out, da_mod.decode_attention(q, k, v, lengths))
+    assert not out[0].any()
+    torch.testing.assert_close(out[1:].float(),
+                               da_mod.decode_attention_plain(q, k, v, lengths)[1:].float(),
+                               rtol=K7_BF16_TOL, atol=K7_BF16_TOL)
+
+
+def test_cuda_decode_attention_bf16_refuses_odd_head_dim(rng, cuda):
+    """bf16 runs on the tensor cores, which take D in steps of 16."""
+    q, k, v = (_t(a).to(cuda, torch.bfloat16) for a in _decode_inputs(rng, 2, 8, 2, 64, 40))
+    lengths = torch.tensor([5, 64], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        da_mod.decode_attention(q, k, v, lengths)
 
 
 # ---- linear_scan (K5) ---------------------------------------------------------
