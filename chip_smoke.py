@@ -36,9 +36,13 @@ Phases (any failure raises and the script exits non-zero):
                  S + 7; bf16 at D 40 refused;
                  K1 and K7 timed with host enqueue times and the library
                  call's device and host times; linear_scan (K5)
-                 at the reference's three shapes, T = 0 and 1, a batched
-                 call and phase 8's (2, 4096, 4096) as the RG-LRU makes it,
-                 ten reruns bit-identical; flash_attention (K6: bf16 on
+                 equal to its plain version bit for bit (torch.equal) at
+                 the reference's three shapes, T = 0, 1, 63, 64, 65 and
+                 4,097, B = 1 and 3 at N = 4096, N = 33 and 70 (4-byte
+                 copies), views with batch and time strides, and phase 8's
+                 (2, 4096, 4096) as the RG-LRU makes it, ten reruns
+                 bit-identical, one launch a call under the profiler, timed
+                 with its host enqueue time; flash_attention (K6: bf16 on
                  the tensor cores, f32 on the FMA kernel) at the
                  reference's four shapes x window (None, 32) in f32 and
                  bf16, at yi-6b's and recurrentgemma-9b's prefill shapes in
@@ -147,10 +151,11 @@ MATRIX_ROWS, MATRIX_COLS = TAXI_ROWS // 10, 64   # bench_fig6.py:78
 # Phase 8 runs two deliberately wrong kernels, which must break the chunked
 # limits: K6 ignoring the window read 0.2774 / 0.0251 (caught by the max
 # alone: random weights make attention near-uniform, so the window moves
-# the logits little), K5 dropping its chunk carry 0.8193 / 0.103.
+# the logits little), K5 dropping its carry every 64 steps 0.8193 / 0.103.
 YI_PREFILL_LIMITS = (0.29, 0.043, 0.9)     # K6 vs xla, yi-6b
 RG_CHUNKED_LIMITS = (0.22, 0.031, 0.9)     # K6 vs chunked, recurrentgemma-9b
 RG_DECODE_LIMITS = (0.25, 0.032, 0.9)      # decode vs the K5 / K6 forward
+K5_WRONG_CUT = 64                          # the wrong K5 restarts h every 64 steps
 DECODE_STEPS = 2112                        # past the local window of 2048
 
 
@@ -264,9 +269,11 @@ EVENT_CALLS = 200
 # passes); K7 "tc" (one) and "fma" (split, combine)
 SEG_KERNELS = ("seg_reg", "seg_pass")
 DECODE_KERNELS = ("decode_tc", "decode_split", "decode_combine")
-# Every route of the kernels that have two, with its source and kernels:
-# the "kernels" line lists them beside each kernel's main-path launches
+# Every route of the kernels that have two, and K5's one kernel, with its
+# source and kernels: the "kernels" line lists them beside each kernel's
+# main-path launches (a kernel not listed: its source)
 KERNEL_ROUTES = {
+    "linear_scan": {"cuda": "src/repro_torch/csrc/linear_scan.cu: lin_walk"},
     "segment_reduce": {"reg": "src/repro_torch/csrc/segment_reduce.cu: seg_reg",
                        "table": "src/repro_torch/csrc/segment_reduce.cu: seg_pass1, seg_pass2"},
     "decode_attention": {"tc": "src/repro_torch/csrc/decode_attention_tc.cu: decode_tc",
@@ -302,8 +309,8 @@ def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> tu
 # -----------------------------------------------------------------------------
 def one_launch_case(torch, case: str, dev):
     """(fn, kernel names) of phase 3's one-launch checks: K1's route reg at
-    one Fig. 6 block, K4 at (2,000,000,), K7's route tc at the serving
-    shape."""
+    one Fig. 6 block, K4 at (2,000,000,), K5 at one RG-LRU layer of phase
+    8's prefill, K7's route tc at the serving shape."""
     if case == "seg_reg":
         from repro_torch.kernels import segment_reduce as sr
         v = torch.rand((2_000_000, 8), device=dev)
@@ -313,6 +320,11 @@ def one_launch_case(torch, case: str, dev):
         from repro_torch.kernels import window_scan as ws
         x = torch.randn(2_000_000, device=dev)
         return (lambda: ws.window_scan(x)), ("scan_one_pass",)
+    if case == "lin_walk":
+        from repro_torch.kernels import linear_scan as ls
+        a, b = rglru_like(torch, (PREFILL_BATCH, PREFILL_SEQ, 4096),
+                          torch.Generator(device=dev).manual_seed(6))
+        return (lambda: ls.linear_scan(a, b)), ("lin_walk",)
     from repro_torch.kernels import decode_attention as da
     q, k, v, lengths = decode_main_inputs(torch, dev)
     return (lambda: da.decode_attention(q, k, v, lengths)), ("decode_tc",)
@@ -720,12 +732,12 @@ def check_decode_attention(torch, da, dev) -> None:
         f"5 calls at the serving shape gave the profiler {records}: one launch a call")
 
 
-# K5 and K6 against their plain versions.  f32 at the reference's 2e-3
-# (tests/test_kernels.py); the kernels read ~1e-6 there on an H100 (PERF.md,
-# the kernel table).  bf16 K6: both sides round one float32 result to
-# bf16, so they may part by one bf16 ulp (at most 2^-7 |x|) plus the
-# float32 difference (under 1e-6 in the f32 cases): rtol 2^-7, atol 1e-5.
-K5_TOL = 2e-3
+# K6 against its plain version.  f32 at the reference's 2e-3
+# (tests/test_kernels.py); the kernel reads ~1e-6 there on an H100 (PERF.md,
+# the kernel table).  bf16: both sides round one float32 result to bf16, so
+# they may part by one bf16 ulp (at most 2^-7 |x|) plus the float32
+# difference (under 1e-6 in the f32 cases): rtol 2^-7, atol 1e-5.  K5 has no
+# tolerance: it computes its plain version's roundings, bit for bit.
 K6_F32_TOL = 2e-3
 K6_BF16_RTOL, K6_BF16_ATOL = 2.0 ** -7, 1e-5
 FLASH_SHAPES = [(2, 128, 128, 64), (4, 200, 200, 64), (1, 64, 256, 128),
@@ -759,34 +771,53 @@ def rglru_like(torch, shape, gen):
 
 
 def check_linear_scan(torch, ls, dev) -> None:
-    """The reference's three (T, N) shapes with a in [0, 0.95), T = 0 and 1,
-    a batched (B, T, N) call and phase 8's (2, 4096, 4096) as the RG-LRU
-    makes it, at K5_TOL; every case twice, bit-identical; the main shape ten
-    times."""
+    """K5 equal to linear_scan_plain bit for bit (the same two roundings a
+    step): the reference's three (T, N) shapes with a in [0, 0.95), T = 0,
+    1, 63, 64, 65 and 4,097, B = 1 and 3 at N = 4096, N = 33 and 70 (the
+    4-byte copies), a view with batch and time strides that keeps the
+    16-byte copies and one whose base is 4 bytes off, and phase 8's (2,
+    4096, 4096) as the RG-LRU makes it; every case twice, bit-identical,
+    the main shape ten times; one launch a call under the profiler."""
     gen = torch.Generator(device=dev).manual_seed(4)
-    worst = 0.0
-    for shape in [(16, 8), (300, 17), (1025, 64), (0, 5), (1, 5), (3, 129, 70),
-                  (2, 4097, 33)]:
-        a = torch.rand(shape, generator=gen, device=dev) * 0.95
-        b = torch.randn(shape, generator=gen, device=dev)
+    cases = [(16, 8), (300, 17), (1025, 64), (0, 5), (1, 5), (3, 129, 70), (2, 4097, 33),
+             (63, 128), (2, 64, 4096), (3, 65, 4096), (1, 4097, 4096)]
+    inputs = [(shape, torch.rand(shape, generator=gen, device=dev) * 0.95,
+               torch.randn(shape, generator=gen, device=dev)) for shape in cases]
+    # views of larger tensors: every other batch row and time step (16-byte
+    # copies), and that with a slice 5 channels in (4-byte copies)
+    big_a = torch.rand((6, 260, 2, 128), generator=gen, device=dev) * 0.95
+    big_b = torch.randn((6, 260, 2, 128), generator=gen, device=dev)
+    inputs += [("view [::2, ::2, 0]", big_a[::2, ::2, 0], big_b[::2, ::2, 0]),
+               ("view [::2, ::2, 1, 5:75]", big_a[::2, ::2, 1, 5:75], big_b[::2, ::2, 1, 5:75])]
+    by_copy = {4: 0, 16: 0}
+    for shape, a, b in inputs:
+        a3, b3 = (a, b) if a.dim() == 3 else (a[None], b[None])
+        if a.numel():
+            strides = (a3.stride(0), a3.stride(1), b3.stride(0), b3.stride(1))
+            by_copy[ls.copy_bytes(a3.shape[2], strides, (a3.data_ptr(), b3.data_ptr()))] += 1
         got = ls.linear_scan(a, b)
         if got.shape != a.shape or not torch.equal(got, ls.linear_scan(a, b)):
             raise AssertionError(f"linear_scan {shape}: shape or reruns differ")
         want = ls.linear_scan_plain(a, b)
-        torch.testing.assert_close(got, want, rtol=K5_TOL, atol=K5_TOL,
-                                   msg=lambda m: f"linear_scan {shape}: {m}")
-        if got.numel():
-            worst = max(worst, float((got - want).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError(f"linear_scan {shape}: not bit-equal to the plain version "
+                                 f"(max |err| {float((got - want).abs().max()):.3g})")
+    assert by_copy[4] and by_copy[16], by_copy
     a, b = rglru_like(torch, (PREFILL_BATCH, PREFILL_SEQ, 4096), gen)
     got = ls.linear_scan(a, b)
     for _ in range(10):
         if not torch.equal(got, ls.linear_scan(a, b)):
             raise AssertionError("linear_scan main shape: reruns differ")
-    err = float((got - ls.linear_scan_plain(a, b)).abs().max())
-    assert err <= K5_TOL, err
-    log(f"  linear_scan: 7 shapes within {K5_TOL} of the plain version (worst {worst:.3g}), "
-        f"reruns bit-identical; {list(a.shape)} with a in [{float(a.min()):.4g}, "
-        f"{float(a.max()):.4g}] max |err| {err:.3g}, 10 reruns bit-identical")
+    want = ls.linear_scan_plain(a, b)
+    if not torch.equal(got, want):
+        raise AssertionError(f"linear_scan main shape: not bit-equal to the plain version "
+                             f"(max |err| {float((got - want).abs().max()):.3g})")
+    records = one_launch(torch, "lin_walk", dev)
+    log(f"  linear_scan: {len(inputs)} shapes and views bit-equal to the plain version "
+        f"(copies of 4 / 16 bytes: {by_copy[4]} / {by_copy[16]} cases), reruns bit-identical; "
+        f"{list(a.shape)} with a in [{float(a.min()):.4g}, {float(a.max()):.4g}] bit-equal, "
+        f"grid {ls.grid(a.shape[0], a.shape[2])}, 10 reruns bit-identical; 5 calls gave the "
+        f"profiler {records}: one launch a call")
 
 
 def flash_main_inputs(torch, dev, which: str):
@@ -1058,9 +1089,9 @@ def time_kernels(torch, sr, bt, oh, ws, da, ls, fa, dev, pool: int) -> dict:
         name="linear_scan", route="cuda", source="src/repro_torch/csrc/linear_scan.cu",
         replaces="src/repro/kernels/linear_scan.py:49", shape=list(a.shape),
         max_abs_err=float((ls.linear_scan(a, b) - ls.linear_scan_plain(a, b)).abs().max()),
-        ms=cuda_ms(lambda: ls.linear_scan(a, b)),
-        device_ms=device_ms(lambda: ls.linear_scan(a, b),
-                            ("lin_summaries", "lin_carries", "lin_apply")),
+        ms=cuda_ms(lambda: ls.linear_scan(a, b), iters=EVENT_CALLS),
+        device_ms=device_ms(lambda: ls.linear_scan(a, b), ("lin_walk",)),
+        host_ms=host_ms(lambda: ls.linear_scan(a, b)),
         plain_ms=cuda_ms(lambda: ls.linear_scan_plain(a, b), iters=3, warmup=1),
         library_ms=None, bound_ms=b_bound, bound_by=by)
     del a, b
@@ -1908,7 +1939,7 @@ def prefill_phase(torch, np, fa, ls, dev, card: str) -> tuple[dict, dict]:
             model.prefill(params, toks)
     profile_window(torch, one_prefill, 1, "prefill (profiled)",
                    {"K6": ("flash_tc", "flash_fwd"),
-                    "K5": ("lin_summaries", "lin_carries", "lin_apply")})
+                    "K5": ("lin_walk",)})
 
     # check 1: the "chunked" forward (einsum attention; K5 as well) at the
     # last position and every 64th.  Every check below runs and prints
@@ -1930,10 +1961,10 @@ def prefill_phase(torch, np, fa, ls, dev, card: str) -> tuple[dict, dict]:
         "K6 ignoring the window": ("flash_attention",
                                    lambda q, k, v, *, causal=True, scale=None, window=None:
                                    fa.flash_attention(q, k, v, causal=causal, scale=scale)),
-        "K5 dropping the carry across its 64-step chunks": (
+        f"K5 dropping the carry every {K5_WRONG_CUT} steps": (
             "linear_scan", lambda a, b: torch.cat(
-                [ls.linear_scan(a[:, i:i + ls.CHUNK_STEPS], b[:, i:i + ls.CHUNK_STEPS])
-                 for i in range(0, a.shape[1], ls.CHUNK_STEPS)], dim=1)),
+                [ls.linear_scan(a[:, i:i + K5_WRONG_CUT], b[:, i:i + K5_WRONG_CUT])
+                 for i in range(0, a.shape[1], K5_WRONG_CUT)], dim=1)),
     }
     for name, (attr, fn) in wrong.items():
         right = getattr(kops, attr)
@@ -2039,8 +2070,9 @@ def main() -> int:
         lib = "none" if rec["library_ms"] is None else f"{rec['library_ms']:.4f} ms"
         if "host_ms" in rec:
             host = f", host {rec['host_ms']:.4f} ms a call"
-            lib += (f" (on the device {ms_text(rec['library_device_ms'])} ms, host "
-                    f"{rec['library_host_ms']:.4f} ms a call)")
+            if rec["library_ms"] is not None:
+                lib += (f" (on the device {ms_text(rec['library_device_ms'])} ms, host "
+                        f"{rec['library_host_ms']:.4f} ms a call)")
         else:
             host = ""
         log(f"  {rec['name']} {rec['shape']}: kernel {rec['ms']:.4f} ms (on the device "

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Times the port's K1 (segment_reduce) and K7 (decode_attention) of earlier
-trees and of this one, in turns on one CUDA card, beside the PyTorch call
-that computes the same function.
+"""Times the port's K1 (segment_reduce), K5 (linear_scan) and K7
+(decode_attention) of earlier trees and of this one, in turns on one CUDA
+card, beside the PyTorch call that computes the same function where there
+is one.
 
 Each earlier tree's ``src/`` is unpacked first, for example from a commit:
 
@@ -19,10 +20,15 @@ Fig. 6 GROUPBY block, (2,000,000 x 8) float32 over G 6, sum (count, min and
 max: device time only); K7 at the serving shape, 8 slots x 32 heads over 4
 KV heads x D 128 over a (1024, 4, 128) bf16 cache
 (``chip_smoke.decode_main_inputs``), and (device time only) the same call
-with every length 1, its cost with no keys to move.  K1's sum and both K7
-rows are also timed queued: 100 calls behind a spin kernel, so that the
-card runs them back to back without waiting for the host (device time
-under the profiler and events, a call).  The card's name, power limit and
+with every length 1, its cost with no keys to move; K5 at one RG-LRU layer
+of recurrentgemma-9b's 2 x 4,096 prefill, (2, 4096, 4096) float32 as
+``chip_smoke.rglru_like`` makes it, with its max |err| against
+``linear_scan_plain`` and, in place of a library call (none computes the
+recurrence), the device time of ``torch.add(a, b, out=h)``, which moves the
+same bytes.  K1's sum, K5 and both K7 rows are also timed queued: 100
+calls behind a spin kernel, so that the card runs them back to back
+without waiting for the host (device time under the profiler and events,
+a call).  The card's name, power limit and
 SM clocks come last.
 """
 import json
@@ -32,8 +38,10 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-# K1's and K7's kernels before and after the redesign
-KERNELS = {"K1": ("seg_pass", "seg_reg"), "K7": ("decode_split", "decode_combine", "decode_tc")}
+# K1's, K5's and K7's kernels before and after the redesign
+KERNELS = {"K1": ("seg_pass", "seg_reg"),
+           "K5": ("lin_summaries", "lin_carries", "lin_apply", "lin_walk"),
+           "K7": ("decode_split", "decode_combine", "decode_tc")}
 
 
 def per_kernel_ms(cs, fn, names, iters: int = 100) -> dict:
@@ -81,14 +89,17 @@ def time_tree(name: str) -> None:
     import chip_smoke as cs
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import linear_scan as ls
     from repro_torch.kernels import segment_reduce as sr
 
-    def row(fn, names, lib) -> dict:
-        return dict(events=cs.cuda_ms(fn, iters=200), device=cs.device_ms(fn, names, iters=100),
-                    by_kernel=per_kernel_ms(cs, fn, names), host=cs.host_ms(fn),
-                    **queued_ms(cs, fn, names),
-                    lib_events=cs.cuda_ms(lib, iters=200),
-                    lib_device=cs.device_ms(lib, None, iters=100), lib_host=cs.host_ms(lib))
+    def row(fn, names, lib=None) -> dict:
+        res = dict(events=cs.cuda_ms(fn, iters=200), device=cs.device_ms(fn, names, iters=100),
+                   by_kernel=per_kernel_ms(cs, fn, names), host=cs.host_ms(fn),
+                   **queued_ms(cs, fn, names))
+        if lib is not None:
+            res.update(lib_events=cs.cuda_ms(lib, iters=200),
+                       lib_device=cs.device_ms(lib, None, iters=100), lib_host=cs.host_ms(lib))
+        return res
 
     _build.library()
     dev = torch.device("cuda", 0)
@@ -107,6 +118,13 @@ def time_tree(name: str) -> None:
             device=cs.device_ms(fn, KERNELS["K1"], iters=100),
             by_kernel=per_kernel_ms(cs, fn, KERNELS["K1"]))
     del v, codes, codes64
+    a, b = cs.rglru_like(torch, (cs.PREFILL_BATCH, cs.PREFILL_SEQ, 4096), gen)
+    h = torch.empty_like(a)
+    res[f"K5 {list(a.shape)} f32"] = dict(
+        row(lambda: ls.linear_scan(a, b), KERNELS["K5"]),
+        max_abs_err=float((ls.linear_scan(a, b) - ls.linear_scan_plain(a, b)).abs().max()),
+        add_device=cs.device_ms(lambda: torch.add(a, b, out=h), None, iters=100))
+    del a, b, h
     q, k, v, lengths = cs.decode_main_inputs(torch, dev)
     mask = (torch.arange(k.shape[1], device=dev)[None, :] < lengths[:, None])[:, None, None, :]
     qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)

@@ -50,8 +50,7 @@ _SIGNATURES = {
     "repro_decode_attention_tc": (_P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I64, _I64,
                                   _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I32, _I32,
                                   _F32, _P),
-    "repro_linear_scan": (_P, _P, _P, _P, _P, _I32, _I64, _I32, _I64, _I64, _I64, _I64,
-                          _I32, _P),
+    "repro_linear_scan": (_P, _P, _P, _I32, _I64, _I32, _I64, _I64, _I64, _I64, _I32, _P),
     "repro_flash_attention": (_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I64, _I64,
                               _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
                               _I32, _I64, _F32, _P),

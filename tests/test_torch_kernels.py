@@ -874,8 +874,51 @@ def test_linear_scan_plain_batched_is_per_row(rng):
 
 @pytest.mark.parametrize("t,c", [(1, 1), (63, 1), (64, 1), (65, 2), (4096, 64)])
 def test_linear_scan_chunk_plan(t, c):
-    """The kernel cuts T steps into ceil(T / 64) chunks: a function of T."""
+    """The kernel's copy ring cuts T steps into ceil(T / 64) time tiles: a
+    function of T."""
     assert ls_mod.chunks(t) == c
+
+
+@pytest.mark.parametrize("shape", LINSCAN_SHAPES + [(3, 70, 5)])
+def test_linear_scan_plain_is_the_sequential_float32_loop(rng, shape):
+    """linear_scan_plain, which the kernel is held to bit for bit on the
+    card, is the sequential recurrence with two float32 roundings a step
+    (h = a[t] * h, rounded, + b[t], rounded), bit for bit."""
+    a, b = _linscan_inputs(rng, shape)
+    a[..., 2::7, :] = 0.0                      # steps that restart h from b ...
+    b[..., 2::7, :] *= 1e-38                   # ... at a subnormal value
+    a[..., 5::7, :] = 0.0
+    b[..., 5::7, :] = -0.0                     # ... at a signed zero
+    want = np.empty_like(b)
+    h = np.zeros(b.shape[:-2] + b.shape[-1:], dtype=np.float32)
+    for t in range(b.shape[-2]):
+        h = np.add(np.multiply(a[..., t, :], h), b[..., t, :])
+        want[..., t, :] = h
+    got = ls_mod.linear_scan_plain(_t(a), _t(b)).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+# (batch, N, a's and b's batch and time strides in floats, base addresses) →
+# (grid, bytes a cp.async moves)
+LINSCAN_PLANS = [
+    ((2, 4096, (4096 * 4096, 4096) * 2, (0, 2 ** 26)), ((128, 2), 16)),  # the RG-LRU's
+    ((3, 64, (25600, 128) * 2, (256, 512)), ((2, 3), 16)),     # views with a time stride
+    ((2, 4096, (4096 * 4096, 4096) * 2, (4, 0)), ((128, 2), 4)),  # a base 4 bytes off
+    ((1, 33, (4097 * 33, 33) * 2, (0, 0)), ((2, 1), 4)),       # a ragged slab, N odd
+    ((3, 70, (129 * 70, 70) * 2, (0, 0)), ((3, 3), 4)),        # N = 2 mod 4
+    ((2, 64, (64 * 65, 66) * 2, (0, 0)), ((2, 2), 4)),         # a time stride of 66
+    ((65535, 8, (8, 8) * 2, (0, 0)), ((1, 65535), 16)),        # the most batch rows
+]
+
+
+@pytest.mark.parametrize("args,want", LINSCAN_PLANS)
+def test_linear_scan_grid_and_copy_width(args, want):
+    """One CTA a 32-channel slab of a batch row; 16-byte copies only where N,
+    every stride and both bases allow them: functions of shape, strides and
+    addresses alone."""
+    batch, n, strides, addresses = args
+    assert (ls_mod.grid(batch, n), ls_mod.copy_bytes(n, strides, addresses)) == want
 
 
 def test_linear_scan_cpu_takes_the_plain_path(rng):
@@ -1056,7 +1099,7 @@ def test_cuda_linear_scan_matches_plain(rng, cuda, shape):
     a, b = (_t(x).to(cuda) for x in _linscan_inputs(rng, shape))
     out = ls_mod.linear_scan(a, b)
     assert out.shape == a.shape and torch.equal(out, ls_mod.linear_scan(a, b))
-    torch.testing.assert_close(out, ls_mod.linear_scan_plain(a, b), **SCAN_TOL)
+    assert torch.equal(out, ls_mod.linear_scan_plain(a, b))   # the same two roundings a step
 
 
 @pytest.mark.parametrize("h,sq,sk,d", FLASH_SHAPES)
