@@ -49,8 +49,11 @@ Phases (any failure raises and the script exits non-zero):
                  bf16 (ten reruns bit-identical), rows before every key 0
                  (f32 and bf16), and in bf16: windows 63, 64 and 65 at Sq =
                  Sk and Sq < Sk, D 33 through the wrapper's padded copy, q /
-                 k / v as views of one fused projection
-  (4, 5 and 6 time each step unprofiled, then run the steps once more under
+                 k / v as views of one fused projection; then the CUDA-only
+                 pytest cases, ``python -m pytest --noconftest
+                 tests/test_torch_cuda_kernels.py`` in a child process
+                 (every case must pass; none may skip)
+  (4, 5, 6 and 9 time each step unprofiled, then run the steps once more under
   the CUDA profiler for the device's busy time within each)
   4. fig6      — the Fig. 6 mix at 16,000,000 rows of taxi_like_frame in an
                  EAGER session: fillna, groupby(n).count(), count(), a
@@ -97,6 +100,24 @@ Phases (any failure raises and the script exits non-zero):
                  dropping its chunk carry must each break; 2,112
                  teacher-forced decode steps (no K5 or K6; the ring buffers
                  wrap) against the forward at every position
+  9. algebra   — DIFFERENCE / DROP-DUPLICATES and the fusion pass, each step
+                 in a fresh LAZY session: bench_dedup.py's map -> filter ->
+                 drop_duplicates and map -> difference over a duplicate-heavy
+                 16,000,000-row frame (k, v, x, s from small pools) against a
+                 4,000,000-row right side, in its three modes (serial
+                 REPRO_BLOCK_DEDUP=0, block, fused), bit-identical and equal
+                 to numpy's first occurrences / anti-join; on phase 4's taxi
+                 frame drop_duplicates(passenger_count, payment_type) (18
+                 rows) and a difference of rows [0, 4M) against f0 > 0;
+                 map -> filter -> groupby().agg(4) fused into GROUPBY (K1,
+                 3 launches a block, route reg), filter -> cumsum(6) -> map
+                 fused into WINDOW (K4, 6 launches a block), sort -> filter
+                 -> project and merge -> filter fused into SORT / JOIN; fused
+                 equal to per node bit for bit (and SORT / JOIN to the
+                 serial REPRO_SHUFFLE=0 path), with fewer rows gathered; the
+                 fusion counters' invariant; the host seconds of the dedup
+                 key work (_row_keys, _keys_to_ids) and K1's / K4's device
+                 time under the profiler
 
 Run from the root of a checkout:  python3 chip_smoke.py
 The last two lines of standard output are the kernels' JSON record and
@@ -104,7 +125,9 @@ The last two lines of standard output are the kernels' JSON record and
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1152,11 +1175,36 @@ def time_kernels(torch, sr, bt, oh, ws, da, ls, fa, dev, pool: int) -> dict:
     return out
 
 
+CUDA_TESTS_TIMEOUT = 600
+
+
+def cuda_kernel_tests() -> None:
+    """The CUDA-only pytest cases (tests/test_torch_cuda_kernels.py, which
+    imports no JAX) on the card, in a child process without the test
+    suite's conftest (it imports the JAX package); every case must pass."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    proc = subprocess.run([sys.executable, "-m", "pytest", "--noconftest", "-p",
+                           "no:cacheprovider", "-q", "tests/test_torch_cuda_kernels.py"],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=CUDA_TESTS_TIMEOUT)
+    lines = proc.stdout.strip().splitlines()
+    tail = lines[-1] if lines else ""
+    log(f"  pytest: {tail}")
+    if proc.returncode != 0 or "passed" not in tail or any(
+            w in tail for w in ("failed", "error", "skipped")):
+        print(proc.stdout[-8000:], file=sys.stderr)
+        print(proc.stderr[-4000:], file=sys.stderr)
+        raise AssertionError(f"tests/test_torch_cuda_kernels.py on the card: {tail!r} "
+                             f"(exit {proc.returncode})")
+
+
 # -----------------------------------------------------------------------------
 # phase 4: the Fig. 6 mix at full size
 # -----------------------------------------------------------------------------
-def timed(label: str, fn):
-    """Run one step and print its wall time (host clock, ending in a sync)."""
+def timed(label: str, fn, kernels: tuple = ()):
+    """Run one step and print its wall time (host clock, ending in a sync).
+    ``kernels`` is ``profiled``'s and unused here."""
     import torch
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1166,10 +1214,11 @@ def timed(label: str, fn):
     return out
 
 
-def profiled(label: str, fn):
+def profiled(label: str, fn, kernels: tuple = ()):
     """Run one step under the CUDA profiler and print the device's busy time
     in it (the summed durations of the kernels and copies the profiler saw)
-    beside the profiled run's wall time, which the profiler lengthens."""
+    beside the profiled run's wall time, which the profiler lengthens, and
+    the device time of the kernels whose names contain one of ``kernels``."""
     import torch
     out = []
     events, wall = device_window(torch, lambda: out.append(fn()), cuda_only=True)
@@ -1177,8 +1226,13 @@ def profiled(label: str, fn):
         log(f"  {label}: device busy not measured ({wall:.3f} s profiled wall)")
         return out[-1]
     busy = sum(e.self_device_time_total for e in events) / 1e6
+    mine = ""
+    if kernels:
+        ms = sum(e.self_device_time_total for e in events
+                 if any(n in e.key for n in kernels)) / 1e3
+        mine = f"; {' / '.join(kernels)} {ms:.3f} ms"
     log(f"  {label}: device busy {busy * 1e3:.3f} ms of {wall:.3f} s profiled wall "
-        f"({100 * busy / wall:.2f}%)")
+        f"({100 * busy / wall:.2f}%){mine}")
     return out[-1]
 
 
@@ -1395,10 +1449,8 @@ def ordered_steps(run, dev, frame) -> dict:
 def serial_steps(dev, frame) -> dict:
     """SORT and JOIN on the serial whole-frame path (REPRO_SHUFFLE=0), the
     oracle the shuffled results must equal bit for bit."""
-    import os
     from repro_torch.core import DataFrame, EvalMode, Session
-    os.environ["REPRO_SHUFFLE"] = "0"
-    try:
+    with knobs({"REPRO_SHUFFLE": "0"}):
         s = Session(mode=EvalMode.EAGER, device=dev)
         df = DataFrame(frame, session=s)
         rates = DataFrame({"passenger_count": [1, 2, 3, 4, 5, 6], "rate": RATES}, session=s)
@@ -1408,8 +1460,6 @@ def serial_steps(dev, frame) -> dict:
                               lambda: df.merge(rates, on="passenger_count").collect())}
         s.close()
         return out
-    finally:
-        del os.environ["REPRO_SHUFFLE"]
 
 
 def label_array(np, labels):
@@ -2019,6 +2069,415 @@ def prefill_phase(torch, np, fa, ls, dev, card: str) -> tuple[dict, dict]:
 
 
 # -----------------------------------------------------------------------------
+# -----------------------------------------------------------------------------
+# phase 9: DIFFERENCE / DROP-DUPLICATES and the fusion pass at full size
+# -----------------------------------------------------------------------------
+# bench_dedup.py's duplicate-heavy frame and its right-hand side (seed 12),
+# cut from 16,000,000 and 4,000,000 rows to keep phase 9 near 120 s: at
+# 16M the two chains took 63 s of the phase's 173 s on an H100, host-bound
+DUP_ROWS = 4_000_000
+DUP_RIGHT_ROWS = 1_000_000
+DUP_STRINGS = tuple(f"s{i:02d}" for i in range(12))
+DIFF_LEFT_ROWS = 4_000_000    # the taxi difference's left side: rows [0, 4M)
+FLOATS = [f"f{j}" for j in range(6)]
+# bench_dedup.py's three modes: (REPRO_* knobs, optimize)
+DEDUP_MODES = {"serial": ({"REPRO_BLOCK_DEDUP": "0"}, False), "block": ({}, False),
+               "fused": ({}, True)}
+K1_NAMES, K4_NAMES = ("seg_reg", "seg_pass"), ("scan_one_pass",)
+
+
+def dup_numpy(np, n: int, seed: int):
+    """bench_dedup.py's ``_dup_frame`` columns in numpy: k, v, x and the
+    codes of s (over DUP_STRINGS)."""
+    rng = np.random.default_rng(seed)
+    k = rng.integers(0, 8, n, dtype=np.int32)
+    v = rng.integers(0, 20, n, dtype=np.int32)
+    x = (rng.integers(0, 12, n) * np.float32(0.25)).astype(np.float32)
+    s = rng.integers(0, 12, n, dtype=np.int32)
+    return k, v, x, s
+
+
+def dup_frame(torch, np, dev, n: int, seed: int):
+    from repro_torch.core import Domain
+    from repro_torch.core.frame import Column, Frame
+    from repro_torch.core.labels import RangeLabels, labels_from_values
+    k, v, x, s = (torch.from_numpy(a).to(dev) for a in dup_numpy(np, n, seed))
+    cols = [Column(k, Domain.INT), Column(v, Domain.INT), Column(x, Domain.FLOAT),
+            Column(s, Domain.STR, None, DUP_STRINGS)]
+    return Frame(cols, RangeLabels(n), labels_from_values(["k", "v", "x", "s"]), device=dev)
+
+
+def scale_udf(col: str):
+    """``col -> col * 2 + 1`` (bench_dedup.py's map), on the device."""
+    from repro_torch.core import Domain
+    from repro_torch.core import algebra as alg
+    from repro_torch.core.frame import Column
+
+    def fn(cols, frame):
+        out = dict(cols)
+        c = cols[col]
+        out[col] = Column(c.data * 2.0 + 1.0, Domain.FLOAT, c.mask, None)
+        return out
+    return alg.Udf(name=f"algebra_scale_{col}", fn=fn, deps=frozenset([col]), elementwise=True)
+
+
+@contextlib.contextmanager
+def knobs(env: dict):
+    """Set ``REPRO_*`` knobs for a block, restoring them after."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, old in saved.items():
+            if old is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = old
+
+
+class key_clock:
+    """Host seconds spent in the dedup key work, ``physical._row_keys`` (run
+    in the pool's threads, so summed over them) and ``_keys_to_ids``, while
+    the block runs."""
+
+    def __init__(self):
+        import threading
+        from repro_torch.core import physical
+        self.P, self.lock = physical, threading.Lock()
+        self.secs = {"_row_keys": 0.0, "_keys_to_ids": 0.0}
+        self.calls = dict.fromkeys(self.secs, 0)
+
+    def _wrap(self, name: str, fn):
+        def clocked(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                with self.lock:
+                    self.secs[name] += time.perf_counter() - t0
+                    self.calls[name] += 1
+        return clocked
+
+    def __enter__(self):
+        self.orig = {n: getattr(self.P, n) for n in self.secs}
+        for n, fn in self.orig.items():
+            setattr(self.P, n, self._wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(self.P, n, fn)
+        return False
+
+    def text(self) -> str:
+        return (f"host keys: _row_keys {self.secs['_row_keys']:.3f} s in "
+                f"{self.calls['_row_keys']} calls (summed over pool threads), _keys_to_ids "
+                f"{self.secs['_keys_to_ids']:.3f} s in {self.calls['_keys_to_ids']}")
+
+
+def lazy_session(dev, optimize: bool = True):
+    """A LAZY session (statements chain unevaluated, so the fusion pass sees
+    the whole chain at collect) with the ordered phase's 16 GiB cache."""
+    from repro_torch.core import EvalMode, Session
+    return Session(mode=EvalMode.LAZY, device=dev, optimize=optimize,
+                   cache_budget_bytes=ORDERED_CACHE)
+
+
+def run_keys(run, label: str, fn):
+    """``run(label, fn)`` with the host key work clocked and logged."""
+    with key_clock() as clock:
+        out = run(label, fn)
+    log(f"    {clock.text()}")
+    return out
+
+
+def counter_delta(counter, before: tuple) -> tuple[int, dict]:
+    launches, routes = before
+    return (counter.launches - launches,
+            {r: n - routes.get(r, 0) for r, n in counter.routes.items() if n - routes.get(r, 0)})
+
+
+def fused_info(s, df) -> dict:
+    """The session's dedup and gather counters, and the fusion counters of
+    the statement's plan alone, prepared by a fresh executor over the
+    session's frames beside the stage ops of its fused pipelines
+    (``bench_blocking_fusion.py``'s invariant; the session's own counters
+    also hold the chain's intermediate statements)."""
+    from repro_torch.core.executor import Executor
+    ex = Executor(s.frames, optimize=s.executor.optimize)
+    try:
+        plan = ex._prepared(df._node)
+        fs = ex.stats
+        pipe = sum(len(n.params["stages"]) for n in plan.walk() if n.op == "fused_pipeline")
+        out = {k: getattr(fs, k) for k in ("barrier_fused_groups", "fused_stage_ops",
+                                            "producer_stage_ops", "consumer_stage_ops")}
+    finally:
+        ex.shutdown()
+    st = s.executor.stats
+    return dict(out, pipeline_ops=pipe, top=plan.op, gather_rows=st.gather_rows,
+                dedup_blocks=st.dedup_blocks, dedup_key_rows=st.dedup_key_rows)
+
+
+def sort_query(df):
+    srt = df.sort_values("f0")
+    return srt[srt["f1"] > 0][["f0", "f1"]]
+
+
+def join_query(df, s):
+    from repro_torch.core import DataFrame
+    rates = {"passenger_count": [1, 2, 3, 4, 5, 6], "rate": RATES}
+    j = df.merge(DataFrame(rates, session=s), on="passenger_count")
+    return j[j["rate"] > 3.0]
+
+
+def fresh(s, q):
+    """``q.collect`` with the session's cache emptied first, so that a
+    profiler window taken again evaluates the plan again."""
+    def collect():
+        s.executor.cache.clear()
+        return q.collect()
+    return collect
+
+
+def algebra_steps(run, dev, taxi, dup, right) -> dict:
+    """Phase 9's steps, each in a fresh LAZY session; ``run(label, thunk,
+    kernels=...)`` runs each (timed, or under the profiler).  Returns the
+    results, the sessions' counters and the K1 / K4 launches of each fused
+    / unfused step.  The fused operators go first: the card's profiler has
+    lost the later windows of a process."""
+    from repro_torch.core import DataFrame
+    from repro_torch.kernels import segment_reduce as sr
+    from repro_torch.kernels import window_scan as ws
+    out: dict = {"info": {}}
+
+    # the barrier-fused operators, fused (optimize=True) and per node
+    for optimize in (True, False):
+        tag = "fused" if optimize else "unfused"
+
+        def session():
+            s = lazy_session(dev, optimize)
+            return s, DataFrame(taxi, session=s)
+
+        s, df = session()
+        m = df.map_udf(scale_udf("f0"))
+        q = m[m["f1"] > 0].groupby("passenger_count").agg({"f0": ["sum", "mean", "min", "max"]})
+        before = (sr.counter.launches, dict(sr.counter.routes))
+        out[f"groupby_{tag}"] = run(f"map -> filter -> groupby().agg(4), {tag}", fresh(s, q),
+                                    kernels=K1_NAMES)
+        out["info"][f"groupby_{tag}"] = dict(fused_info(s, q), k1=counter_delta(sr.counter, before))
+        s.close()
+
+        s, df = session()
+        q = df[df["f1"] > 0].cumsum(cols=FLOATS).map_udf(scale_udf("f0"))
+        before = (ws.counter.launches, {})
+        out[f"window_{tag}"] = run(f"filter -> cumsum(6 columns) -> map, {tag}", fresh(s, q),
+                                   kernels=K4_NAMES)
+        out["info"][f"window_{tag}"] = dict(fused_info(s, q), k4=counter_delta(ws.counter, before))
+        s.close()
+
+        s, df = session()
+        q = sort_query(df)
+        out[f"sort_{tag}"] = run(f"sort_values(f0) -> filter -> project, {tag}", fresh(s, q))
+        out["info"][f"sort_{tag}"] = fused_info(s, q)
+        s.close()
+
+        s, df = session()
+        q = join_query(df, s)
+        out[f"join_{tag}"] = run(f"merge(rates) -> filter, {tag}", fresh(s, q))
+        out["info"][f"join_{tag}"] = fused_info(s, q)
+        s.close()
+
+    # bench_dedup.py's two chains in its three modes
+    for mode, (env, optimize) in DEDUP_MODES.items():
+        with knobs(env):
+            for chain in ("dropdup", "difference"):
+                s = lazy_session(dev, optimize)
+                d = DataFrame(dup, session=s).map_udf(scale_udf("x"))
+                q = (d[d["v"] > 10].drop_duplicates() if chain == "dropdup"
+                     else d.difference(DataFrame(right, session=s)))
+                label = {"dropdup": "map_filter_dropdup", "difference": "map_difference"}[chain]
+                out[f"{chain}_{mode}"] = run_keys(run, f"{label}, {mode}", fresh(s, q))
+                out["info"][f"{chain}_{mode}"] = fused_info(s, q)
+                s.close()
+
+    # the taxi frame: dedup on two keys, and a difference
+    s = lazy_session(dev)
+    df = DataFrame(taxi, session=s)
+    q = df.drop_duplicates(subset=["passenger_count", "payment_type"])
+    out["taxi_dedup"] = run_keys(run, "drop_duplicates(passenger_count, payment_type)",
+                                 fresh(s, q))
+    left = DataFrame(taxi.head(DIFF_LEFT_ROWS), session=s)
+    q = left.difference(df[df["f0"] > 0])
+    out["taxi_difference"] = run_keys(run, f"rows [0, {DIFF_LEFT_ROWS}) .difference(f0 > 0)",
+                                      fresh(s, q))
+    s.close()
+    return out
+
+
+def algebra_serial(dev, taxi) -> dict:
+    """Fused SORT and JOIN on the serial whole-frame path (REPRO_SHUFFLE=0),
+    the oracle of the exchange."""
+    from repro_torch.core import DataFrame
+    with knobs({"REPRO_SHUFFLE": "0"}):
+        s = lazy_session(dev)
+        df = DataFrame(taxi, session=s)
+        out = {"sort": timed("serial fused sort + collect", sort_query(df).collect),
+               "join": timed("serial fused merge + collect", join_query(df, s).collect)}
+        s.close()
+    return out
+
+
+def check_algebra(torch, np, dev, out: dict, serial: dict) -> None:
+    """Phase 9's results: the three dedup modes bit-identical and equal to
+    numpy's first occurrences / anti-join; fused equal to per node bit for
+    bit, with the counters and launches the fused plans must show."""
+    from repro_torch.core.frame import host
+    from repro_torch.core.schedule import GRID_PREFS, preferred_row_parts
+    info = out["info"]
+    dt = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    # 1. the dedup chains: three modes bit-identical, then numpy
+    k, v, x, s = dup_numpy(np, DUP_ROWS, 11)
+    xm = x * np.float32(2.0) + np.float32(1.0)
+    key = ((k.astype(np.int64) * 20 + v) * 32 + (xm * 4).astype(np.int64)) * 12 + s
+    rk, rv, rx, rs = dup_numpy(np, DUP_RIGHT_ROWS, 12)
+    rkey = ((rk.astype(np.int64) * 20 + rv) * 32 + (rx * 4).astype(np.int64)) * 12 + rs
+    kept = np.flatnonzero(v > 10)
+    _, first = np.unique(key[kept], return_index=True)
+    want = {"dropdup": np.sort(kept[first]),
+            "difference": np.flatnonzero(~np.isin(key, np.unique(rkey)))}
+    for chain, rows in want.items():
+        for mode in ("block", "fused"):
+            assert same_frame(torch, np, out[f"{chain}_serial"], out[f"{chain}_{mode}"]), \
+                f"{chain}: {mode} != serial"
+        got = out[f"{chain}_fused"]
+        assert np.array_equal(label_array(np, got.row_labels), rows), f"{chain}: rows"
+        for name, col in (("k", k), ("v", v), ("x", xm), ("s", s)):
+            assert torch.equal(got.col(name).data, dt(col[rows])), (chain, name)
+            assert got.col(name).mask is None, (chain, name)
+        assert got.col("s").dictionary == DUP_STRINGS
+        fi, bi, si = (info[f"{chain}_{m}"] for m in ("fused", "block", "serial"))
+        assert fi["top"] == f"fused_{'drop_duplicates' if chain == 'dropdup' else 'difference'}"
+        assert fi["barrier_fused_groups"] >= 1 and fi["producer_stage_ops"] >= 1, (chain, fi)
+        assert fi["fused_stage_ops"] == (fi["pipeline_ops"] + fi["producer_stage_ops"]
+                                         + fi["consumer_stage_ops"]), (chain, fi)
+        assert bi["dedup_blocks"] > si["dedup_blocks"] and fi["dedup_key_rows"] > 0, chain
+        assert fi["gather_rows"] == bi["gather_rows"] == si["gather_rows"] == rows.size, chain
+        log(f"  {chain}: {rows.size} rows, bit-identical in the three modes and equal to "
+            f"numpy; dedup_blocks serial {si['dedup_blocks']}, block {bi['dedup_blocks']}, "
+            f"fused {fi['dedup_blocks']}")
+
+    # 2. the taxi frame
+    pc, cols, nulls, pay = taxi_numpy(np)
+    _, first = np.unique(pc * 3 + pay, return_index=True)
+    rows = np.sort(first)
+    got = out["taxi_dedup"]
+    assert got.nrows == 18 and np.array_equal(label_array(np, got.row_labels), rows), \
+        label_array(np, got.row_labels)
+    assert torch.equal(got.col("passenger_count").data, dt(pc[rows].astype(np.int32)))
+    assert got.col("payment_type").to_pylist() == [PAYMENT[i] for i in pay[rows]]
+    n = DIFF_LEFT_ROWS
+    # the left rows are distinct: rows that share (f0, f1) as stored differ
+    # in another column or a mask
+    stored = [np.where(nulls[j][:n], np.float32(0.0), cols[j][:n]).view(np.uint32)
+              for j in range(6)]
+    pair = (stored[0].astype(np.uint64) << np.uint64(32)) | stored[1].astype(np.uint64)
+    order = np.argsort(pair, kind="stable")
+    same = pair[order][1:] == pair[order][:-1]
+    row = lambda i: (pc[i], pay[i], *(c[i] for c in stored), *(nl[i] for nl in nulls))
+    for a, b in zip(order[:-1][same], order[1:][same]):
+        assert row(a) != row(b), f"taxi rows {a} and {b} are equal"
+    f0, valid = cols[0][:n], ~nulls[0][:n]
+    rows = np.flatnonzero(~(valid & (f0 > 0)))
+    got = out["taxi_difference"]
+    assert np.array_equal(label_array(np, got.row_labels), rows), "taxi difference: rows"
+    assert torch.equal(got.col("f0").mask, dt(valid[rows]))
+    assert torch.equal(got.col("f0").data, dt(np.where(nulls[0], 0.0, cols[0])[:n][rows]
+                                                .astype(np.float32)))
+    log(f"  taxi: drop_duplicates gives the 18 first occurrences; difference keeps the "
+        f"{rows.size} left rows with f0 <= 0 or null, in left order")
+
+    # 3. fused GROUPBY on K1
+    g, gi = out["groupby_fused"], info["groupby_fused"]
+    assert same_frame(torch, np, g, out["groupby_unfused"]), "groupby: fused != per node"
+    assert gi["top"] == "fused_groupby" and gi["barrier_fused_groups"] >= 1, gi
+    assert gi["fused_stage_ops"] == (gi["pipeline_ops"] + gi["producer_stage_ops"]
+                                     + gi["consumer_stage_ops"]), gi
+    blocks = preferred_row_parts(taxi_blocks(), GRID_PREFS["fused_groupby"])
+    launches, routes = gi["k1"]
+    # one launch a block for each reduce op: sum (sum, count and presence
+    # stacked), min, max
+    assert launches == 3 * blocks and routes == {"reg": launches}, (launches, routes, blocks)
+    sel = ~nulls[1] & (cols[1] > 0)
+    fm = (np.where(nulls[0], 0.0, cols[0]).astype(np.float32) * np.float32(2.0)
+          + np.float32(1.0))
+    ok = sel & ~nulls[0]
+    for gid in range(6):
+        seg = fm[ok & (pc == gid + 1)]
+        assert g.col("f0_min").to_pylist()[gid] == float(seg.min())
+        assert g.col("f0_max").to_pylist()[gid] == float(seg.max())
+    log(f"  groupby: fused == per node bit for bit; min / max equal numpy; K1 {launches} "
+        f"launches (3 a block over {blocks} blocks), routes {routes}")
+
+    # 4. fused WINDOW on K4
+    w, wi = out["window_fused"], info["window_fused"]
+    assert same_frame(torch, np, w, out["window_unfused"]), "window: fused != per node"
+    assert wi["top"] == "fused_window" and wi["barrier_fused_groups"] >= 1, wi
+    wblocks = preferred_row_parts(taxi_blocks(), GRID_PREFS["fused_window"])
+    launches, _ = wi["k4"]
+    assert launches == 6 * wblocks, (launches, wblocks)
+    assert np.array_equal(label_array(np, w.row_labels), np.flatnonzero(sel))
+    log(f"  window: fused == per node bit for bit; K4 {launches} launches (6 columns a "
+        f"block over {wblocks} blocks)")
+
+    # 5. fused SORT and JOIN consumers
+    for op in ("sort", "join"):
+        f, u = info[f"{op}_fused"], info[f"{op}_unfused"]
+        assert f["top"] == f"fused_{op}", f
+        assert same_frame(torch, np, out[f"{op}_fused"], out[f"{op}_unfused"]), f"{op}: fused != per node"
+        assert same_frame(torch, np, out[f"{op}_fused"], serial[op]), f"{op}: exchange != serial"
+        assert 0 < f["gather_rows"] < u["gather_rows"], (op, f["gather_rows"], u["gather_rows"])
+        log(f"  {op}: fused == per node == serial bit for bit; gather_rows {f['gather_rows']} "
+            f"fused, {u['gather_rows']} per node")
+    perm = np.argsort(np.where(nulls[0], np.inf, cols[0].astype(np.float64)), kind="stable")
+    assert np.array_equal(label_array(np, out["sort_fused"].row_labels), perm[sel[perm]])
+
+
+def taxi_blocks() -> int:
+    """The taxi frame's row blocks in a session (its default grid)."""
+    from repro_torch.core.partition import default_grid
+    return default_grid(TAXI_ROWS, 8)[0]
+
+
+def same_algebra(torch, np, a: dict, b: dict) -> None:
+    """The profiled rerun's phase-9 results equal the timed run's."""
+    for k in a:
+        if k != "info":
+            assert same_frame(torch, np, a[k], b[k]), f"{k}: rerun differs"
+
+
+def algebra_phase(torch, np, dev, counters: dict) -> dict:
+    """Phase 9; returns the kernels' launches of its timed pass."""
+    from repro_torch.data import taxi_like_frame
+    taxi = timed(f"taxi_like_frame({TAXI_ROWS}) on the card",
+                 lambda: taxi_like_frame(TAXI_ROWS, seed=0, device=dev))
+    dup = timed(f"duplicate-heavy frame ({DUP_ROWS} rows) on the card",
+                lambda: dup_frame(torch, np, dev, DUP_ROWS, 11))
+    right = dup_frame(torch, np, dev, DUP_RIGHT_ROWS, 12)
+    for c in counters.values():
+        c.reset()
+    out = algebra_steps(timed, dev, taxi, dup, right)
+    launches = {k: (c.launches, dict(c.routes)) for k, c in counters.items()}
+    log(f"[algebra] launches {dict((k, n) for k, (n, _) in launches.items())}")
+    check_algebra(torch, np, dev, out, algebra_serial(dev, taxi))
+    log("[algebra] results match numpy, the serial paths and the per-node plans; the same "
+        "steps again under the CUDA profiler:")
+    same_algebra(torch, np, out, algebra_steps(profiled, dev, taxi, dup, right))
+    log("[algebra] the profiled rerun is bit-identical")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -2081,6 +2540,11 @@ def main() -> int:
             f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), max |err| {rec['max_abs_err']:.3g}")
     torch.cuda.empty_cache()
     log(f"[kernels] {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    log("[cuda-tests] tests/test_torch_cuda_kernels.py on the card")
+    cuda_kernel_tests()
+    log(f"[cuda-tests] {time.perf_counter() - t0:.1f} s")
 
     counters = {"segment_reduce": sr.counter, "block_transpose": bt.counter,
                 "onehot_encode": oh.counter, "window_scan": ws.counter,
@@ -2167,6 +2631,18 @@ def main() -> int:
         launches[k] += n
     add_routes("flash_attention", k6_routes)
     log(f"[prefill] {time.perf_counter() - t0:.1f} s")
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log(f"[algebra] DIFFERENCE / DROP-DUPLICATES and the fusion pass on {dev}: "
+        f"{DUP_ROWS} duplicate-heavy rows, {TAXI_ROWS} taxi rows")
+    phase9 = algebra_phase(torch, np, dev, counters)
+    for k, (n, _) in phase9.items():
+        launches[k] += n
+    add_routes("segment_reduce", phase9["segment_reduce"][1])
+    for k in ("segment_reduce", "window_scan"):
+        assert phase9[k][0] > 0, f"phase 9 never launched {k}"
+    log(f"[algebra] {time.perf_counter() - t0:.1f} s")
 
     record = []
     for k in ("segment_reduce", "block_transpose", "onehot_encode", "window_scan",

@@ -19,8 +19,11 @@ Also implements:
 * multi-query sharing (§6.2.1): common sub-expressions across concurrently
   scheduled statements dedupe through the cache *and* through an in-flight
   table, so a sub-plan running in the background is joined, never recomputed;
-* pipeline fusion (§5) is not ported yet (ROADMAP M5): ``Executor.fused``
-  returns its input, and plans run node by node after rule rewriting.
+* pipeline fusion (§5): after rule rewriting, maximal chains of row-local
+  operators collapse into ``FusedPipeline`` groups and fuse through blocking
+  operators (``rewrite.fuse_pipelines``), each evaluated as one physical
+  sweep with a single cache entry — ``ExecStats.fused_groups`` /
+  ``fused_stage_ops`` attribute the win.
 """
 from __future__ import annotations
 
@@ -271,7 +274,21 @@ class Executor:
         self._closed = False
         self._lock = threading.Lock()
         self._inflight: dict[tuple, _fut.Future] = {}
+        # plan keys already counted in fusion stats (bounded FIFO: stats-only
+        # bookkeeping must not grow with the life of a session)
+        self._fused_seen: dict[tuple, None] = {}
         self._memo_max = 4096
+        # session statement history (MQO-aware fusion boundaries, §6.2.1):
+        # candidate barrier key (a statement's optimized or prepared form) →
+        # the statement's prepared key.  A candidate is a fusion barrier only
+        # while its prepared result is materialized (cache) or in flight.
+        self._history: dict[tuple, tuple] = {}
+        self._history_max = 2048
+        # optimized-plan key → (active history snapshot, fused plan), so
+        # re-evaluating a cached statement does not pay the fusion walk again
+        # (bounded FIFO); the snapshot guards against stale fusion when a
+        # history statement's materialization status changes
+        self._fuse_memo: dict[tuple, tuple[frozenset, alg.Node]] = {}
         # raw-plan key → optimized plan: the fluent API prepares AND records
         # every statement, so the fixpoint rewrite walk must not run twice
         # per plan (bounded FIFO; sources are append-only so schemas are
@@ -323,18 +340,60 @@ class Executor:
         return out
 
     def fused(self, node: alg.Node) -> alg.Node:
-        """Fusion pass: not ported yet (ROADMAP M5) — returns ``node``
-        unchanged.  Results are unaffected: the reference's fused plans are
-        bit-identical to its unfused ones; only the per-node dispatch count
-        differs, and the fusion counters of ``ExecStats`` stay 0."""
-        return node
+        """Fusion pass (paper §5 pipelining + barrier fusion): collapse
+        row-local chains into FusedPipeline groups and fuse them through
+        blocking-operator boundaries — one physical sweep and one cache entry
+        each.  Disabled together with ``optimize`` so the per-node path stays
+        available as the comparison baseline."""
+        if not self.optimize:
+            return node
+        st = self._stats()
+        in_key = node.cache_key()
+        with self._lock:
+            hit = self._fuse_memo.get(in_key)
+            history = frozenset(
+                k for k, prep in self._history.items()
+                if prep in self.cache or prep in self._inflight)
+        if hit is not None and hit[0] == history:
+            return hit[1]
+        out, fs = rewrite.fuse_pipelines(node, history)
+        with self._lock:
+            while len(self._fuse_memo) >= self._memo_max:
+                self._fuse_memo.pop(next(iter(self._fuse_memo)))
+            self._fuse_memo[in_key] = (history, out)
+            if fs.groups or fs.barrier_groups:
+                # count each distinct plan once: re-evaluating a cached plan
+                # is not new fusion work
+                key = out.cache_key()
+                if key not in self._fused_seen:
+                    while len(self._fused_seen) >= self._memo_max:
+                        self._fused_seen.pop(next(iter(self._fused_seen)))
+                    self._fused_seen[key] = None
+                    st.fused_groups += fs.groups
+                    st.fused_stage_ops += fs.fused_ops
+                    st.barrier_fused_groups += fs.barrier_groups
+                    st.producer_stage_ops += fs.producer_ops
+                    st.consumer_stage_ops += fs.consumer_ops
+        return out
 
     def note_statement(self, node: alg.Node) -> None:
-        """Record a session statement.  The reference keeps a statement
-        history here that makes materialized statements fusion barriers
-        (MQO §6.2.1); without fusion (M5) only the rewrite is memoized."""
-        if self.optimize:
-            self.optimized(node)
+        """Record a session statement in the fusion history (MQO §6.2.1):
+        while this statement's result is materialized (or in flight), later
+        plans refuse to absorb its sub-plan into a bigger fused group, so the
+        cached result keeps serving as a shared prefix.  Fusion is
+        deterministic, so the split sub-plan re-fuses to this statement's
+        prepared cache key.  Call AFTER the statement is prepared/submitted —
+        a statement must not act as a fusion barrier against itself."""
+        if not self.optimize:
+            return
+        opt = self.optimized(node)
+        prep_key = self.fused(opt).cache_key()
+        with self._lock:
+            for k in (opt.cache_key(), prep_key):
+                if k not in self._history:
+                    while len(self._history) >= self._history_max:
+                        self._history.pop(next(iter(self._history)))
+                    self._history[k] = prep_key
 
     def _prepared(self, node: alg.Node) -> alg.Node:
         return self.fused(self.optimized(node))

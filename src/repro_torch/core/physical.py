@@ -16,20 +16,47 @@ Each logical operator picks a partitioning scheme per the paper's §4.2 table:
                                   payload gather on the device.
                                   ``REPRO_SHUFFLE=0`` keeps the serial
                                   whole-frame path below as the oracle.
+  DIFFERENCE / DROP-DUPLICATES  → blocking, but block-parallel: per-block key
+                                  extraction through the pool, one joint
+                                  factorization, then blockwise keep-mask
+                                  filters; the input is never concatenated.
+                                  ``REPRO_BLOCK_DEDUP=0`` keeps the serial
+                                  whole-frame path as the oracle.
+
+Fusion (paper §5).  ``FUSED_PIPELINE`` runs a chain of row-local operators
+(elementwise MAP, SELECTION, PROJECTION, RENAME) as one per-block program
+(``_run_stages_block``): a run of structured selections is ANDed into one
+predicate and evaluated once; a run of maps runs its UDFs one after another.
+Both run eagerly: there is no compiled map or predicate program, no
+trace-and-compare probe and no fallback, and the reference's
+``REPRO_JIT_UDFS`` has no counterpart here.  The barrier-fused operators run
+the chain inside the blocking operator's own per-block programs:
+``FUSED_GROUPBY`` stages each block and reads its key span, then computes
+codes and every partial (``segment_reduce``) against one global dense
+range; ``FUSED_WINDOW`` runs pre-stages in the local-scan program
+(``window_scan``) and post-stages in the carry-application program;
+``FUSED_SORT`` / ``FUSED_JOIN`` filter the permutation / match index with
+the consumer predicates before the payload gather, and a following
+projection prunes the gathered columns; ``FUSED_DROP_DUPLICATES`` /
+``FUSED_DIFFERENCE`` run the producer chain in the key-extraction program
+and filter the keep mask with the consumer predicates.
 
 Column data stays on the frames' device.  What still goes through the host:
 the general key factorization (``_row_keys`` / ``_keys_to_ids``: string and
 multi-column group keys), SORT's and JOIN's keys (each block's key columns
 come to the host once, in its exchange task), their bucketing, local sorts
 and match indices (only index arrays go back to the device, one copy per
-gathered block), the coded (string) transpose, and the row filters' index (a
-keep mask is brought to the host once to index the row labels).
-
-Left out of this slice, each raising ``NotImplementedError`` that names its
-ROADMAP item: the fused operators (M5), DIFFERENCE and DROP-DUPLICATES (M6).
+gathered block), the coded (string) transpose, the row filters' index (a
+keep mask is brought to the host once to index the row labels), and
+DIFFERENCE's and DROP-DUPLICATES' keys: each block's key columns come to the
+host once in ``_row_keys`` (inside its key-extraction task), the joint
+factorization and the keep masks (``np.isin`` over dense ids, first
+occurrences by ``np.unique``) are host numpy, and each keep mask goes back
+to the device once a block, as ``Frame.filter_rows`` takes it.
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Callable, Sequence
 
 import numpy as np
@@ -302,7 +329,9 @@ def _row_keys(frame: Frame, subset: Sequence[Any] | None,
             table = c.dictionary or ()
             lut = np.asarray([float(_fnv64(str(v)) & _HASH_MASK) for v in table]
                              or [0.0], dtype=np.float64)
-            codes = host(c.data)
+            # integer codes whatever the storage: a 0-row coded column may
+            # come with float storage, and float codes cannot index the LUT
+            codes = host(c.data).astype(np.int64)
             v = lut[np.clip(codes, 0, len(lut) - 1)]
             v = np.where(codes >= 0, v, np.nan)
         elif wide is not None and bool(wide[i]):
@@ -376,6 +405,225 @@ def _keys_to_ids(*key_mats: np.ndarray) -> list[np.ndarray]:
     for m in key_mats:
         out.append(inv[off:off + m.shape[0]].astype(np.int64))
         off += m.shape[0]
+    return out
+
+
+# ---- DIFFERENCE / DROP-DUPLICATES -------------------------------------------
+# Block-parallel local-dedup → joint-factorize → blockwise-filter: per-block
+# key extraction runs through ``schedule.dispatch_blocks``, the per-block key
+# matrices are jointly factorized in one host pass, and the first-occurrence /
+# anti-join keep masks filter the blocks in place (no ``to_frame()`` concat).
+
+
+def _block_dedup_enabled() -> bool:
+    """``REPRO_BLOCK_DEDUP=0`` routes DIFFERENCE / DROP-DUPLICATES through
+    the serial whole-frame path, the oracle of the block-parallel one."""
+    return os.environ.get("REPRO_BLOCK_DEDUP", "") != "0"
+
+
+def _dedup_grid_blocks(pf: PartitionedFrame, grid: str | None,
+                       pref_key: str) -> list:
+    """Full-width row-block handles coarsened to the recorded grid
+    preference (blocks ≈ workers: fewer per-block fixed costs and fewer
+    pieces to combine).  Dedup and the exchange give results that do not
+    depend on the blocking, so the regrid may come before an absorbed
+    producer chain: fused and unfused plans agree on any grid."""
+    pf1 = pf.repartition(col_parts=1)
+    rp = preferred_row_parts(pf1.row_parts, grid or GRID_PREFS[pref_key],
+                             total_bytes=pf1.nbytes())
+    if rp != pf1.row_parts:
+        pf1 = pf1.repartition(row_parts=rp)
+    return pf1.row_handles()
+
+
+def _key_block(args) -> tuple[Any, np.ndarray, np.ndarray, np.ndarray | None]:
+    """The per-block key-extraction program, one dispatch per partition: run
+    the absorbed producer chain, induce, flag wide ints, build the key matrix
+    (the key columns come to the host here), and evaluate the pushable
+    consumer predicates on the device (row-local, so legal on the
+    pre-filter block).  The staged block returns as a store handle."""
+    block, subset, stages, preds = args
+    with pinned(block) as src:
+        f = (_run_stages_block(src, stages) if stages else src).induce()
+        flags = _wide_int_flags(f, subset)
+        mat = _row_keys(f, subset, flags)
+        keep = host(_fused_selection_mask(preds, f)).astype(bool) if preds else None
+        hout = block if f is src else as_handle(
+            f, recompute=lambda: (_run_stages_block(resolve(block), stages)
+                                  if stages else resolve(block)).induce())
+    return hout, flags, mat, keep
+
+
+def _joint_key_mats(results, subset):
+    """OR the per-block wide-int flags and re-key (through the pool) the
+    blocks whose own decision disagrees: every block in one joint
+    factorization must hash-or-cast each column alike."""
+    blocks = [r[0] for r in results]
+    flags = [r[1] for r in results]
+    mats = [r[2] for r in results]
+    keeps = [r[3] for r in results]
+    joint = np.zeros_like(flags[0])
+    for fl in flags:
+        joint = joint | fl
+    if joint.any():
+        redo = [i for i, fl in enumerate(flags)
+                if not bool((fl == joint).all())]
+
+        def rekey(i):
+            with pinned(blocks[i]) as f:
+                return _row_keys(f, subset, joint)
+
+        fixed = dispatch_blocks(rekey, redo)
+        for i, m in zip(redo, fixed):
+            mats[i] = m
+    return blocks, mats, keeps
+
+
+def _apply_keep_blocks(blocks: Sequence, keeps: Sequence[np.ndarray],
+                       proj) -> PartitionedFrame:
+    """Blockwise keep-mask filter (and gather-time projection): the
+    survivors are materialized once, post-filter, in their partitioned
+    form; each keep mask reaches the device as one index copy."""
+    def filt(args):
+        h, keep = args
+
+        def build(f):
+            g = f.filter_rows(keep)
+            if proj is not None:
+                g = _project_block(g, proj)
+            return g
+
+        with pinned(h) as f:
+            return as_handle(build(f), recompute=lambda: build(resolve(h)))
+
+    out = dispatch_blocks(filt, list(zip(blocks, keeps)))
+    return PartitionedFrame([[b] for b in out])
+
+
+def _dedup_finish(pfo: PartitionedFrame, rest) -> PartitionedFrame:
+    out = _output_pf(pfo)
+    if rest:
+        out = out.map_blockwise(lambda b: _run_stages_block(b, rest))
+    return out
+
+
+def _difference(left: PartitionedFrame, right: PartitionedFrame, stats=None,
+                pre_l: Sequence[alg.Stage] = (),
+                pre_r: Sequence[alg.Stage] = (),
+                post: Sequence[alg.Stage] = (),
+                grid: str | None = None) -> PartitionedFrame:
+    """Ordered anti-join on all columns: left rows whose full-row key appears
+    in the right input are dropped; survivors keep left order and labels.
+    Both sides' key extraction runs in one pool round, the membership test
+    is a host ``np.isin`` over dense ids, and the keep masks filter the left
+    blocks in place."""
+    if not _block_dedup_enabled():
+        return _difference_serial(left, right, stats, pre_l, pre_r, post)
+    lblocks = _dedup_grid_blocks(left, grid, "difference")
+    rblocks = _dedup_grid_blocks(right, grid, "difference")
+    preds, proj, rest = _split_consumer_stages(post)
+    items = ([(b, None, pre_l, preds) for b in lblocks]
+             + [(b, None, pre_r, ()) for b in rblocks])
+    results = dispatch_blocks(_key_block, items)
+    frames, mats, pred_keeps = _joint_key_mats(results, None)
+    nl = len(lblocks)
+    if stats is not None:
+        stats.dedup_blocks += len(frames)
+        stats.dedup_key_rows += sum(int(m.shape[0]) for m in mats)
+    ids = _keys_to_ids(*mats)
+    lids, rids = ids[:nl], ids[nl:]
+    rset = np.unique(np.concatenate(rids))
+    keeps = []
+    for lid, pk in zip(lids, pred_keeps[:nl]):
+        k = ~np.isin(lid, rset)
+        if pk is not None:
+            k = k & pk
+        keeps.append(k)
+    if stats is not None:
+        stats.gather_rows += int(sum(int(k.sum()) for k in keeps))
+    return _dedup_finish(_apply_keep_blocks(frames[:nl], keeps, proj), rest)
+
+
+def _drop_duplicates(pf: PartitionedFrame, subset, stats=None,
+                     pre: Sequence[alg.Stage] = (),
+                     post: Sequence[alg.Stage] = (),
+                     grid: str | None = None) -> PartitionedFrame:
+    """First-occurrence dedup over the (subset) equality keys,
+    block-parallel.  A frame with no key columns has nothing to compare, so
+    every row survives (pandas)."""
+    if not _block_dedup_enabled():
+        return _drop_duplicates_serial(pf, subset, stats, pre, post)
+    blocks = _dedup_grid_blocks(pf, grid, "drop_duplicates")
+    preds, proj, rest = _split_consumer_stages(post)
+    results = dispatch_blocks(_key_block,
+                              [(b, subset, pre, preds) for b in blocks])
+    frames, mats, pred_keeps = _joint_key_mats(results, subset)
+    total = sum(int(m.shape[0]) for m in mats)
+    if stats is not None:
+        stats.dedup_blocks += len(frames)
+        stats.dedup_key_rows += total
+    if mats[0].shape[1] == 0:
+        keep_global = np.ones(total, dtype=bool)
+    else:
+        all_ids = np.concatenate(_keys_to_ids(*mats))
+        _, first = np.unique(all_ids, return_index=True)
+        keep_global = np.zeros(total, dtype=bool)
+        keep_global[first] = True
+    keeps, off = [], 0
+    for m, pk in zip(mats, pred_keeps):
+        k = keep_global[off:off + m.shape[0]]
+        off += m.shape[0]
+        if pk is not None:
+            k = k & pk
+        keeps.append(k)
+    if stats is not None:
+        stats.gather_rows += int(sum(int(k.sum()) for k in keeps))
+    return _dedup_finish(_apply_keep_blocks(frames, keeps, proj), rest)
+
+
+def _difference_serial(left: PartitionedFrame, right: PartitionedFrame,
+                       stats=None, pre_l=(), pre_r=(), post=()) -> PartitionedFrame:
+    """The whole-frame oracle path (``REPRO_BLOCK_DEDUP=0``)."""
+    if pre_l:
+        left = _run_fused(left, pre_l)
+    if pre_r:
+        right = _run_fused(right, pre_r)
+    lf, rf = left.to_frame().induce(), right.to_frame().induce()
+    flags = _wide_int_flags(lf, None) | _wide_int_flags(rf, None)
+    lids, rids = _keys_to_ids(_row_keys(lf, None, flags),
+                              _row_keys(rf, None, flags))
+    keep = ~np.isin(lids, np.unique(rids))
+    if stats is not None:
+        stats.dedup_blocks += 2
+        stats.dedup_key_rows += lf.nrows + rf.nrows
+        stats.gather_rows += int(keep.sum())
+    out = _output_pf(lf.filter_rows(keep))
+    if post:
+        out = out.map_blockwise(lambda b: _run_stages_block(b, post))
+    return out
+
+
+def _drop_duplicates_serial(pf: PartitionedFrame, subset, stats=None,
+                            pre=(), post=()) -> PartitionedFrame:
+    """The whole-frame oracle path (``REPRO_BLOCK_DEDUP=0``)."""
+    if pre:
+        pf = _run_fused(pf, pre)
+    f = pf.to_frame().induce()
+    mat = _row_keys(f, subset, _wide_int_flags(f, subset))
+    if mat.shape[1] == 0:
+        keep = np.ones(f.nrows, dtype=bool)
+    else:
+        ids = _keys_to_ids(mat)[0]
+        _, first = np.unique(ids, return_index=True)
+        keep = np.zeros(f.nrows, dtype=bool)
+        keep[first] = True
+    if stats is not None:
+        stats.dedup_blocks += 1
+        stats.dedup_key_rows += f.nrows
+        stats.gather_rows += int(keep.sum())
+    out = _output_pf(f.filter_rows(keep))
+    if post:
+        out = out.map_blockwise(lambda b: _run_stages_block(b, post))
     return out
 
 
@@ -463,16 +711,89 @@ def _join_serial(left: PartitionedFrame, right: PartitionedFrame, params: dict,
     return _output_pf(out)
 
 
-def _assemble_join(lf: Frame, rf: Frame, lidx, ridx, lvalid, rvalid,
-                   drop_right) -> Frame:
-    lpart = lf.take_rows(lidx)
-    keep_r = [j for j, n in enumerate(rf.col_labels.to_list()) if n not in drop_right]
+def _gather_join_cols(lf: Frame, rf: Frame, lidx, ridx, lvalid, rvalid,
+                      drop_right, names: Sequence[Any]) -> Frame:
+    """Gather only the named columns of the (virtual) join result: the
+    predicate's working set, not the payload.  Left columns shadow right
+    ones on a name collision, as in ``_assemble_join``'s concat order."""
+    lnames = set(lf.col_labels.to_list())
+    rnames = {n for n in rf.col_labels.to_list() if n not in drop_right}
+    cols, out_names = [], []
+    for n in names:
+        if n in lnames:
+            c, side_valid = lf.col(n).take(lidx), lvalid
+        elif n in rnames:
+            c, side_valid = rf.col(n).take(ridx), rvalid
+        else:
+            raise KeyError(n)
+        if side_valid is not None and not side_valid.all():
+            vm = c.valid_mask() & to_device(side_valid, c.device)
+            c = Column(c.data, c.domain, vm, c.dictionary)
+        cols.append(c)
+        out_names.append(n)
+    return Frame(cols, RangeLabels(int(lidx.shape[0])), labels_from_values(out_names),
+                 device=lf.device)
+
+
+def _fused_join(left: PartitionedFrame, right: PartitionedFrame, params: dict,
+                stages: Sequence[alg.Stage], stats=None) -> PartitionedFrame:
+    from . import shuffle as _shuffle
+    if _shuffle.enabled():
+        return _shuffle.shuffled_join(left, right, params, stages, stats)
+    return _fused_join_serial(left, right, params, stages, stats)
+
+
+def _fused_join_serial(left: PartitionedFrame, right: PartitionedFrame,
+                       params: dict, stages: Sequence[alg.Stage],
+                       stats=None) -> PartitionedFrame:
+    """Consumer fusion into JOIN: leading structured selections run against
+    a gather of only the predicate's columns and filter the (lidx, ridx)
+    match indices; the payload gather then builds only the surviving rows
+    (and only the projected columns)."""
+    lf, rf = left.to_frame().induce(), right.to_frame().induce()
+    lidx, ridx, lvalid, rvalid, drop_right = _join_indices(lf, rf, params)
+    preds, proj, rest = _split_consumer_stages(stages)
+    row_labels = None
+    if preds and lidx.shape[0]:
+        refs = sorted(frozenset().union(*[p.refs() for p in preds]), key=repr)
+        mini = _gather_join_cols(lf, rf, lidx, ridx, lvalid, rvalid,
+                                 drop_right, refs)
+        keep = host(_fused_selection_mask(preds, mini)).astype(bool)
+        # the unfused path filters AFTER the join resets its index: surviving
+        # rows keep their position in the unfiltered join result as label
+        row_labels = RangeLabels(int(lidx.shape[0])).take(np.nonzero(keep)[0])
+        lidx, ridx = lidx[keep], ridx[keep]
+        lvalid = lvalid[keep] if lvalid is not None else None
+        rvalid = rvalid[keep] if rvalid is not None else None
+    if stats is not None:
+        stats.gather_rows += int(lidx.shape[0])
+    keep_cols = frozenset(proj) if proj is not None else None
+    out = _assemble_join(lf, rf, lidx, ridx, lvalid, rvalid, drop_right,
+                         keep_cols=keep_cols, row_labels=row_labels)
+    if proj is not None:
+        out = out.take_cols(out.col_labels.positions_of(proj))
+    pfo = _output_pf(out)
+    if rest:
+        pfo = pfo.map_blockwise(lambda b: _run_stages_block(b, rest))
+    return pfo
+
+
+def _assemble_join(lf: Frame, rf: Frame, lidx, ridx, lvalid, rvalid, drop_right,
+                   keep_cols: frozenset | None = None, row_labels=None) -> Frame:
+    lsrc = lf
+    if keep_cols is not None:
+        lsrc = lf.take_cols([j for j, n in enumerate(lf.col_labels.to_list())
+                             if n in keep_cols])
+    lpart = lsrc.take_rows(lidx)
+    keep_r = [j for j, n in enumerate(rf.col_labels.to_list())
+              if n not in drop_right and (keep_cols is None or n in keep_cols)]
     rpart = rf.take_cols(keep_r).take_rows(ridx)
     lpart = _mask_all(lpart, lvalid)
     rpart = _mask_all(rpart, rvalid)
     out = lpart.concat_cols(rpart)
-    return Frame(out.columns, RangeLabels(out.nrows), out.col_labels,
-                 device=out.device)   # reset index
+    if row_labels is None:
+        row_labels = RangeLabels(out.nrows)   # reset index
+    return Frame(out.columns, row_labels, out.col_labels, device=out.device)
 
 
 def _mask_all(frame: Frame, valid: np.ndarray | None) -> Frame:
@@ -482,19 +803,6 @@ def _mask_all(frame: Frame, valid: np.ndarray | None) -> Frame:
     cols = [Column(c.data, c.domain, c.valid_mask() & vmask, c.dictionary) for c in frame.columns]
     return Frame(cols, frame.row_labels, frame.col_labels, frame.row_domains,
                  device=frame.device)
-
-
-def _dedup_grid_blocks(pf: PartitionedFrame, pref_key: str) -> list:
-    """Full-width row-block handles coarsened to the recorded grid
-    preference (blocks ≈ workers: fewer per-block fixed costs and fewer
-    pieces to combine).  The exchange's results do not depend on the
-    blocking, so the regrid is free to happen first."""
-    pf1 = pf.repartition(col_parts=1)
-    rp = preferred_row_parts(pf1.row_parts, GRID_PREFS[pref_key],
-                             total_bytes=pf1.nbytes())
-    if rp != pf1.row_parts:
-        pf1 = pf1.repartition(row_parts=rp)
-    return pf1.row_handles()
 
 
 # ---- GROUPBY ----------------------------------------------------------------
@@ -592,20 +900,10 @@ def _dense_int_key(row_blocks: list[Frame], keys) -> tuple[int, int] | None:
         return None
     vmin, vmax = None, None
     for c in cols:
-        if isinstance(c.data, np.ndarray):
-            v = c.data if c.mask is None else c.data[host(c.mask)]
-            if v.size == 0:
-                continue
-            lo, hi = int(v.min()), int(v.max())
-        else:
-            if c.data.numel() == 0 or (c.mask is not None and not bool(c.mask.any())):
-                continue
-            if c.mask is None:
-                lo, hi = (int(x) for x in torch.aminmax(c.data))
-            else:
-                big = torch.iinfo(c.data.dtype)
-                lo = int(torch.where(c.mask, c.data, big.max).min())
-                hi = int(torch.where(c.mask, c.data, big.min).max())
+        span = _key_span(c)
+        if span is None:
+            continue
+        lo, hi = span
         vmin = lo if vmin is None else min(vmin, lo)
         vmax = hi if vmax is None else max(vmax, hi)
     if vmin is None:
@@ -614,6 +912,24 @@ def _dense_int_key(row_blocks: list[Frame], keys) -> tuple[int, int] | None:
     if g > 65536:
         return None
     return vmin, g
+
+
+def _key_span(c: Column) -> tuple[int, int] | None:
+    """(min, max) of an INT column's valid values, None when it has none:
+    two reductions on the column's device and one copy of the pair."""
+    if isinstance(c.data, np.ndarray):
+        v = c.data if c.mask is None else c.data[host(c.mask)]
+        return (int(v.min()), int(v.max())) if v.size else None
+    if c.data.numel() == 0 or (c.mask is not None and not bool(c.mask.any())):
+        return None
+    if c.mask is None:
+        lo, hi = torch.aminmax(c.data)
+    else:
+        big = torch.iinfo(c.data.dtype)
+        lo = torch.where(c.mask, c.data, big.max).min()
+        hi = torch.where(c.mask, c.data, big.min).max()
+    lo, hi = host(torch.stack([lo, hi])).tolist()
+    return int(lo), int(hi)
 
 
 def _agg_need(aggs) -> list[tuple[Any, str]]:
@@ -755,6 +1071,73 @@ def _host_column(values: list, domain: Domain | None, device) -> Column:
     return Column(p.data, p.domain, p.mask, p.dictionary)
 
 
+# ---- FUSED GROUPBY: producer chain inside the partial-aggregation program ----
+def _fused_groupby(pf: PartitionedFrame, stages: Sequence[alg.Stage],
+                   keys: Sequence[Any], aggs: Sequence[tuple],
+                   grid: str | None = None) -> PartitionedFrame:
+    """Producer fusion into GROUPBY: the row-local chain runs inside the
+    groupby's own per-block programs.  Pass A (one dispatch per partition)
+    stages the block and reads its key span; the spans agree on one global
+    dense range, and pass B (one dispatch per partition) computes the codes
+    against it on the device and every partial in one
+    ``kernels.ops.segment_reduce_multi`` call (``segment_reduce`` on the
+    card).  Keys that don't qualify (non-INT, multi-key, range > 65536) take
+    ``_groupby_blocks`` over the staged blocks."""
+    pf1 = pf.repartition(col_parts=1)
+    blocks = [row[0] for row in pf1.handles]
+    single_key = len(keys) == 1
+
+    def stage_block(block):
+        with pinned(block) as src:
+            f = _run_stages_block(src, stages).induce()
+            info = None
+            if single_key:
+                try:
+                    c = f.col(keys[0])
+                except KeyError:
+                    c = None
+                if c is not None and c.domain is Domain.INT:
+                    info = _key_span(c) or "empty"
+            hout = block if f is src else as_handle(
+                f, recompute=lambda: _run_stages_block(
+                    resolve(block), stages).induce())
+        return hout, info
+
+    results = dispatch_blocks(stage_block, blocks)
+    staged = [r[0] for r in results]
+    infos = [r[1] for r in results]
+
+    # stage first, regrid second: the unfused GROUPBY receives exactly this
+    # staged block sequence as its input and makes the same regroup
+    # decision, so both compute partials over the same row groupings (key
+    # spans are global min / max, which regrouping cannot change)
+    rp = preferred_row_parts(len(staged), grid or GRID_PREFS["fused_groupby"],
+                             total_bytes=sum(h.nbytes for h in staged))
+    if rp != len(staged):
+        staged = [row[0] for row in
+                  PartitionedFrame([[b] for b in staged])
+                  .repartition(row_parts=rp).handles]
+
+    spans = [i for i in infos if isinstance(i, tuple)]
+    if single_key and spans and all(i is not None for i in infos):
+        gmin = min(i[0] for i in spans)
+        G = max(i[1] for i in spans) - gmin + 1
+        if G <= 65536:
+            need = _agg_need(aggs)
+
+            def partial_block(block) -> dict:
+                with pinned(block) as f:
+                    return _block_partial(f, _dense_codes(f.col(keys[0]), gmin),
+                                          G, need, presence=True)
+
+            partials = dispatch_blocks(partial_block, staged)
+            combined = _combine_partials(partials, need + [_PRESENCE])
+            return _finalize_groupby(combined, resolve(staged[0]), keys, aggs, G,
+                                     key_values=[gmin + i for i in range(G)],
+                                     drop_empty=True)
+    return _groupby_blocks(staged, keys, aggs)
+
+
 # ---- SORT ---------------------------------------------------------------
 def _sort_perm(f: Frame, by: Sequence[Any], ascending: bool) -> np.ndarray:
     """The sort permutation: position i of the result comes from row idx[i]."""
@@ -787,6 +1170,59 @@ def _sort_serial(pf: PartitionedFrame, by: Sequence[Any], ascending: bool,
     return _output_pf(f.take_rows(idx))
 
 
+def _split_consumer_stages(stages: Sequence[alg.Stage]):
+    """Split a consumer chain into (pushable predicates, gather projection,
+    remaining stages).  Leading structured-``Expr`` selections are evaluated
+    against the pre-gather frame (row-local predicates are permutation-
+    invariant) and filter the gather index; an immediately following
+    projection prunes the gathered columns.  Everything after the first
+    MAP/RENAME (value/name changes) runs post-gather."""
+    preds: list[alg.Expr] = []
+    i = 0
+    while (i < len(stages) and stages[i].op == "selection"
+           and isinstance(stages[i].params["predicate"], alg.Expr)):
+        preds.append(stages[i].params["predicate"])
+        i += 1
+    proj = None
+    if i < len(stages) and stages[i].op == "projection":
+        proj = stages[i].params["cols"]
+        i += 1
+    return preds, proj, stages[i:]
+
+
+def _fused_sort(pf: PartitionedFrame, by: Sequence[Any], ascending: bool,
+                stages: Sequence[alg.Stage], stats=None,
+                grid: str | None = None) -> PartitionedFrame:
+    from . import shuffle as _shuffle
+    if _shuffle.enabled() and len(by):
+        return _shuffle.shuffled_sort(pf, by, ascending, stages, stats,
+                                      grid=grid)
+    return _fused_sort_serial(pf, by, ascending, stages, stats)
+
+
+def _fused_sort_serial(pf: PartitionedFrame, by: Sequence[Any],
+                       ascending: bool, stages: Sequence[alg.Stage],
+                       stats=None) -> PartitionedFrame:
+    """Consumer fusion into SORT: selections filter the permutation index
+    before the payload gather, so the materialized frame is built once,
+    post-filter, instead of gathered-then-filtered."""
+    f = pf.to_frame().induce()
+    idx = _sort_perm(f, by, ascending)
+    preds, proj, rest = _split_consumer_stages(stages)
+    if preds:
+        # evaluated on the unsorted frame (row-local, so permutation-
+        # invariant): no gather happens before the filter
+        keep = host(_fused_selection_mask(preds, f)).astype(bool)
+        idx = idx[keep[idx]]
+    g = f.take_cols(f.col_labels.positions_of(proj)) if proj is not None else f
+    if stats is not None:
+        stats.gather_rows += int(idx.shape[0])
+    out = _output_pf(g.take_rows(idx))
+    if rest:
+        out = out.map_blockwise(lambda b: _run_stages_block(b, rest))
+    return out
+
+
 # ---- WINDOW -------------------------------------------------------------
 def _window_targets(frame: Frame, cols) -> list:
     if cols:
@@ -796,35 +1232,49 @@ def _window_targets(frame: Frame, cols) -> list:
 
 
 def _window(pf: PartitionedFrame, func: str, cols, size, periods,
-            pre: Sequence[alg.Stage] = (), post: Sequence[alg.Stage] = ()) -> PartitionedFrame:
+            pre: Sequence[alg.Stage] = (), post: Sequence[alg.Stage] = (),
+            grid: str | None = None) -> PartitionedFrame:
     """WINDOW over a row grid adapted to the pool width ("few_seams": every
     partition boundary costs a carry composition or a halo build).  The
     running functions are a blocked scan (``kernels.ops.window_scan``) with
     a cross-block carry; diff/shift read a halo of the rows before each
-    block; rolling(w) is cumsum − shift(cumsum, w).  ``pre``/``post`` are
-    the fused row-local stages of FUSED_WINDOW, not ported yet (ROADMAP M5):
-    they must be empty."""
-    if pre or post:
-        raise NotImplementedError(
-            "fused_window stages are not ported to repro_torch yet (ROADMAP item M5)")
-    rp = preferred_row_parts(pf.row_parts, GRID_PREFS["window"],
+    block; rolling(w) is cumsum − shift(cumsum, w).
+
+    FUSED_WINDOW's ``pre`` stages run in the same per-block program as the
+    local scan, its ``post`` stages in the carry-application program, with
+    the carry combine between them where the unfused path places it.
+    Row-dropping pre-stages are staged on the incoming grid before a
+    regroup, as the unfused plan filters per incoming block and regrids the
+    filtered result: that keeps the seams, and so the carries, identical."""
+    rp = preferred_row_parts(pf.row_parts, grid or GRID_PREFS["window"],
                              total_bytes=pf.nbytes())
+    if rp != pf.row_parts and any(st.op == "selection" for st in pre):
+        pf = pf.repartition(col_parts=1).map_blockwise(
+            lambda b: _run_stages_block(b, pre))
+        pre = ()
     pf = pf.repartition(row_parts=rp, col_parts=1)
 
     if func in ("cumsum", "cummax", "cummin", "cumprod"):
-        return _window_scan_blocks(pf, func, cols)
+        return _window_scan_blocks(pf, func, cols, pre, post)
 
+    # the halo and rolling paths need the staged blocks before the halo
+    # tails are built; the producer chain still runs as one pool round
+    if pre:
+        pf = pf.map_blockwise(lambda b: _run_stages_block(b, pre))
     template = pf.parts[0][0].induce()
     targets = _window_targets(template, cols)
     if func in ("diff", "shift"):
-        return _window_halo(pf, func, targets, periods)
+        return _window_halo(pf, func, targets, periods, post)
     if func in ("rolling_sum", "rolling_mean"):
         assert size is not None, "rolling window requires size"
         # rolling(w) = cumsum − shift(cumsum, w); first w−1 rows are null
         csum = _window_scan_blocks(pf, "cumsum", targets)
         shifted = _window_halo(csum, "shift", targets, size)
-        return _rolling_combine(csum, shifted, targets, size,
-                                mean=(func == "rolling_mean"))
+        out = _rolling_combine(csum, shifted, targets, size,
+                               mean=(func == "rolling_mean"))
+        if post:
+            out = out.map_blockwise(lambda b: _run_stages_block(b, post))
+        return out
     raise ValueError(func)
 
 
@@ -848,18 +1298,20 @@ def _carry_combine(func: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a * b   # cumprod
 
 
-def _window_scan_blocks(pf: PartitionedFrame, func: str, cols) -> PartitionedFrame:
+def _window_scan_blocks(pf: PartitionedFrame, func: str, cols,
+                        pre: Sequence[alg.Stage] = (),
+                        post: Sequence[alg.Stage] = ()) -> PartitionedFrame:
     """Blocked scan with cross-block carry composition, in two parallel
-    per-block passes: (local scan + block total), then an exclusive combine
-    of the totals in block order, then the carry application.  Totals are
-    0-d tensors on the blocks' device, combined there: no host sync per
-    block.  cumprod runs through the same kernel, so every scan on the card
-    is bit-identical from run to run."""
+    per-block passes: (pre-stages + local scan + block total), then an
+    exclusive combine of the totals in block order, then (carry application
+    + post-stages).  Totals are 0-d tensors on the blocks' device, combined
+    there: no host sync per block.  cumprod runs through the same kernel,
+    so every scan on the card is bit-identical from run to run."""
     blocks = [row[0] for row in pf.handles]
 
     def local(block):
         def build(src):
-            f = src.induce()
+            f = _run_stages_block(src, pre).induce() if pre else src.induce()
             dev = f.device
 
             def scan_col(c: Column) -> Column:
@@ -889,23 +1341,23 @@ def _window_scan_blocks(pf: PartitionedFrame, func: str, cols) -> PartitionedFra
         for n, t in totals.items():
             acc[n] = t if n not in acc else _carry_combine(func, acc[n], t)
 
-    if not any(carries):
+    if not post and not any(carries):
         return PartitionedFrame([[item[0]] for item in locals_])
 
     def apply(args):
         (block, _totals, targets), carry = args
 
         def build(scanned):
-            if not carry:
-                return scanned
-            cols_ = list(scanned.columns)
-            names = scanned.col_labels.to_list()
-            for j, n in enumerate(names):
-                if n in targets and n in carry:
-                    v = _carry_combine(func, cols_[j].data, carry[n])
-                    cols_[j] = Column(v, cols_[j].domain, cols_[j].mask, None)
-            return Frame(cols_, scanned.row_labels, scanned.col_labels,
-                         scanned.row_domains, device=scanned.device)
+            if carry:
+                cols_ = list(scanned.columns)
+                names = scanned.col_labels.to_list()
+                for j, n in enumerate(names):
+                    if n in targets and n in carry:
+                        v = _carry_combine(func, cols_[j].data, carry[n])
+                        cols_[j] = Column(v, cols_[j].domain, cols_[j].mask, None)
+                scanned = Frame(cols_, scanned.row_labels, scanned.col_labels,
+                                scanned.row_domains, device=scanned.device)
+            return _run_stages_block(scanned, post) if post else scanned
 
         with pinned(block) as scanned:
             out = build(scanned)
@@ -921,10 +1373,11 @@ def _scan_identity(func: str) -> float:
             "cumprod": 1.0}[func]
 
 
-def _window_halo(pf: PartitionedFrame, func: str, targets,
-                 periods: int) -> PartitionedFrame:
+def _window_halo(pf: PartitionedFrame, func: str, targets, periods: int,
+                 post: Sequence[alg.Stage] = ()) -> PartitionedFrame:
     """diff/shift via a ``periods``-row halo — the running tail of everything
-    before the block (a single block may be shorter than ``periods``)."""
+    before the block (a single block may be shorter than ``periods``).
+    ``post`` stages run inside the same per-block program."""
     blocks = [row[0] for row in pf.handles]
 
     # round 1 (parallel): induce each block once and take its tail — the
@@ -980,8 +1433,9 @@ def _window_halo(pf: PartitionedFrame, func: str, targets,
         for j, n in enumerate(names):
             if n in targets:
                 cols[j] = do(n)
-        return Frame(cols, block.row_labels, block.col_labels, block.row_domains,
-                     device=block.device)
+        got = Frame(cols, block.row_labels, block.col_labels, block.row_domains,
+                    device=block.device)
+        return _run_stages_block(got, post) if post else got
 
     out = dispatch_blocks(local, list(zip(prepped, halos)))
     return PartitionedFrame([[b] for b in out])
@@ -1214,33 +1668,124 @@ def _column_filter(pf: PartitionedFrame, predicate: alg.Expr) -> PartitionedFram
 
 
 # =============================================================================
+# FUSED PIPELINE (paper §5): one per-block program for a row-local chain
+# =============================================================================
+def _fused_selection_mask(preds: Sequence[alg.Expr], frame: Frame) -> torch.Tensor:
+    """Keep mask (a bool tensor on the frame's device) for a run of
+    structured predicates: their conjunction, evaluated once, eagerly.
+    ANDing before filtering is exact: predicates are row-local, so a row an
+    earlier selection removes gives False whatever the later ones give."""
+    combined = preds[0]
+    for p in preds[1:]:
+        combined = alg.BinExpr("&", combined, p)
+    return _predicate_mask(frame, combined)
+
+
+def _run_map_stages(frame: Frame, udfs: Sequence[alg.Udf]) -> Frame:
+    """A run of consecutive elementwise MAP stages over one block, one UDF
+    after another (eager: the port has no compiled map program)."""
+    cur = frame.induce()
+    for u in udfs:
+        cur = _apply_udf_block(cur, u)
+    return cur
+
+
+def _run_stages_block(frame: Frame, stages: Sequence[alg.Stage]) -> Frame:
+    """Run a row-local stage chain over one block: the shared per-block
+    program body of FUSED_PIPELINE and of every barrier-fused operator."""
+    cur = frame
+    i = 0
+    while i < len(stages):
+        st = stages[i]
+        if st.op == "selection":
+            # a run of structured-Expr selections → one conjunction
+            preds = []
+            while (i < len(stages) and stages[i].op == "selection"
+                   and isinstance(stages[i].params["predicate"], alg.Expr)):
+                preds.append(stages[i].params["predicate"])
+                i += 1
+            if preds:
+                cur = cur.filter_rows(_fused_selection_mask(preds, cur))
+            else:  # opaque Udf predicate
+                cur = cur.filter_rows(_predicate_mask(cur, st.params["predicate"]))
+                i += 1
+        elif st.op == "map":
+            udfs = []
+            while i < len(stages) and stages[i].op == "map":
+                udfs.append(stages[i].params["udf"])
+                i += 1
+            cur = _run_map_stages(cur, udfs)
+        elif st.op == "projection":
+            cur = _project_block(cur, st.params["cols"])
+            i += 1
+        elif st.op == "rename":
+            cur = _rename_block(cur, dict(st.params["mapping"]))
+            i += 1
+        else:
+            raise ValueError(f"non-fusible stage {st.op}")
+    return cur
+
+
+def _run_fused(pf: PartitionedFrame, stages: Sequence[alg.Stage]) -> PartitionedFrame:
+    """A fused row-local chain: one sweep per row partition, values staying
+    on the device across stages, one pool dispatch for the whole chain."""
+    pf1 = pf.repartition(col_parts=1)
+    return pf1.map_blockwise(lambda f: _run_stages_block(f, stages))
+
+
+# =============================================================================
 # dispatcher
 # =============================================================================
-_NOT_PORTED = {
-    "fused_window": "M5", "fused_pipeline": "M5",
-    "fused_groupby": "M5", "fused_sort": "M5", "fused_join": "M5",
-    "fused_difference": "M5", "fused_drop_duplicates": "M5",
-    "difference": "M6", "drop_duplicates": "M6",
-}
-
-
 def run_node(node: alg.Node, inputs: list[PartitionedFrame],
              stats=None) -> PartitionedFrame:
     """Dispatch one plan node.  ``stats`` (duck-typed ``ExecStats``) receives
-    ``gather_rows`` (the payload rows JOIN and SORT gathered) and the
-    exchange counters of ``core.shuffle``."""
+    ``gather_rows`` (the payload rows SORT / JOIN / DIFFERENCE /
+    DROP-DUPLICATES gathered; fused consumers gather fewer on selective
+    chains), ``dedup_blocks`` / ``dedup_key_rows`` (the blocks and rows the
+    dedup key extraction processed) and the exchange counters of
+    ``core.shuffle``."""
     op = node.op
-    if op in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{op} is not ported to repro_torch yet (ROADMAP item {_NOT_PORTED[op]})")
+    if op == "fused_pipeline":
+        return _run_fused(inputs[0], node.params["stages"])
+    if op == "fused_groupby":
+        return _fused_groupby(inputs[0], node.params["stages"],
+                              node.params["keys"], node.params["aggs"],
+                              node.params.get("grid"))
+    if op == "fused_sort":
+        return _fused_sort(inputs[0], node.params["by"], node.params["ascending"],
+                           node.params["stages"], stats,
+                           grid=node.params.get("grid"))
+    if op == "fused_join":
+        return _fused_join(inputs[0], inputs[1], node.params,
+                           node.params["stages"], stats)
+    if op == "fused_window":
+        return _window(inputs[0], node.params["func"], node.params["cols"],
+                       node.params["size"], node.params["periods"],
+                       node.params["pre_stages"], node.params["post_stages"],
+                       grid=node.params.get("grid"))
+    if op == "fused_difference":
+        return _difference(inputs[0], inputs[1], stats,
+                           node.params["pre_stages"],
+                           node.params["right_pre_stages"],
+                           node.params["post_stages"],
+                           grid=node.params.get("grid"))
+    if op == "fused_drop_duplicates":
+        return _drop_duplicates(inputs[0], node.params["subset"], stats,
+                                node.params["pre_stages"],
+                                node.params["post_stages"],
+                                grid=node.params.get("grid"))
     if op == "selection":
         return _selection(inputs[0], node.params["predicate"])
     if op == "projection":
         return _projection(inputs[0], node.params["cols"])
     if op == "union":
         return _union(inputs[0], inputs[1])
+    if op == "difference":
+        return _difference(inputs[0], inputs[1], stats)
     if op == "join":
         return _join(inputs[0], inputs[1], node.params, stats)
+    if op == "drop_duplicates":
+        return _drop_duplicates(inputs[0], node.params["subset"], stats)
     if op == "sort":
         return _sort(inputs[0], node.params["by"], node.params["ascending"], stats)
     if op == "groupby":

@@ -48,9 +48,13 @@ serial whole-frame path as the differential oracle; ``REPRO_SHUFFLE_BUCKETS``
 pins the bucket count (default: pool width × coalesce factor);
 ``REPRO_SHUFFLE_SKEW_FACTOR`` sets the oversize threshold.
 
-Not ported yet: the fused consumer stages of FUSED_JOIN / FUSED_SORT
-(``stages`` non-empty, ROADMAP M5) raise; the budget floors below are inert
-until the spilling store (M8) exists, since a budget raises in ``store``.
+Fused consumers (FUSED_JOIN / FUSED_SORT): leading structured predicates
+filter the match index (evaluated on chunked gathers of only the columns
+they read) or, for SORT, each block before the exchange; a following
+projection prunes the gathered columns.
+
+The budget floors below are inert until the spilling store (M8) exists,
+since a budget raises in ``store``.
 """
 from __future__ import annotations
 
@@ -135,19 +139,14 @@ def skew_factor() -> int:
     return env_int("REPRO_SHUFFLE_SKEW_FACTOR", 4, minimum=1)
 
 
-def _no_stages(stages: Sequence[alg.Stage], label: str) -> None:
-    if stages:
-        raise NotImplementedError(
-            f"{label} stages are not ported to repro_torch yet (ROADMAP item M5)")
-
-
 # =============================================================================
 # shared plumbing: block handles, key frames, global gather
 # =============================================================================
-def _grid_handles(pf: PartitionedFrame, pref_key: str):
+def _grid_handles(pf: PartitionedFrame, grid: str | None, pref_key: str):
     """Full-width row-block handles coarsened to the operator's grid
-    preference, plus their global row offsets — metadata only."""
-    blocks = P._dedup_grid_blocks(pf, pref_key)
+    preference (the dedup path's policy), plus their global row offsets —
+    metadata only."""
+    blocks = P._dedup_grid_blocks(pf, grid, pref_key)
     offs = [0]
     for h in blocks:
         offs.append(offs[-1] + h.nrows)
@@ -481,19 +480,48 @@ def _merge_join_results(results, how: str):
     return lidx, ridx, lvalid, rvalid
 
 
+def _gather_pred_keep(preds, refs, lh, loffs, rh, roffs, lidx, ridx,
+                      lvalid, rvalid, drop_right, row_bytes) -> np.ndarray:
+    """Evaluate the fused consumer predicates against chunked gathers of
+    only the columns they read (the distributed ``_gather_join_cols``)."""
+    lnames = set(_schema_names(lh))
+    rnames = {n for n in _schema_names(rh) if n not in drop_right}
+    lref = [n for n in refs if n in lnames]
+    rref = [n for n in refs if n not in lnames and n in rnames]
+    for n in refs:
+        if n not in lnames and n not in rnames:
+            raise KeyError(n)
+    keeps = []
+    for lo, hi in _chunk_bounds(int(lidx.shape[0]), row_bytes):
+        mini = None
+        if lref:
+            part = take_global(lh, loffs, lidx[lo:hi], cols=lref)
+            mini = P._mask_all(part, None if lvalid is None
+                               else lvalid[lo:hi])
+        if rref:
+            part = take_global(rh, roffs, ridx[lo:hi], cols=rref)
+            part = P._mask_all(part, None if rvalid is None
+                               else rvalid[lo:hi])
+            mini = part if mini is None else mini.concat_cols(part)
+        keeps.append(host(P._fused_selection_mask(preds, mini)).astype(bool))
+    return (np.concatenate(keeps) if keeps
+            else np.empty(0, dtype=bool))
+
+
 def shuffled_join(left: PartitionedFrame, right: PartitionedFrame,
                   params: dict, stages: Sequence[alg.Stage] = (),
                   stats=None) -> PartitionedFrame:
     """Grace-hash JOIN over the exchange layer — bit-identical to the serial
     ``REPRO_SHUFFLE=0`` path, with neither input ever concatenated."""
-    _no_stages(stages, "fused_join")
     how = params["how"]
     on = params["on"]
     left_on = params["left_on"] or on
     right_on = params["right_on"] or on
+    label = "fused_join" if stages else "join"
+    grid = params.get("grid")
 
-    lh, loffs = _grid_handles(left, "join")
-    rh, roffs = _grid_handles(right, "join")
+    lh, loffs = _grid_handles(left, grid, "join")
+    rh, roffs = _grid_handles(right, grid, "join")
 
     if left_on is None:
         # CROSS-PRODUCT: pure index arithmetic — no keys, no exchange
@@ -507,7 +535,7 @@ def shuffled_join(left: PartitionedFrame, right: PartitionedFrame,
         total_rows = left.nrows + right.nrows
         key_bytes = total_rows * (K + 1) * 8
         B = bucket_count(total_rows, key_bytes)
-        with node_scope("join:exchange"), _phase("join:exchange"):
+        with node_scope(f"{label}:exchange"), _phase(f"{label}:exchange"):
             # wide-int flags must agree across every block of BOTH inputs
             flag_items = ([(h, left_on) for h in lh]
                           + [(h, right_on) for h in rh])
@@ -521,7 +549,7 @@ def shuffled_join(left: PartitionedFrame, right: PartitionedFrame,
             joint = np.zeros_like(all_flags[0])
             for fl in all_flags:
                 joint = joint | fl
-            with _phase("join:bucketize"):
+            with _phase(f"{label}:bucketize"):
                 lkeys = _join_key_handles(lh, loffs, left_on, joint, B)
                 rkeys = _join_key_handles(rh, roffs, right_on, joint, B)
                 lbuckets = _join_bucket_handles(lkeys, B)
@@ -532,19 +560,36 @@ def shuffled_join(left: PartitionedFrame, right: PartitionedFrame,
                 (K + 1) * 8 * h.nrows for h in lbuckets + rbuckets)
         mean_rows = max(1, total_rows // max(1, B))
         tasks = _local_join_tasks(lbuckets, rbuckets, mean_rows, stats)
-        with node_scope("join:local"), _phase("join:local"):
+        with node_scope(f"{label}:local"), _phase(f"{label}:local"):
             results = dispatch_blocks(lambda a: _local_join(a, K), tasks)
         lidx, ridx, lvalid, rvalid = _merge_join_results(results, how)
         drop_right = tuple(right_on) if on is not None else ()
 
+    preds, proj, rest = P._split_consumer_stages(stages) if stages else \
+        ([], None, ())
+    row_bytes = _row_bytes(lh) + _row_bytes(rh)
+    row_labels = None
+    if preds and lidx.shape[0]:
+        refs = sorted(frozenset().union(*[p.refs() for p in preds]), key=repr)
+        with node_scope(f"{label}:gather"), _phase(f"{label}:gather"):
+            keep = _gather_pred_keep(preds, refs, lh, loffs, rh, roffs,
+                                     lidx, ridx, lvalid, rvalid, drop_right,
+                                     row_bytes)
+        # the unfused path filters AFTER the join resets its index (same
+        # label bookkeeping as physical._fused_join)
+        row_labels = RangeLabels(int(lidx.shape[0])).take(np.nonzero(keep)[0])
+        lidx, ridx = lidx[keep], ridx[keep]
+        lvalid = lvalid[keep] if lvalid is not None else None
+        rvalid = rvalid[keep] if rvalid is not None else None
     if stats is not None:
         stats.gather_rows += int(lidx.shape[0])
 
     total = int(lidx.shape[0])
-    labels = RangeLabels(total)
-    row_bytes = _row_bytes(lh) + _row_bytes(rh)
-    keep_l = _schema_names(lh)
-    keep_r = [n for n in _schema_names(rh) if n not in drop_right]
+    labels = row_labels if row_labels is not None else RangeLabels(total)
+    keep_cols = frozenset(proj) if proj is not None else None
+    keep_l = [n for n in _schema_names(lh) if keep_cols is None or n in keep_cols]
+    keep_r = [n for n in _schema_names(rh)
+              if n not in drop_right and (keep_cols is None or n in keep_cols)]
 
     def chunk_builder(lo: int, hi: int) -> Callable[[], Frame]:
         def build() -> Frame:
@@ -555,13 +600,19 @@ def shuffled_join(left: PartitionedFrame, right: PartitionedFrame,
             rpart = P._mask_all(rpart, None if rvalid is None
                                 else rvalid[lo:hi])
             out = lpart.concat_cols(rpart)
-            return Frame(out.columns, labels.take(np.arange(lo, hi)),
-                         out.col_labels, device=out.device)
+            out = Frame(out.columns, labels.take(np.arange(lo, hi)),
+                        out.col_labels, device=out.device)
+            if proj is not None:
+                out = out.take_cols(out.col_labels.positions_of(proj))
+            return out
         return build
 
     builders = [chunk_builder(lo, hi)
                 for lo, hi in _chunk_bounds(total, row_bytes)]
-    return P._output_pf(_gather_chunks(builders, "join:gather"))
+    pfo = P._output_pf(_gather_chunks(builders, f"{label}:gather"))
+    if rest:
+        pfo = pfo.map_blockwise(lambda b: P._run_stages_block(b, rest))
+    return pfo
 
 
 # =============================================================================
@@ -578,16 +629,20 @@ def _sort_transform(keys: list[np.ndarray], ascending: bool) -> np.ndarray:
     return np.stack(out, axis=1)
 
 
-def _sort_key_handles(blocks, offsets, by, ascending):
+def _sort_key_handles(blocks, offsets, by, ascending, keeps=None):
     """Per-block transformed rank-key frames + deterministic per-block
-    splitter samples of the primary key."""
+    splitter samples of the primary key.  ``keeps`` (per-block bool masks,
+    the fused-filter path) drops filtered rows before they enter the
+    exchange; global positions stay those of the original blocks."""
     def task(args):
-        h, off = args
+        h, off, keep = args
 
         def build(f: Frame) -> Frame:
             f = f.induce()
             mat = _sort_transform(P._sort_rank_keys(f, by), ascending)
             pos = np.arange(off, off + f.nrows, dtype=np.int64)
+            if keep is not None:
+                mat, pos = mat[keep], pos[keep]
             return _key_frame(mat, pos)
 
         with pinned(h) as f:
@@ -597,7 +652,9 @@ def _sort_key_handles(blocks, offsets, by, ascending):
                 s = s[np.linspace(0, s.size - 1, 128).astype(np.int64)]
         return as_handle(kf, recompute=lambda: build(resolve(h))), s
 
-    out = dispatch_blocks(task, [(h, int(offsets[i])) for i, h in enumerate(blocks)])
+    items = [(h, int(offsets[i]), None if keeps is None else keeps[i])
+             for i, h in enumerate(blocks)]
+    out = dispatch_blocks(task, items)
     return [o[0] for o in out], [o[1] for o in out]
 
 
@@ -666,18 +723,35 @@ def _refine_parts(mat: np.ndarray, rows: np.ndarray, j: int,
 
 
 def shuffled_sort(pf: PartitionedFrame, by: Sequence[Any], ascending: bool,
-                  stages: Sequence[alg.Stage] = (), stats=None) -> PartitionedFrame:
+                  stages: Sequence[alg.Stage] = (), stats=None,
+                  grid: str | None = None) -> PartitionedFrame:
     """Sample-sort over the exchange layer — bit-identical to the serial
     ``REPRO_SHUFFLE=0`` permutation, with the input never concatenated."""
-    _no_stages(stages, "fused_sort")
-    blocks, offs = _grid_handles(pf, "sort")
+    label = "fused_sort" if stages else "sort"
+    blocks, offs = _grid_handles(pf, grid, "sort")
     K = len(by)
     n = pf.nrows
     B = bucket_count(n, n * (K + 1) * 8)
 
-    with node_scope("sort:exchange"), _phase("sort:exchange"):
-        with _phase("sort:bucketize"):
-            key_handles, samples = _sort_key_handles(blocks, offs, by, ascending)
+    preds, proj, rest = P._split_consumer_stages(stages) if stages else \
+        ([], None, ())
+    keeps = None
+    if preds:
+        # the fused consumer filter first, on the unsorted blocks: row-local,
+        # so permutation- and block-invariant, and stable sorting commutes
+        # with subsetting, so filtered rows never enter the exchange, the
+        # local sorts or the payload gather
+        def mask_task(h):
+            with pinned(h) as f:
+                return host(P._fused_selection_mask(preds, f.induce())).astype(bool)
+
+        with node_scope(f"{label}:exchange"), _phase(f"{label}:exchange"):
+            keeps = dispatch_blocks(mask_task, blocks)
+
+    with node_scope(f"{label}:exchange"), _phase(f"{label}:exchange"):
+        with _phase(f"{label}:bucketize"):
+            key_handles, samples = _sort_key_handles(blocks, offs, by,
+                                                     ascending, keeps)
             cuts = _splitters(samples, B)
 
         nb = int(cuts.size) + 1
@@ -692,7 +766,8 @@ def shuffled_sort(pf: PartitionedFrame, by: Sequence[Any], ascending: bool,
 
     # skew refinement: oversized buckets split into range-refined parts so
     # local sorts stay balanced; parts are emitted in range order, so the
-    # final concat is still the global permutation
+    # final concat is still the global permutation.  Sized on the rows that
+    # entered the exchange (the fused filter may have dropped some).
     nexch = sum(h.nrows for h in buckets)
     thresh = skew_factor() * max(1, nexch // max(1, nb))
     work: list = []          # (bucket_handle, local_rows | None)
@@ -707,7 +782,7 @@ def shuffled_sort(pf: PartitionedFrame, by: Sequence[Any], ascending: bool,
     oversized = [bh for bh in buckets if bh.nrows > thresh]
     refined: dict[int, list[np.ndarray]] = {}
     if oversized:
-        with node_scope("sort:local"), _phase("sort:local"):
+        with node_scope(f"{label}:local"), _phase(f"{label}:local"):
             parts_lists = dispatch_blocks(refine_task, oversized)
         refined = {id(bh): parts for bh, parts in zip(oversized, parts_lists)}
     for bh in buckets:
@@ -727,7 +802,7 @@ def shuffled_sort(pf: PartitionedFrame, by: Sequence[Any], ascending: bool,
             return pos
         return pos[_lex_perm(keys)]
 
-    with node_scope("sort:local"), _phase("sort:local"):
+    with node_scope(f"{label}:local"), _phase(f"{label}:local"):
         sorted_pos = dispatch_blocks(local_sort, work)
     idx = (np.concatenate(sorted_pos) if sorted_pos
            else np.empty(0, dtype=np.int64))
@@ -735,12 +810,16 @@ def shuffled_sort(pf: PartitionedFrame, by: Sequence[Any], ascending: bool,
         stats.gather_rows += int(idx.shape[0])
 
     row_bytes = _row_bytes(blocks)
+    cols = list(proj) if proj is not None else None
 
     def chunk_builder(lo: int, hi: int) -> Callable[[], Frame]:
         def build() -> Frame:
-            return take_global(blocks, offs, idx[lo:hi])
+            return take_global(blocks, offs, idx[lo:hi], cols=cols)
         return build
 
     builders = [chunk_builder(lo, hi)
                 for lo, hi in _chunk_bounds(int(idx.shape[0]), row_bytes)]
-    return P._output_pf(_gather_chunks(builders, "sort:gather"))
+    pfo = P._output_pf(_gather_chunks(builders, f"{label}:gather"))
+    if rest:
+        pfo = pfo.map_blockwise(lambda b: P._run_stages_block(b, rest))
+    return pfo

@@ -263,13 +263,13 @@ def ordered_slice(api, s, frame):
 @pytest.mark.parametrize("mode", ["eager", "lazy", "opportunistic"])
 def test_ordered_slice_matches_reference(mode):
     """head(5) of every statement, then the whole results, against the
-    reference's Session; prefix computation fires alike.  In OPPORTUNISTIC
-    mode the heads come after the background runs have finished, so the
-    count does not depend on timing, and rewriting is off: the reference
-    fuses the filter into the background run's window, and once that filter
-    is a live statement it re-plans the head unfused, misses the cache and
-    takes the prefix path (fusion is ROADMAP M5)."""
-    rs, ts = _sessions(mode, parts=3, optimize=mode != "opportunistic")
+    reference's Session; prefix computation fires alike, with fusion live
+    in both.  In OPPORTUNISTIC mode the heads come after the background runs
+    have finished, so the count does not depend on timing: both fuse the
+    filter into the background run's window, and once that filter is a live
+    statement both re-plan the head unfused (the MQO fusion barrier), miss
+    the cache and take the prefix path."""
+    rs, ts = _sessions(mode, parts=3)
     try:
         ref = ordered_slice(R, rs, r_taxi(20_000, seed=1))
         port = ordered_slice(T, ts, t_taxi(20_000, seed=1, device="cpu"))

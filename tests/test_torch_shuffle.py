@@ -6,8 +6,8 @@ port result — values, masks and row labels — is held bit-identical against
 the reference's shuffled path AND the port's own serial ``REPRO_SHUFFLE=0``
 oracle, over row grids {1, W, 4W} × optimize on/off; the exchange counters
 (``shuffle_buckets`` / ``shuffle_bytes`` / ``skew_splits``) must equal the
-reference's.  Fused variants wait for ROADMAP M5, budget and chaos cases
-for M8.
+reference's.  Fused variants are in ``tests/test_torch_fusion.py``; budget
+and chaos cases wait for M8.
 """
 from __future__ import annotations
 
@@ -289,7 +289,7 @@ def test_sort_shuffle_stats_exact(monkeypatch):
 
 
 # =============================================================================
-# no whole-frame concatenation; fused stages are not ported
+# no whole-frame concatenation; fused consumer stages
 # =============================================================================
 def test_no_to_frame_on_join_sort_inputs(monkeypatch):
     """Shuffled JOIN and SORT never concatenate an input."""
@@ -312,11 +312,16 @@ def test_no_to_frame_on_join_sort_inputs(monkeypatch):
 
 
 def test_fused_join_and_sort_stages_name_their_roadmap_item():
+    """The consumer stages of FUSED_JOIN / FUSED_SORT (ROADMAP item M5) run
+    through the exchange and equal the reference's, labels included."""
     frames = _join_case(0, nulls=False)
-    pf = TPF.from_frame(frames["l"]["port"])
-    stage = talg.Stage("projection", {"cols": ("k",)})
     params = {"on": ["k"], "how": "inner", "left_on": None, "right_on": None}
-    with pytest.raises(NotImplementedError, match="M5"):
-        tshuffle.shuffled_join(pf, pf, params, (stage,))
-    with pytest.raises(NotImplementedError, match="M5"):
-        tshuffle.shuffled_sort(pf, ["k"], True, (stage,))
+    got = []
+    for pkg, alg, mod, PF in (("ref", ralg, rshuffle, RPF), ("port", talg, tshuffle, TPF)):
+        pf = PF.from_frame(frames["l"][pkg], row_parts=3)
+        stages = (alg.Stage("selection", {"predicate": alg.col("a") > alg.lit(10.0)}),
+                  alg.Stage("projection", {"cols": ("k",)}))
+        got.append((_lists(mod.shuffled_join(pf, pf, params, stages).to_frame()),
+                    _lists(mod.shuffled_sort(pf, ["k"], True, stages).to_frame())))
+    assert got[1] == got[0]
+    assert list(got[1][1][1]) == ["k"]

@@ -129,7 +129,15 @@ def test_rolling_mean_follows_the_reference_null_rule():
 
 
 def test_fused_window_stages_name_their_roadmap_item():
-    pf = TPF.from_frame(TFrame.from_pydict({"v": [1.0, 2.0]}, device="cpu"))
-    stage = talg.Stage("rename", {"mapping": (("v", "w"),)})
-    with pytest.raises(NotImplementedError, match="M5"):
-        tphys._window(pf, "cumsum", None, None, 1, pre=(stage,))
+    """FUSED_WINDOW's stages (ROADMAP item M5) run: a pre-stage rename and
+    a post-stage selection, as in the reference."""
+    d = {"v": [1.0, 2.0, -4.0, 3.5]}
+    out = []
+    for alg, phys, PF, F, kw in ((ralg, rphys, RPF, RFrame, {}),
+                                 (talg, tphys, TPF, TFrame, {"device": "cpu"})):
+        pre = (alg.Stage("rename", {"mapping": (("v", "w"),)}),)
+        post = (alg.Stage("selection", {"predicate": alg.col("w") > alg.lit(0.0)}),)
+        pf = PF.from_frame(F.from_pydict(d, **kw), row_parts=2)
+        out.append(phys._window(pf, "cumsum", None, None, 1, pre=pre, post=post).to_frame())
+    _frames_match(out[0], out[1], exact=True)
+    assert out[1].col("w").to_pylist() == [1.0, 3.0, 2.5]
