@@ -118,6 +118,32 @@ Phases (any failure raises and the script exits non-zero):
                  fusion counters' invariant; the host seconds of the dedup
                  key work (_row_keys, _keys_to_ids) and K1's / K4's device
                  time under the profiler
+ 10. outofcore — the engine under a 256 MiB HBM budget (a deployment's
+                 80 GB card cut to fit the time limit; the 0.6 GB taxi
+                 frame is 2.3x it, and is held on the host): the store's
+                 _save_frame / _load_frame on one block, stage by stage;
+                 groupby(n).agg(4) (K1), cumsum of 6 columns (K4),
+                 sort_values and merge in a session with the budget (the
+                 frame ingested by register_frame, in blocks at the
+                 engine's budget floor, spilled device -> host -> disk),
+                 each equal block by block and bit for bit to an
+                 unbudgeted session on the same blocks, spilling and
+                 faulting, the card's peak memory and the store's peak
+                 counter within budget + one block per pool worker, the
+                 seconds in spill writes / fault reads and the device's
+                 busy share (one pass, under the profiler);
+                 progressive_aggregate of f0's mean per group (final = the
+                 GROUPBY mean); the GROUPBY of a MAP's output under a
+                 seeded plan (transient task errors, one spilled MAP
+                 block's file corrupted on every read and recomputed from
+                 the lineage the engine recorded), bit-identical with the
+                 recovery counters equal to the injections; read_csv of 2,000,000 taxi rows (equal to the
+                 frame written) and its GROUPBY against numpy; a
+                 QueryService of 3 tenants sharing one budgeted store, their
+                 groupby(n) / agg(4) / groupby(1) statements concurrent, per-session stats summing to the
+                 service's, a traced statement's span deltas summing to its
+                 stats, a cancel once a block has started, rerun
+                 bit-identical
 
 Run from the root of a checkout:  python3 chip_smoke.py
 The last two lines of standard output are the kernels' JSON record and
@@ -2136,17 +2162,15 @@ def knobs(env: dict):
                 os.environ[k] = old
 
 
-class key_clock:
-    """Host seconds spent in the dedup key work, ``physical._row_keys`` (run
-    in the pool's threads, so summed over them) and ``_keys_to_ids``, while
-    the block runs."""
+class call_clock:
+    """Host seconds in the functions ``names`` of ``module`` (summed over the
+    pool's threads, which run them) and their calls, while the block runs."""
 
-    def __init__(self):
+    def __init__(self, module, names: tuple):
         import threading
-        from repro_torch.core import physical
-        self.P, self.lock = physical, threading.Lock()
-        self.secs = {"_row_keys": 0.0, "_keys_to_ids": 0.0}
-        self.calls = dict.fromkeys(self.secs, 0)
+        self.M, self.lock = module, threading.Lock()
+        self.secs = dict.fromkeys(names, 0.0)
+        self.calls = dict.fromkeys(names, 0)
 
     def _wrap(self, name: str, fn):
         def clocked(*a, **kw):
@@ -2160,20 +2184,15 @@ class key_clock:
         return clocked
 
     def __enter__(self):
-        self.orig = {n: getattr(self.P, n) for n in self.secs}
+        self.orig = {n: getattr(self.M, n) for n in self.secs}
         for n, fn in self.orig.items():
-            setattr(self.P, n, self._wrap(n, fn))
+            setattr(self.M, n, self._wrap(n, fn))
         return self
 
     def __exit__(self, *exc):
         for n, fn in self.orig.items():
-            setattr(self.P, n, fn)
+            setattr(self.M, n, fn)
         return False
-
-    def text(self) -> str:
-        return (f"host keys: _row_keys {self.secs['_row_keys']:.3f} s in "
-                f"{self.calls['_row_keys']} calls (summed over pool threads), _keys_to_ids "
-                f"{self.secs['_keys_to_ids']:.3f} s in {self.calls['_keys_to_ids']}")
 
 
 def lazy_session(dev, optimize: bool = True):
@@ -2186,9 +2205,12 @@ def lazy_session(dev, optimize: bool = True):
 
 def run_keys(run, label: str, fn):
     """``run(label, fn)`` with the host key work clocked and logged."""
-    with key_clock() as clock:
+    from repro_torch.core import physical
+    with call_clock(physical, ("_row_keys", "_keys_to_ids")) as clock:
         out = run(label, fn)
-    log(f"    {clock.text()}")
+    log(f"    host keys: _row_keys {clock.secs['_row_keys']:.3f} s in "
+        f"{clock.calls['_row_keys']} calls (summed over pool threads), _keys_to_ids "
+        f"{clock.secs['_keys_to_ids']:.3f} s in {clock.calls['_keys_to_ids']}")
     return out
 
 
@@ -2457,11 +2479,9 @@ def same_algebra(torch, np, a: dict, b: dict) -> None:
             assert same_frame(torch, np, a[k], b[k]), f"{k}: rerun differs"
 
 
-def algebra_phase(torch, np, dev, counters: dict) -> dict:
-    """Phase 9; returns the kernels' launches of its timed pass."""
-    from repro_torch.data import taxi_like_frame
-    taxi = timed(f"taxi_like_frame({TAXI_ROWS}) on the card",
-                 lambda: taxi_like_frame(TAXI_ROWS, seed=0, device=dev))
+def algebra_phase(torch, np, dev, taxi, counters: dict) -> dict:
+    """Phase 9 over the taxi frame; returns the kernels' launches of its
+    timed pass."""
     dup = timed(f"duplicate-heavy frame ({DUP_ROWS} rows) on the card",
                 lambda: dup_frame(torch, np, dev, DUP_ROWS, 11))
     right = dup_frame(torch, np, dev, DUP_RIGHT_ROWS, 12)
@@ -2475,6 +2495,590 @@ def algebra_phase(torch, np, dev, counters: dict) -> dict:
         "steps again under the CUDA profiler:")
     same_algebra(torch, np, out, algebra_steps(profiled, dev, taxi, dup, right))
     log("[algebra] the profiled rerun is bit-identical")
+    return launches
+
+
+# -----------------------------------------------------------------------------
+# phase 10: the out-of-core engine under an HBM budget
+# -----------------------------------------------------------------------------
+OOC_BUDGET = 256 << 20     # the taxi frame is 2.3x this
+CSV_ROWS = 2_000_000       # rows of the taxi frame written to CSV and read back
+OOC_CHAOS_SEED = 5
+OOC_CHAOS_WORKER = 0.25    # the chaos plan's transient task-error rate
+SVC_TENANTS = 3
+CANCEL_ROWS, CANCEL_BLOCKS = 1_000_000, 64   # blocks >> pool width: the cancel
+#                                              lands at a dispatch boundary
+_DELTA_KEYS = ("spills", "faults", "spilled_bytes", "checksum_failures",
+               "recomputed_blocks", "budget_overruns", "faults_injected")
+
+
+def spill_dir(name: str) -> str:
+    """A fresh spill directory under the checkout's build/ (not the host's
+    temp space)."""
+    import shutil
+    d = ROOT / "build" / "spill" / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    return str(d)
+
+
+def budget_blocks(cfg, nbytes: int) -> int:
+    """Row blocks for ``nbytes`` under the store of ``cfg``: each at most
+    ``schedule.budget_max_block_bytes()`` (budget // (2 x workers + 2)), the
+    engine's own floor, so that every pool worker's pinned input block and
+    its output block fit in the budget together.  Larger blocks (eight of
+    ~76 MB) break the store's bound of budget + one block per worker: two
+    blocks a worker are in flight."""
+    from repro_torch.core import config
+    from repro_torch.core.schedule import budget_max_block_bytes
+    with config.scope(cfg):
+        return -(-nbytes // budget_max_block_bytes())
+
+
+def agg_query(df):
+    """Fig. 6's groupby(n).agg(4) on f0."""
+    return df.groupby("passenger_count").agg({"f0": ["sum", "mean", "min", "max"]})
+
+
+def evaluate(s, node):
+    """``node`` evaluated in session ``s``: the result's blocks behind the
+    store's handles (``Session.collect`` without concatenating them into one
+    frame on the card)."""
+    from repro_torch.core import config
+    with config.scope(s.config):
+        return s.executor.evaluate(node)
+
+
+def same_blocks(torch, np, pf, want) -> bool:
+    """``pf``, one row block at a time (faulted in where spilled, copied to
+    the host), equals the host frame ``want`` bit for bit."""
+    lo = 0
+    for row in pf.handles:
+        b = row[0].frame()
+        for h in row[1:]:
+            b = b.concat_cols(h.frame())
+        b = b.to("cpu")
+        if not same_frame(torch, np, b, want.take_rows(np.arange(lo, lo + b.nrows))):
+            return False
+        lo += b.nrows
+    return lo == want.nrows
+
+
+def ooc_queries(df, s) -> dict:
+    """Phase 10's five statements over ``df`` in session ``s``: the GROUPBY
+    twice, on the frame (the unfused path) and behind a filter (fused into
+    the GROUPBY's per-block programs, the engine's memory-governed path)."""
+    from repro_torch.core import DataFrame
+    rates = DataFrame({"passenger_count": [1, 2, 3, 4, 5, 6], "rate": RATES}, session=s)
+    return {"agg": agg_query(df),
+            "agg_fused": agg_query(df[df["f1"] > 0]),
+            "cumsum": df.cumsum(cols=FLOATS),
+            "sort": df.sort_values("f0"),
+            "merge": df.merge(rates, on="passenger_count")}
+
+
+# GROUPBY and WINDOW coarsen their grid to the pool (schedule.preferred_row_parts)
+# unless the budget floor forbids it, so with the adaptive grid on, a budgeted and
+# an unbudgeted run sum floats over different blocks; a fixed grid compares them
+# bit for bit.  SORT and JOIN results are permutations, equal on any grid, and
+# keep the adaptive output grid (a fixed one is a single output block).
+FIXED_GRID = {"REPRO_ADAPT_GRID": "0"}
+OOC_KNOBS = {"agg": FIXED_GRID, "agg_fused": FIXED_GRID, "cumsum": FIXED_GRID,
+             "sort": {}, "merge": {}}
+
+OOC_LABELS = {"agg": "groupby(passenger_count).agg(f0: sum, mean, min, max)",
+              "agg_fused": "filter(f1 > 0) -> groupby(passenger_count).agg(f0: sum, mean, "
+                           "min, max), fused",
+              "cumsum": "cumsum() of f0..f5", "sort": "sort_values(f0)",
+              "merge": "merge(rates, on=passenger_count)"}
+
+
+def ooc_steps(torch, np, dev, taxi, counters) -> tuple:
+    """The five statements unbudgeted, then in a session whose store holds
+    OOC_BUDGET bytes of the card's memory, both over the same row blocks of
+    the host frame ``taxi`` (``register_frame`` lands each block on the
+    card).  The budgeted results, block by block, must equal the unbudgeted
+    ones bit for bit; every statement must spill and fault; the store's peak
+    counter must stay within budget + one block per pool worker, and so must
+    the card's own peak (``torch.cuda.max_memory_allocated`` above what it
+    held before the ingest) over the ingest and every statement but the
+    unfused GROUPBY.  That one resolves every block of its input at once
+    (its general path factorizes the keys over all blocks, as the JAX
+    package's ``_groupby_blocks`` does), so the card holds its input frame
+    beside the budget: its limit is the bound plus the frame.  Returns (the unbudgeted
+    results on the host, the budgeted session, its frame's source node, the
+    block count, K1 / K4 launches of the budgeted pass)."""
+    import gc
+    from repro_torch.core import DataFrame, EvalMode, Session
+    from repro_torch.core import store as store_mod
+    from repro_torch.core.schedule import pool_width
+    s = Session(mode=EvalMode.LAZY, device=dev, mem_budget_bytes=OOC_BUDGET,
+                spill_dir=spill_dir("ooc"))
+    parts = budget_blocks(s.config, taxi.nbytes())
+    plain = lazy_session(dev)
+    try:
+        qs = ooc_queries(DataFrame(session=plain,
+                                   node=plain.register_frame(taxi, row_parts=parts)), plain)
+        ref = {}
+        for k, q in qs.items():
+            with knobs(OOC_KNOBS[k]):
+                out = timed(f"unbudgeted {OOC_LABELS[k]}", q.collect)
+            ref[k] = out.to("cpu")
+            del out
+        del qs, q
+    finally:
+        plain.close()
+    gc.collect()
+
+    store = s.config.store
+    st = store.stats
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    src = s.register_frame(taxi, row_parts=parts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    card = torch.cuda.max_memory_allocated() - base
+    pf = s.frames[src.params["frame_id"]]
+    biggest = block = max(h.nbytes for row in pf.handles for h in row)
+    del pf
+    bound = OOC_BUDGET + pool_width() * block
+    log(f"  budgeted ingest (register_frame of the host frame, a block at a time onto the "
+        f"card) of {taxi.nrows} rows in {parts} blocks of <= {block} bytes (the engine's "
+        f"budget floor for {pool_width()} workers; frame {taxi.nbytes()} bytes, "
+        f"{taxi.nbytes() / OOC_BUDGET:.2f}x the budget of {OOC_BUDGET} bytes, which stands "
+        f"for a deployment's 80 GB card cut to fit the time limit): {wall:.3f} s, "
+        f"{st.spills} spills, resident {st.resident_bytes} bytes; card peak +{card} bytes, "
+        f"now +{torch.cuda.memory_allocated() - base}")
+    assert card <= bound, f"ingest: card peak +{card} bytes > budget + workers x block {bound}"
+    df = DataFrame(session=s, node=src)
+    qs = ooc_queries(df, s)
+    for c in counters.values():
+        c.reset()
+    # one pass, under the CUDA profiler (its walls are the profiled walls):
+    # each statement evaluated once, a lost window not taken again
+    for k, q in qs.items():
+        s0 = (st.spills, st.faults, st.spilled_bytes, st.faulted_bytes)
+        out = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the store's spill writes (_save_frame: the copy to the host,
+        # np.savez, CRC32, the file write) and fault reads (_load_frame: the
+        # file read, CRC32, np.load, the copy back to the card)
+        with call_clock(store_mod, ("_save_frame", "_load_frame")) as clock, \
+                knobs(OOC_KNOBS[k]):
+            events, wall = device_window(torch, lambda: out.append(evaluate(s, q._node)),
+                                         cuda_only=True, tries=1)
+        card = torch.cuda.max_memory_allocated() - base
+        got = out[-1]
+        d = [b - a for a, b in zip(s0, (st.spills, st.faults, st.spilled_bytes,
+                                        st.faulted_bytes))]
+        biggest = max([biggest] + [h.nbytes for h in list(store._handles)])
+        bound = OOC_BUDGET + pool_width() * biggest
+        limit = bound + (taxi.nbytes() if k == "agg" else 0)
+        if events is None:
+            busy = "device busy not measured (the profiler lost the window)"
+        else:
+            dev_s = sum(e.self_device_time_total for e in events) / 1e6
+            mine = sum(e.self_device_time_total for e in events
+                       if any(n in e.key for n in ("seg_", "scan_one_pass"))) / 1e3
+            busy = (f"device busy {dev_s * 1e3:.3f} ms ({100 * dev_s / wall:.2f}%), "
+                    f"K1 / K4 {mine:.3f} ms")
+        log(f"  budgeted {OOC_LABELS[k]}: {wall:.3f} s profiled wall, {busy}")
+        log(f"    {d[0]} spills ({d[2]} bytes), {d[1]} faults ({d[3]} bytes); spill writes "
+            f"{clock.secs['_save_frame']:.3f} s, fault reads {clock.secs['_load_frame']:.3f} s "
+            f"(summed over pool threads); resident {st.resident_bytes} bytes; card peak "
+            f"+{card} bytes (limit {limit}: budget + {pool_width()} workers x {biggest}"
+            f"{' + the input frame, which the unfused GROUPBY holds' if k == 'agg' else ''})")
+        assert d[0] > 0 and d[1] > 0, f"{k}: the budgeted statement did not spill and fault"
+        assert card <= limit, f"{k}: card peak +{card} bytes over its limit {limit}"
+        assert same_blocks(torch, np, got, ref[k]), f"{k}: budgeted != unbudgeted"
+        del got, out
+    launches = {n: (counters[n].launches, dict(counters[n].routes))
+                for n in ("segment_reduce", "window_scan")}
+    log(f"  budgeted == unbudgeted bit for bit for all five; store's peak resident "
+        f"{st.peak_resident_bytes} bytes <= budget + {pool_width()} workers x {biggest} "
+        f"= {bound}; launches {launches}")
+    assert st.peak_resident_bytes <= bound, (st.peak_resident_bytes, bound)
+    assert st.budget_overruns == 0 and st.checksum_failures == 0
+    return ref, s, src, parts, launches
+
+
+def ooc_chaos(torch, np, dev, taxi, parts: int) -> None:
+    """The GROUPBY over a MAP's output (f0 + 1), whose blocks carry the
+    lineage the engine recorded as it made them, in a budgeted session under
+    a seeded plan: transient task errors at OOC_CHAOS_WORKER, and every read
+    of one spilled MAP block's file corrupted (the store recomputes it from
+    its source block).  Bit-identical to the same statements unbudgeted, and
+    the recovery counters equal what the plan injected."""
+    from repro_torch.core import DataFrame, EvalMode, Session, faults
+    from repro_torch.core import algebra as alg
+    udf = blocking_map(None, None)
+
+    def mapped_agg(sess):
+        pf = evaluate(sess, alg.Map(sess.register_frame(taxi, row_parts=parts), udf))
+        return pf, agg_query(DataFrame(session=sess, node=sess.register_frame(pf)))
+
+    plain = lazy_session(dev)
+    try:
+        with knobs(FIXED_GRID):
+            want = mapped_agg(plain)[1].collect().to("cpu")
+    finally:
+        plain.close()
+    s = Session(mode=EvalMode.LAZY, device=dev, mem_budget_bytes=OOC_BUDGET,
+                spill_dir=spill_dir("chaos"))
+    try:
+        with knobs(FIXED_GRID):
+            pf, q = mapped_agg(s)
+        # picked once the plan is built (building it may fault a block)
+        victim = next(h for row in pf.handles for h in row if not h.is_resident)
+        assert victim._recompute is not None, "a MAP output block without lineage"
+        del pf
+        plan = f"worker:{OOC_CHAOS_WORKER},corrupt@blk{victim._id}/:1.0"
+        faults.reset()
+        faults.configure(plan=plan, seed=OOC_CHAOS_SEED)
+        try:
+            # the plan was built before the faults were configured, so every
+            # injection lands inside the executor's attribution windows
+            with knobs(FIXED_GRID):
+                got = timed(f"chaos {OOC_LABELS['agg']} of f0 + 1 (a MAP's output) under "
+                            f"{plan!r}, seed {OOC_CHAOS_SEED}", lambda: evaluate(s, q._node))
+            fired = faults.injected_snapshot()
+        finally:
+            faults.reset()
+        st = s.executor.stats
+        store = s.config.store.stats
+        log(f"    injected {fired}; retries {st.retries}, task failures {st.task_failures}, "
+            f"checksum failures {st.checksum_failures}, recomputed blocks "
+            f"{st.recomputed_blocks}, faults injected {st.faults_injected}")
+        assert same_blocks(torch, np, got, want), "chaos GROUPBY != unbudgeted"
+        assert fired.get("worker", 0) > 0 and fired.get("corrupt", 0) > 0, fired
+        assert st.retries == st.task_failures == fired["worker"]
+        assert st.checksum_failures == st.recomputed_blocks == fired["corrupt"]
+        assert store.checksum_failures == store.recomputed_blocks == fired["corrupt"]
+        assert st.faults_injected == sum(fired.values())
+        log("  chaos: bit-identical; the corrupt MAP block recomputed from its lineage; "
+            "the recovery counters equal the injections")
+    finally:
+        s.close()
+
+
+def csv_text(np, taxi, n: int) -> tuple[str, dict]:
+    """The first ``n`` rows of the taxi frame as CSV text (nulls empty), and
+    the host columns it was written from.  Each float is written as its
+    shortest float32 decimal where that parses back (through float64, as
+    read_csv parses) to the same float32, else as its float64 repr."""
+    from repro_torch.core.frame import host
+    cols, names, text = {}, taxi.col_labels.to_list(), []
+    for name, c in zip(names, taxi.columns):
+        d = host(c.data[:n])
+        valid = None if c.mask is None else host(c.mask[:n])
+        if c.domain.is_coded:
+            s = np.asarray(c.dictionary, dtype=object)[d].astype(str)
+        elif d.dtype == np.float32:
+            s = d.astype(str)
+            bad = s.astype(np.float64).astype(np.float32).view(np.int32) != d.view(np.int32)
+            if bad.any():
+                s[bad] = d[bad].astype(np.float64).astype(str)
+        else:
+            s = d.astype(str)
+        if valid is not None:
+            s = np.where(valid, s, "")
+        cols[name] = (d, valid, c.dictionary)
+        text.append(s.tolist())            # joins of str lists, not numpy scalars
+    body = "\n".join(map(",".join, zip(*text)))
+    return ",".join(names) + "\n" + body + "\n", cols
+
+
+def check_csv_frame(np, got, cols: dict) -> None:
+    """read_csv's frame equals the columns it was written from: ints and
+    float32 bit for bit, nulls where the masks say, strings by value."""
+    from repro_torch.core.frame import host
+    assert got.col_labels.to_list() == list(cols)
+    for (name, (d, valid, table)), c in zip(cols.items(), got.columns):
+        v = np.ones(d.shape[0], bool) if valid is None else valid
+        gv = np.ones(d.shape[0], bool) if c.mask is None else host(c.mask)
+        assert np.array_equal(gv, v), f"{name}: null mask differs"
+        g = host(c.data)
+        if table is not None:
+            assert np.array_equal(np.asarray(c.dictionary, dtype=object)[g[v]],
+                                  np.asarray(table, dtype=object)[d[v]]), name
+        else:
+            assert g.dtype == d.dtype, (name, g.dtype, d.dtype)
+            assert np.array_equal(g[v].view(np.int32), d[v].view(np.int32)), name
+
+
+def ooc_csv(torch, np, dev, taxi) -> None:
+    """CSV ingest of CSV_ROWS taxi rows into a budgeted session, then the
+    Fig. 6 GROUPBY on it, checked against numpy."""
+    from repro_torch.core import EvalMode, Session, read_csv
+    path = Path(spill_dir("csv")) / "taxi.csv"
+    t0 = time.perf_counter()
+    text, cols = csv_text(np, taxi, CSV_ROWS)
+    path.write_text(text)
+    size = path.stat().st_size
+    log(f"  wrote {CSV_ROWS} taxi rows as {size} bytes of CSV: "
+        f"{time.perf_counter() - t0:.3f} s")
+    del text
+    s = Session(mode=EvalMode.LAZY, device=dev, mem_budget_bytes=OOC_BUDGET,
+                spill_dir=spill_dir("csv_store"))
+    try:
+        t0 = time.perf_counter()
+        df = read_csv(str(path), session=s)
+        got = df.collect()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        pf = s.frames[df._node.params["frame_id"]]
+        st = s.config.store.stats
+        log(f"  read_csv: {wall:.3f} s wall, {size / wall / 1e6:.1f} MB/s of text; "
+            f"{pf.row_parts} chunks; store: {st.spills} spills, peak resident "
+            f"{st.peak_resident_bytes} bytes")
+        check_csv_frame(np, got, cols)
+        del got
+        a = timed(f"{OOC_LABELS['agg']} on the CSV frame",
+                  lambda: df.groupby("passenger_count").agg(
+                      {"f0": ["sum", "mean", "min", "max"]}).collect())
+        pc, (v, valid, _) = cols["passenger_count"][0], cols["f0"]
+        key, v64 = pc[valid] - 1, v[valid].astype(np.float64)
+        sums = np.bincount(key, weights=v64, minlength=6)
+        abss = np.bincount(key, weights=np.abs(v64), minlength=6)
+        got_sum = np.asarray(a.col("f0_sum").to_pylist())
+        assert a.col("passenger_count").to_pylist() == [1, 2, 3, 4, 5, 6]
+        assert np.all(np.abs(got_sum - sums) <= SUM_RTOL * abss), (got_sum, sums)
+        for g in range(6):
+            seg = v[valid][key == g]
+            assert a.col("f0_min").to_pylist()[g] == float(seg.min())
+            assert a.col("f0_max").to_pylist()[g] == float(seg.max())
+        log("  read_csv equals the frame it was written from; its GROUPBY matches numpy")
+    finally:
+        s.close()
+
+
+def tenant_queries(df, i: int) -> dict:
+    """Tenant i's share of the Fig. 6 mix, on float column f<i>: groupby(n)
+    over a map (the filter), groupby(n).agg(4) and groupby(1)."""
+    f = f"f{i}"
+    return {"agg": df.groupby("passenger_count").agg({f: ["sum", "mean", "min", "max"]}),
+            "count": df[df[f] > 0].groupby("passenger_count").count(),
+            "count_1": df[[f]].count()}
+
+
+def blocking_map(started, release):
+    """f0 + 1 whose blocks signal ``started`` and wait for ``release``."""
+    from repro_torch.core import Domain
+    from repro_torch.core import algebra as alg
+    from repro_torch.core.frame import Column
+
+    def fn(cols, frame):
+        if started is not None:
+            started.set()
+        if release is not None:
+            assert release.wait(120.0), "release never came"
+        out = dict(cols)
+        c = cols["f0"]
+        out["f0"] = Column(c.data + 1.0, Domain.FLOAT, c.mask, None)
+        return out
+    return alg.Udf(name="ooc_cancel_map" if started else "ooc_cancel_ref", fn=fn,
+                   deps=frozenset(["f0"]), elementwise=True)
+
+
+def ooc_service(torch, np, dev, taxi, parts: int) -> None:
+    """A QueryService of SVC_TENANTS tenants sharing one OOC_BUDGET store:
+    each tenant's share of the Fig. 6 mix, run concurrently, equals the same
+    statements in an unbudgeted session; per-session stats sum to the
+    service's; tenant 0 is traced and its first statement's span deltas sum
+    to its stats' movement; a cancel lands once a block has started, closes
+    its spans, and a rerun is bit-identical."""
+    import dataclasses
+    import threading
+    from repro_torch.core import DataFrame, QueryService, StatementCancelled
+    from repro_torch.core import algebra as alg
+    plain = lazy_session(dev)
+    try:
+        pdf = DataFrame(session=plain, node=plain.register_frame(taxi, row_parts=parts))
+        with knobs(FIXED_GRID):
+            want = {i: {k: q.collect().to("cpu") for k, q in tenant_queries(pdf, i).items()}
+                    for i in range(SVC_TENANTS)}
+    finally:
+        plain.close()
+    with knobs(FIXED_GRID), QueryService(mem_budget_bytes=OOC_BUDGET,
+                                         spill_dir=spill_dir("svc"), device=dev) as svc:
+        src = svc.register_frame(taxi, row_parts=parts)
+        tenants = [svc.session(mode="lazy", trace=(i == 0)) for i in range(SVC_TENANTS)]
+        got, errors, traced = {}, [], {}
+
+        def run(i, t):
+            try:
+                qs = tenant_queries(DataFrame(session=t, node=src), i)
+                for k, q in qs.items():
+                    before = dataclasses.replace(t.stats)
+                    h = t.submit(q._node)
+                    got[i, k] = h.result(timeout=600).to_frame()
+                    if i == 0 and not traced:
+                        traced["before"], traced["after"] = before, dataclasses.replace(t.stats)
+                        traced["stmt"] = h.stmt_id
+            except BaseException as e:    # noqa: BLE001 - re-raised below
+                errors.append((i, e))
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=run, args=(i, t)) for i, t in enumerate(tenants)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=900)
+        wall = time.perf_counter() - t0
+        assert not errors, errors
+        for (i, k), f in got.items():
+            assert same_frame(torch, np, f.to("cpu"), want[i][k]), f"tenant {i} {k} differs"
+        st = svc.stats
+        for fld in dataclasses.fields(type(st)):
+            if fld.name != "peak_resident_bytes":
+                per = sum(getattr(t.stats, fld.name) for t in tenants)
+                assert per == getattr(st, fld.name), (fld.name, per, getattr(st, fld.name))
+        tr = tenants[0].tracer
+        totals = tr.counter_totals(traced["stmt"])
+        for k in _DELTA_KEYS:
+            moved = getattr(traced["after"], k) - getattr(traced["before"], k)
+            assert totals.get(k, 0) == moved, (k, totals.get(k, 0), moved)
+        store = svc.store.stats
+        log(f"  {SVC_TENANTS} tenants x {len(got) // SVC_TENANTS} statements concurrently: "
+            f"{wall:.3f} s wall; each equals its unbudgeted run; shared store {store.spills} "
+            f"spills, {store.faults} faults, peak resident {store.peak_resident_bytes} bytes; "
+            f"per-session stats sum to the service's; tenant 0's traced statement's span "
+            f"deltas {dict((k, totals.get(k, 0)) for k in _DELTA_KEYS)} equal its stats' "
+            f"movement")
+        for row in svc.tenant_report():
+            log(f"    {row}")
+
+        t = tenants[0]
+        small = t.register_frame(taxi.take_rows(np.arange(CANCEL_ROWS)),
+                                 row_parts=CANCEL_BLOCKS)
+        started, release = threading.Event(), threading.Event()
+        node = alg.Map(small, blocking_map(started, release))
+        h = t.submit(node)
+        assert started.wait(120.0)
+        h.cancel()
+        release.set()
+        try:
+            h.result(timeout=300)
+        except StatementCancelled:
+            pass
+        else:
+            raise AssertionError("the cancelled statement completed")
+        deadline = time.monotonic() + 60
+        while tr.open_spans() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert tr.open_spans() == 0, "spans left open after the cancel"
+        assert any(sp.args and "Cancel" in str(sp.args.get("error", ""))
+                   for sp in tr.snapshot())
+        rerun = t.collect(node)
+        ref = t.collect(alg.Map(small, blocking_map(None, None)))
+        assert same_frame(torch, np, rerun, ref), "the rerun after the cancel differs"
+        log("  cancel: StatementCancelled once a block had started, every span closed, "
+            "rerun bit-identical")
+
+
+def ooc_progressive(torch, np, s, src, agg) -> None:
+    """progressive_aggregate of f0's mean per passenger_count group over the
+    budgeted frame's blocks: each block faults in once, and its rows of each
+    group go back into the budgeted store as a block of their own (spilled
+    and faulted like any other).  The interval shrinks, and the final
+    estimate equals the GROUPBY mean ``agg`` (on the host)."""
+    from repro_torch.core import config
+    from repro_torch.core.approx import progressive_aggregate
+    from repro_torch.core.frame import host
+    from repro_torch.core.partition import PartitionedFrame
+    from repro_torch.core.store import as_handle
+    pf = s.frames[src.params["frame_id"]]
+    means = agg.col("f0_mean").to_pylist()
+    st = s.config.store.stats
+    s0 = (st.spills, st.faults)
+    t0 = time.perf_counter()
+    groups = {g: [] for g in range(1, 7)}
+    vals = {g: [] for g in groups}
+    with config.scope(s.config):
+        for row in pf.handles:             # each block faults in once
+            f = row[0].frame()
+            pc = host(f.col("passenger_count").data)
+            for g, handles in groups.items():
+                part = f.take_rows(np.flatnonzero(pc == g))
+                c = part.col("f0")
+                vals[g].append(host(c.data)[host(c.valid_mask())])
+                handles.append(as_handle(part))
+            del f, part, c
+    for g, handles in groups.items():
+        ests = list(progressive_aggregate(PartitionedFrame([[h] for h in handles]), "f0",
+                                          "mean"))
+        assert len(ests) == pf.row_parts and ests[-1].final
+        widths = [e.ci_high - e.ci_low for e in ests[:-1]]
+        assert widths[-1] < widths[0], (g, widths)
+        v = np.concatenate(vals[g]).astype(np.float64)
+        assert abs(ests[-1].value - v.sum() / v.size) <= 1e-12 * np.abs(v).sum() / v.size
+        assert abs(ests[-1].value - means[g - 1]) <= SUM_RTOL * np.abs(v).sum() / v.size, \
+            (g, ests[-1].value, means[g - 1])
+    log(f"  progressive mean of f0 per group over {pf.row_parts} blocks (the groups' "
+        f"blocks in the budgeted store: {st.spills - s0[0]} spills, {st.faults - s0[1]} "
+        f"faults): intervals shrink, the final estimates equal the GROUPBY means; "
+        f"{time.perf_counter() - t0:.3f} s")
+
+
+def spill_stages(torch, np, dev, taxi) -> None:
+    """The store's own spill write and fault read (``store._save_frame`` /
+    ``store._load_frame``) of one block of TAXI_ROWS / 8 rows on the card,
+    twice, with the stages inside each clocked: the copies to the host
+    (``store.host``), ``np.savez`` and CRC32 (``zlib.crc32``).  The rest of
+    a write is the file write (into the page cache: the store does not
+    fsync); the rest of a read is the file read, ``np.load`` and the copies
+    back to the card."""
+    from repro_torch.core import store as store_mod
+    blk = taxi.take_rows(np.arange(taxi.nrows // 8)).to(dev)
+    nbytes = blk.nbytes()
+    gb = nbytes / 1e9
+    path = str(Path(spill_dir("stages")) / "blk.spill")
+    for rep in (1, 2):
+        torch.cuda.synchronize()
+        with call_clock(store_mod, ("host",)) as d2h, \
+                call_clock(store_mod.np, ("savez",)) as ser, \
+                call_clock(store_mod.zlib, ("crc32",)) as crc:
+            t0 = time.perf_counter()
+            store_mod._save_frame(path, blk)
+            save = time.perf_counter() - t0
+        with call_clock(store_mod.zlib, ("crc32",)) as crc_r:
+            t0 = time.perf_counter()
+            back = store_mod._load_frame(path)
+            torch.cuda.synchronize()
+            load = time.perf_counter() - t0
+        assert same_frame(torch, np, back, blk), "a spilled block read back differs"
+        del back
+        write = save - d2h.secs["host"] - ser.secs["savez"] - crc.secs["crc32"]
+        rest = load - crc_r.secs["crc32"]
+        log(f"  spill path, pass {rep}, one {nbytes}-byte block through the store's "
+            f"_save_frame / _load_frame: write {gb / save:.2f} GB/s (device->host "
+            f"{gb / d2h.secs['host']:.2f}, np.savez {gb / ser.secs['savez']:.2f}, CRC32 "
+            f"{gb / crc.secs['crc32']:.2f}, file write {gb / write:.2f} GB/s); read "
+            f"{gb / load:.2f} GB/s (CRC32 {gb / crc_r.secs['crc32']:.2f}, file read + "
+            f"np.load + host->device {gb / rest:.2f} GB/s)")
+
+
+def outofcore_phase(torch, np, dev, taxi, counters: dict) -> dict:
+    """Phase 10 over the taxi frame ``taxi``, held on the host: every
+    session and the service land its blocks on the card through their own
+    ``register_frame``.  Returns the K1 / K4 launches of the budgeted pass."""
+    import shutil
+    try:
+        spill_stages(torch, np, dev, taxi)
+        ref, s, src, parts, launches = ooc_steps(torch, np, dev, taxi, counters)
+        try:
+            ooc_progressive(torch, np, s, src, ref["agg"])
+        finally:
+            s.close()
+        del ref
+        ooc_chaos(torch, np, dev, taxi, parts)
+        ooc_csv(torch, np, dev, taxi)
+        ooc_service(torch, np, dev, taxi, parts)
+    finally:
+        shutil.rmtree(ROOT / "build" / "spill", ignore_errors=True)
     return launches
 
 
@@ -2636,13 +3240,30 @@ def main() -> int:
     t0 = time.perf_counter()
     log(f"[algebra] DIFFERENCE / DROP-DUPLICATES and the fusion pass on {dev}: "
         f"{DUP_ROWS} duplicate-heavy rows, {TAXI_ROWS} taxi rows")
-    phase9 = algebra_phase(torch, np, dev, counters)
+    from repro_torch.data import taxi_like_frame
+    taxi = timed(f"taxi_like_frame({TAXI_ROWS}) on the card (phases 9 and 10)",
+                 lambda: taxi_like_frame(TAXI_ROWS, seed=0, device=dev))
+    phase9 = algebra_phase(torch, np, dev, taxi, counters)
     for k, (n, _) in phase9.items():
         launches[k] += n
     add_routes("segment_reduce", phase9["segment_reduce"][1])
     for k in ("segment_reduce", "window_scan"):
         assert phase9[k][0] > 0, f"phase 9 never launched {k}"
     log(f"[algebra] {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    taxi = taxi.to("cpu")                  # phase 10 keeps no copy of it on the card
+    torch.cuda.empty_cache()
+    log(f"[outofcore] the engine under a {OOC_BUDGET}-byte HBM budget on {dev}, "
+        f"{TAXI_ROWS} taxi rows (the frame held on the host); chaos, read_csv, the query "
+        f"service, progressive aggregation")
+    phase10 = outofcore_phase(torch, np, dev, taxi, counters)
+    del taxi
+    for k, (n, _) in phase10.items():
+        launches[k] += n
+        assert n > 0, f"phase 10 never launched {k}"
+    add_routes("segment_reduce", phase10["segment_reduce"][1])
+    log(f"[outofcore] {time.perf_counter() - t0:.1f} s")
 
     record = []
     for k in ("segment_reduce", "block_transpose", "onehot_encode", "window_scan",

@@ -224,6 +224,15 @@ class Frame:
                 return c.data.device
         return self._device or torch.device("cpu")
 
+    def to(self, device) -> "Frame":
+        """This frame on ``device``: each tensor copied there once (an int64
+        host key column stays a numpy array)."""
+        dev = torch.device(device)
+        mv = lambda a: a.to(dev) if isinstance(a, torch.Tensor) else a
+        return Frame([Column(mv(c.data), c.domain, None if c.mask is None else mv(c.mask),
+                             c.dictionary) for c in self.columns],
+                     self.row_labels, self.col_labels, self.row_domains, device=dev)
+
     # ------------------------------------------------------------------
     # constructors
     # ------------------------------------------------------------------

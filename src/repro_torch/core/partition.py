@@ -229,18 +229,24 @@ class PartitionedFrame:
     # conversion
     # ------------------------------------------------------------------
     @staticmethod
-    def from_frame(frame: Frame, row_parts: int = 1, col_parts: int = 1) -> "PartitionedFrame":
+    def from_frame(frame: Frame, row_parts: int = 1, col_parts: int = 1,
+                   device=None) -> "PartitionedFrame":
+        """``frame`` cut into a grid of blocks, each put into the store as it
+        is cut; with ``device``, each block is copied there first, so a frame
+        on the host reaches the device (and its budget) one block at a
+        time."""
         row_sz = _split_sizes(frame.nrows, row_parts)
         col_sz = _split_sizes(frame.ncols, col_parts)
-        grid: list[list[Frame]] = []
+        grid: list[list[BlockHandle]] = []
         r0 = 0
         for rs in row_sz:
             row_block = frame.take_rows(np.arange(r0, r0 + rs))
             r0 += rs
-            row_cells: list[Frame] = []
+            row_cells: list[BlockHandle] = []
             c0 = 0
             for cs in col_sz:
-                row_cells.append(row_block.take_cols(range(c0, c0 + cs)))
+                cell = row_block.take_cols(range(c0, c0 + cs))
+                row_cells.append(as_handle(cell if device is None else cell.to(device)))
                 c0 += cs
             grid.append(row_cells)
         return PartitionedFrame(grid)
@@ -337,7 +343,10 @@ class PartitionedFrame:
         source block pass through by identity (the *handle* — untouched
         spilled blocks stay spilled); partial segments slice only their own
         rows; merged groups concatenate only their own segments — no
-        full-frame concat ever happens."""
+        full-frame concat ever happens.  Each new cell goes into the store
+        as it is made, so under a budget the regrouped blocks are charged
+        (and spill) one at a time instead of all standing on the device
+        before the first is charged."""
         tgt = _split_sizes(self.nrows, row_parts)
         segs = _segments(self.row_sizes, tgt)
         grid: list[list] = []
@@ -359,7 +368,8 @@ class PartitionedFrame:
                     cell = pieces[0]
                     for p in pieces[1:]:
                         cell = cell.concat_rows(p)
-                row.append(cell)
+                del pieces
+                row.append(as_handle(cell))
             grid.append(row)
         return PartitionedFrame(grid)
 

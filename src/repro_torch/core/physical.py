@@ -1000,7 +1000,12 @@ def _groupby_with_codes(row_blocks: list[Frame], keys, aggs, codes_per_block,
 def _finalize_groupby(combined: dict, template: Frame | None, keys, aggs,
                       G: int, rep_sorted=None, key_values=None,
                       drop_empty: bool = False) -> PartitionedFrame:
-    dev = template.device if template is not None else torch.device("cpu")
+    # the partials' device, so that a spilled template is not faulted in
+    # just to name it
+    if combined:
+        dev = next(iter(combined.values())).device
+    else:
+        dev = resolve(template).device if template is not None else torch.device("cpu")
     out_cols: list[Column] = []
     out_names: list[Any] = []
     # key columns first (representative decoded values, sorted order)
@@ -1132,7 +1137,7 @@ def _fused_groupby(pf: PartitionedFrame, stages: Sequence[alg.Stage],
 
             partials = dispatch_blocks(partial_block, staged)
             combined = _combine_partials(partials, need + [_PRESENCE])
-            return _finalize_groupby(combined, resolve(staged[0]), keys, aggs, G,
+            return _finalize_groupby(combined, staged[0], keys, aggs, G,
                                      key_values=[gmin + i for i in range(G)],
                                      drop_empty=True)
     return _groupby_blocks(staged, keys, aggs)
@@ -1325,7 +1330,9 @@ def _window_scan_blocks(pf: PartitionedFrame, func: str, cols,
 
         with pinned(block) as src:
             scanned, targets = build(src)
-            totals = ({n: scanned.col(n).data[-1] for n in targets}
+            # a copy, not a view: a view would keep the whole scanned
+            # column on the device after the block spills
+            totals = ({n: scanned.col(n).data[-1].clone() for n in targets}
                       if scanned.nrows else {})
             return (as_handle(scanned,
                               recompute=lambda: build(resolve(block))[0]),

@@ -218,14 +218,18 @@ class Session:
     # ------------------------------------------------------------------
     def register_frame(self, frame: Frame | PartitionedFrame,
                        row_parts: int | None = None, col_parts: int = 1) -> alg.Source:
-        """Ingest a materialized frame; returns its Source node."""
+        """Ingest a materialized frame; returns its Source node.  A Frame on
+        another device than the session's lands on the session's, one block
+        at a time."""
         self._require_open()
         with _config.scope(self.config):
             if isinstance(frame, Frame):
                 rp = row_parts or self.default_row_parts
                 if rp is None:
                     rp, col_parts = default_grid(frame.nrows, frame.ncols)
-                pf = PartitionedFrame.from_frame(frame, rp, col_parts)
+                moved = not _same_device(frame.device, self.device)
+                pf = PartitionedFrame.from_frame(frame, rp, col_parts,
+                                                 device=self.device if moved else None)
             else:
                 pf = frame
             fid = f"{self._fid_prefix}frame_{next(self._ids)}"
@@ -345,6 +349,12 @@ class Session:
         with _DEFAULT_LOCK:
             if _DEFAULT is self:
                 _DEFAULT = None
+
+
+def _same_device(a, b) -> bool:
+    """Device ``a`` is the one ``b`` names: its type, and its index where
+    ``b`` gives one."""
+    return a.type == b.type and (b.index is None or a.index == b.index)
 
 
 _DEFAULT: Session | None = None

@@ -53,8 +53,10 @@ filter the match index (evaluated on chunked gathers of only the columns
 they read) or, for SORT, each block before the exchange; a following
 projection prunes the gathered columns.
 
-The budget floors below are inert until the spilling store (M8) exists,
-since a budget raises in ``store``.
+Under a memory budget the exchange's bucket key frames and gathered chunks
+are store blocks with producer lineage: they spill and fault like data
+blocks, and the bucket count and gather chunks respect
+``schedule.budget_max_block_bytes``.
 """
 from __future__ import annotations
 

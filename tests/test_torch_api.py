@@ -220,9 +220,31 @@ def test_modes_agree(mode):
             s.close()
 
 
-def test_mem_budget_is_refused():
-    with pytest.raises(NotImplementedError, match="M8"):
-        T.Session(mem_budget_bytes=1 << 20, device="cpu")
+def test_mem_budget_is_refused(tmp_path):
+    """The refusal a memory budget still carries, as in the reference
+    (``repro/core/store.py``, ``BlockStore._fault``): once a budgeted
+    session's private store is closed, faulting one of its spilled blocks
+    raises ``StoreClosedError`` naming the block, never a partial frame."""
+    import torch
+    from repro_torch.core.frame import Column, Frame
+    from repro_torch.core.labels import RangeLabels, labels_from_values
+    from repro_torch.core.store import StoreClosedError
+    s = T.Session(mem_budget_bytes=1 << 20, spill_dir=str(tmp_path),
+                  device="cpu")
+    n = 1 << 18                                  # 2 MiB: twice the budget
+    g = torch.Generator().manual_seed(0)
+    f = Frame([Column(torch.randint(0, 8, (n,), generator=g,
+                                    dtype=torch.int32), T.Domain.INT),
+               Column(torch.rand(n, generator=g), T.Domain.FLOAT)],
+              RangeLabels(n), labels_from_values(["k", "x"]))
+    src = s.register_frame(f, row_parts=8)
+    del f
+    pf = s.frames[src.params["frame_id"]]
+    spilled = [h for row in pf.handles for h in row if not h.is_resident]
+    assert spilled and s.executor.stats.spills == 0   # ingest, not a node
+    s.close()
+    with pytest.raises(StoreClosedError, match=f"block id {spilled[0]._id}"):
+        spilled[0].frame()
 
 
 @pytest.mark.parametrize("case", ["column_sort", "column_filter"])

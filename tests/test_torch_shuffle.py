@@ -6,8 +6,12 @@ port result — values, masks and row labels — is held bit-identical against
 the reference's shuffled path AND the port's own serial ``REPRO_SHUFFLE=0``
 oracle, over row grids {1, W, 4W} × optimize on/off; the exchange counters
 (``shuffle_buckets`` / ``shuffle_bytes`` / ``skew_splits``) must equal the
-reference's.  Fused variants are in ``tests/test_torch_fusion.py``; budget
-and chaos cases wait for M8.
+reference's.  Fused variants are in ``tests/test_torch_fusion.py``.  The
+out-of-core cases of ``tests/test_shuffle_differential.py:484-`` close the
+file: a JOIN whose inputs are 4x the memory budget, bit-identical to the
+reference's unbudgeted run with the port's peak residency within budget +
+one block, and seeded corrupt / missing spill files during a budgeted
+shuffled JOIN recomputed through the exchange's lineage.
 """
 from __future__ import annotations
 
@@ -36,6 +40,9 @@ from repro_torch.core.labels import RangeLabels as TRange
 from repro_torch.core.labels import labels_from_values as tlabels
 from repro_torch.core.partition import PartitionedFrame as TPF
 from repro_torch.core.schedule import pool_width
+from torch_pairs import BOTH, PORT, port_guards, reset_pools, reset_stores
+
+assert port_guards
 
 HOWS = ("inner", "left", "right", "outer")
 STATS = ("shuffle_buckets", "shuffle_bytes", "skew_splits", "gather_rows")
@@ -325,3 +332,87 @@ def test_fused_join_and_sort_stages_name_their_roadmap_item():
                     _lists(mod.shuffled_sort(pf, ["k"], True, stages).to_frame())))
     assert got[1] == got[0]
     assert list(got[1][1][1]) == ["k"]
+
+
+# =============================================================================
+# out-of-core: 4x-budget join; chaos during the exchange
+# =============================================================================
+def _big_join_frames(P, n=6000, selective=True):
+    """``tests/test_shuffle_differential.py``'s inputs: sized to dominate
+    the budget, key ranges mostly disjoint so the output stays small."""
+    rng = np.random.default_rng(0)
+    lhi, rlo, rhi = (3000, 2900, 5900) if selective else (500, 0, 500)
+    lf = P.Frame([P.Column(P.arr(np.asarray(rng.integers(0, lhi, n),
+                                            dtype=np.int64)), P.Domain.INT),
+                  P.Column(P.arr(rng.normal(size=n)), P.Domain.FLOAT),
+                  P.Column(P.arr(rng.normal(size=n)), P.Domain.FLOAT)],
+                 P.RangeLabels(n), P.labels(["k", "a", "a2"]))
+    rf = P.Frame([P.Column(P.arr(np.asarray(rng.integers(rlo, rhi, n),
+                                            dtype=np.int64)), P.Domain.INT),
+                  P.Column(P.arr(rng.normal(size=n)), P.Domain.FLOAT)],
+                 P.RangeLabels(n), P.labels(["k", "b"]))
+    return lf, rf
+
+
+def _big_join(P, how, **kw):
+    lf, rf = _big_join_frames(P, **kw)
+    store = {"l": P.PF.from_frame(lf, row_parts=8),
+             "r": P.PF.from_frame(rf, row_parts=8)}
+    total = store["l"].nbytes() + store["r"].nbytes()
+    ex = P.Executor(store)
+    out = ex.evaluate(P.alg.Join(P.alg.Source("l"), P.alg.Source("r"),
+                                 on=["k"], how=how))
+    return _lists(out.to_frame()), total, ex.stats, store
+
+
+@pytest.fixture
+def budget_env(monkeypatch, tmp_path):
+    monkeypatch.setenv("REPRO_POOL_WORKERS", "2")
+    monkeypatch.setenv("REPRO_SPILL_DIR", str(tmp_path))
+    monkeypatch.setenv("REPRO_RETRY_BACKOFF_MS", "1")
+    for knob in ("REPRO_MEM_BUDGET", "REPRO_FAULT_PLAN", "REPRO_FAULT_SEED"):
+        monkeypatch.delenv(knob, raising=False)
+    for P in BOTH:
+        P.faults.reset()
+    reset_pools()
+    reset_stores()
+    yield monkeypatch
+    for knob in ("REPRO_MEM_BUDGET", "REPRO_FAULT_PLAN", "REPRO_FAULT_SEED"):
+        monkeypatch.delenv(knob, raising=False)
+    for P in BOTH:
+        P.faults.reset()
+    reset_stores()
+    reset_pools()
+
+
+@pytest.mark.spill
+def test_join_4x_budget_completes_within_bound(budget_env):
+    ref, total_ref, _, _ = _big_join(BOTH[0], "inner")
+    base, total, st0, _ = _big_join(PORT, "inner")
+    assert base == ref and total == total_ref
+    assert st0.spills == 0 and st0.peak_resident_bytes == 0
+    budget = total // 4
+    budget_env.setenv("REPRO_MEM_BUDGET", str(budget))
+    reset_stores()
+    got, _, st, _keep = _big_join(PORT, "inner")
+    assert got == ref
+    assert st.spills > 0 and st.faults > 0
+    store = PORT.store.get_store()
+    one_block = PORT.schedule.budget_max_block_bytes()
+    biggest = max((h.nbytes for h in store._handles), default=0)
+    assert store.stats.peak_resident_bytes <= budget + max(one_block, biggest)
+
+
+@pytest.mark.spill
+@pytest.mark.parametrize("kind", ("corrupt", "missing"))
+def test_chaos_spill_fault_during_exchange_recomputes(kind, budget_env):
+    ref, total, _, _ = _big_join(BOTH[0], "left", n=4000, selective=False)
+    budget_env.setenv("REPRO_MEM_BUDGET", str(total // 4))
+    budget_env.setenv("REPRO_FAULT_PLAN", f"{kind}:0.4")
+    budget_env.setenv("REPRO_FAULT_SEED", "7")
+    reset_stores()
+    got, _, st, _ = _big_join(PORT, "left", n=4000, selective=False)
+    assert got == ref                        # recovered bit-identical
+    assert PORT.faults.injected_total() > 0  # the chaos fired
+    assert st.recomputed_blocks > 0          # and lineage recovered it
+    assert st.recomputed_blocks == PORT.store.get_store().stats.recomputed_blocks
