@@ -42,7 +42,14 @@ Phases (any failure raises and the script exits non-zero):
                  copies), views with batch and time strides, and phase 8's
                  (2, 4096, 4096) as the RG-LRU makes it, ten reruns
                  bit-identical, one launch a call under the profiler, timed
-                 with its host enqueue time; flash_attention (K6: bf16 on
+                 with its host enqueue time; K5's backward (the reverse
+                 walk) through the autograd Function equal (torch.equal)
+                 to autograd through linear_scan_plain at the reference's
+                 three shapes, T = 1, 63, 64, 65 and 4,097, N = 33 and 70,
+                 two time-strided views and phase 11's (1, 4096, 4096),
+                 one fwd and one bwd launch a call, ten reruns
+                 bit-identical, one launch a backward under the profiler,
+                 timed against its bound; flash_attention (K6: bf16 on
                  the tensor cores, f32 on the FMA kernel) at the
                  reference's four shapes x window (None, 32) in f32 and
                  bf16, at yi-6b's and recurrentgemma-9b's prefill shapes in
@@ -72,10 +79,11 @@ Phases (any failure raises and the script exits non-zero):
                  must equal the timed run's bit for bit
   7. serve     — LM serving at the full width of yi-6b (32 layers, d 4096,
                  6.06e9 random bf16 parameters from a seeded generator):
-                 16 requests (BOS + 63..511 random prompt tokens, 32 new
+                 8 requests (cut from 16 to pay for phase 11; BOS + 63..511
+                 random prompt tokens, 32 new
                  tokens each) through ServeEngine(max_batch=8, max_seq=1024),
                  every layer's decode attention on decode_attention (K7),
-                 timed per step, then 20 steps under the CUDA profiler.
+                 timed per step, then 5 steps under the CUDA profiler.
                  Checks: K7 launched steps x 32 times, all on route tc;
                  the same requests
                  served with attn_impl="xla" (plain attention, same weights)
@@ -108,7 +116,7 @@ Phases (any failure raises and the script exits non-zero):
                  REPRO_BLOCK_DEDUP=0, block, fused), bit-identical and equal
                  to numpy's first occurrences / anti-join; on phase 4's taxi
                  frame drop_duplicates(passenger_count, payment_type) (18
-                 rows) and a difference of rows [0, 4M) against f0 > 0;
+                 rows) and a difference of rows [0, 2M) against f0 > 0;
                  map -> filter -> groupby().agg(4) fused into GROUPBY (K1,
                  3 launches a block, route reg), filter -> cumsum(6) -> map
                  fused into WINDOW (K4, 6 launches a block), sort -> filter
@@ -137,13 +145,32 @@ Phases (any failure raises and the script exits non-zero):
                  seeded plan (transient task errors, one spilled MAP
                  block's file corrupted on every read and recomputed from
                  the lineage the engine recorded), bit-identical with the
-                 recovery counters equal to the injections; read_csv of 2,000,000 taxi rows (equal to the
+                 recovery counters equal to the injections; read_csv of
+                 1,000,000 taxi rows (cut from 2,000,000 for phase 11; equal to the
                  frame written) and its GROUPBY against numpy; a
                  QueryService of 3 tenants sharing one budgeted store, their
                  groupby(n) / agg(4) / groupby(1) statements concurrent, per-session stats summing to the
                  service's, a traced statement's span deltas summing to its
                  stats, a cancel once a block has started, rerun
                  bit-identical
+
+ 11. train     — training recurrentgemma-9b at full width and depth (38
+                 layers, d 4096, vocab 256,000; 7.5e9 random bf16
+                 parameters, Λ as Griffin initialises it), Adafactor, 1 x
+                 4,096 tokens a step, remat on: the dataframe pipeline
+                 (SELECTION -> DROP-DUPLICATES -> MAP -> SORT, OPPORTUNISTIC
+                 prefetch) on the card over synthetic_corpus(2048) with a
+                 short and a duplicate document, its first 8 batches equal
+                 to the CPU pipeline's; a 5-layer full-width gradient oracle
+                 (K5 against linear_scan_plain under autograd, within
+                 ORACLE_LIMITS, which two wrong backwards must break); (a)
+                 6 steps on one repeated batch (the loss must fall), 2
+                 profiled; the first step again from the same seed (its
+                 determinism printed); (b) Trainer.fit for 8 steps over the
+                 pipeline; every step 76 K5 launches (50 fwd, 26 bwd) and
+                 no K6 / K7; walls, tokens/s, peak memory; at the smoke
+                 config, checkpoint round-trip on the card and recovery at
+                 the exact cursor
 
 Run from the root of a checkout:  python3 chip_smoke.py
 The last two lines of standard output are the kernels' JSON record and
@@ -167,7 +194,11 @@ TAXI_ROWS = 16_000_000             # about one month of NYC yellow-cab trips
 PAYMENT = ("card", "cash", "dispute")   # taxi_like_frame's payment_type values
 SERVE_ARCH = "yi-6b"
 SERVE_BATCH, SERVE_SEQ = 8, 1024   # engine slots, cache positions per slot
-SERVE_REQUESTS, SERVE_NEW = 16, 32
+SERVE_REQUESTS, SERVE_NEW = 8, 32     # cut from 16 requests to pay for phase 11
+# decode steps in phase 7's profiled window, cut from 20 to pay for phase
+# 11: reading a window of 20 steps (~58,000 device activities and their
+# CPU activity) back from the profiler took far longer than the steps
+PROFILED_STEPS = 5
 PROMPT_LENS = (64, 512)            # prompt lengths, BOS included, uniform
 # K7 against its plain version at the serving shape, bf16: about one bf16
 # ulp at |x| < 1.  Both round a float32 result to bf16 once, so they may part
@@ -318,11 +349,13 @@ EVENT_CALLS = 200
 # passes); K7 "tc" (one) and "fma" (split, combine)
 SEG_KERNELS = ("seg_reg", "seg_pass")
 DECODE_KERNELS = ("decode_tc", "decode_split", "decode_combine")
-# Every route of the kernels that have two, and K5's one kernel, with its
-# source and kernels: the "kernels" line lists them beside each kernel's
-# main-path launches (a kernel not listed: its source)
+# Every route of the kernels that have two (K5: its forward and its
+# backward), with its source and kernels: the "kernels" line lists them
+# beside each kernel's main-path launches (a kernel not listed: its source)
 KERNEL_ROUTES = {
-    "linear_scan": {"cuda": "src/repro_torch/csrc/linear_scan.cu: lin_walk"},
+    "linear_scan": {"fwd": "src/repro_torch/csrc/linear_scan.cu: lin_walk<VEC, false>",
+                    "bwd": "src/repro_torch/csrc/linear_scan.cu: lin_walk<VEC, true> "
+                           "(the reverse walk)"},
     "segment_reduce": {"reg": "src/repro_torch/csrc/segment_reduce.cu: seg_reg",
                        "table": "src/repro_torch/csrc/segment_reduce.cu: seg_pass1, seg_pass2"},
     "decode_attention": {"tc": "src/repro_torch/csrc/decode_attention_tc.cu: decode_tc",
@@ -359,7 +392,8 @@ def bound_ms(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> tu
 def one_launch_case(torch, case: str, dev):
     """(fn, kernel names) of phase 3's one-launch checks: K1's route reg at
     one Fig. 6 block, K4 at (2,000,000,), K5 at one RG-LRU layer of phase
-    8's prefill, K7's route tc at the serving shape."""
+    8's prefill and its backward at one of phase 11's training step, K7's
+    route tc at the serving shape."""
     if case == "seg_reg":
         from repro_torch.kernels import segment_reduce as sr
         v = torch.rand((2_000_000, 8), device=dev)
@@ -374,6 +408,13 @@ def one_launch_case(torch, case: str, dev):
         a, b = rglru_like(torch, (PREFILL_BATCH, PREFILL_SEQ, 4096),
                           torch.Generator(device=dev).manual_seed(6))
         return (lambda: ls.linear_scan(a, b)), ("lin_walk",)
+    if case == "lin_walk_bwd":
+        from repro_torch.kernels import linear_scan as ls
+        gen = torch.Generator(device=dev).manual_seed(6)
+        a, b = rglru_like(torch, (TRAIN_BATCH, TRAIN_SEQ, 4096), gen)
+        g = torch.randn(a.shape, generator=gen, device=dev)
+        h = ls.linear_scan(a, b)
+        return (lambda: ls.linear_scan_backward(a, g, h)), ("lin_walk",)
     from repro_torch.kernels import decode_attention as da
     q, k, v, lengths = decode_main_inputs(torch, dev)
     return (lambda: da.decode_attention(q, k, v, lengths)), ("decode_tc",)
@@ -869,6 +910,74 @@ def check_linear_scan(torch, ls, dev) -> None:
         f"profiler {records}: one launch a call")
 
 
+# K5's backward against autograd through linear_scan_plain: the reference's
+# three shapes, T = 1, 63, 64, 65 and 4,097, N = 33 and 70 (4-byte copies),
+# and views; the main shape, one RG-LRU layer of phase 11's step, comes after
+K5_BWD_SHAPES = [(16, 8), (300, 17), (1025, 64), (1, 5), (63, 128), (64, 33), (65, 70),
+                 (3, 129, 70), (1, 4097, 33)]
+
+
+def scan_grads(torch, fn, a, b, g, view=None):
+    """(h, grad_a, grad_b) of ``fn`` through autograd, with g the gradient of
+    h; ``view`` (of copies of a and b made leaves) gives fn its inputs, so
+    the gradients come back through the view."""
+    la, lb = a.detach().clone().requires_grad_(), b.detach().clone().requires_grad_()
+    va, vb = (view(la), view(lb)) if view else (la, lb)
+    h = fn(va, vb)
+    return (h.detach(),) + torch.autograd.grad(h, (la, lb), g)
+
+
+def check_linear_scan_backward(torch, ls, dev) -> None:
+    """K5's reverse walk: h, grad_a and grad_b of ``linear_scan`` (the
+    autograd Function, kernels forward and backward) equal (``torch.equal``)
+    to autograd through ``linear_scan_plain`` on the card, one "fwd" and one
+    "bwd" launch a call, at K5_BWD_SHAPES, two time-strided views (16- and
+    4-byte copies) and (1, 4096, 4096) as the RG-LRU makes a; the main
+    shape's backward ten times bit-identical; one launch a backward under
+    the profiler."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    cases = [(shape, torch.rand(shape, generator=gen, device=dev) * 0.95,
+              torch.randn(shape, generator=gen, device=dev), None) for shape in K5_BWD_SHAPES]
+    big = (6, 260, 2, 128)
+    big_a = torch.rand(big, generator=gen, device=dev) * 0.95
+    big_b = torch.randn(big, generator=gen, device=dev)
+    cases += [("view [::2, ::2, 0]", big_a, big_b, lambda t: t[::2, ::2, 0]),
+              ("view [::2, ::2, 1, 5:75]", big_a, big_b, lambda t: t[::2, ::2, 1, 5:75])]
+    a, b = rglru_like(torch, (TRAIN_BATCH, TRAIN_SEQ, 4096), gen)
+    cases.append((f"{[TRAIN_BATCH, TRAIN_SEQ, 4096]} as the RG-LRU makes a", a, b, None))
+    by_copy = {4: 0, 16: 0}
+    for shape, a, b, view in cases:
+        va = view(a) if view else a
+        g = torch.randn(va.shape, generator=gen, device=dev)
+        a3 = va if va.dim() == 3 else va[None]
+        strides = (a3.stride(0), a3.stride(1)) + (va.shape[-2] * va.shape[-1], va.shape[-1]) * 2
+        by_copy[ls.copy_bytes(a3.shape[2], strides, (a3.data_ptr(),))] += 1
+        ls.counter.reset()
+        got = scan_grads(torch, ls.linear_scan, a, b, g, view)
+        if ls.counter.routes != {"fwd": 1, "bwd": 1}:
+            raise AssertionError(f"linear_scan backward {shape}: launches {ls.counter.routes}, "
+                                 "not one forward and one backward")
+        want = scan_grads(torch, ls.linear_scan_plain, a, b, g, view)
+        for name, x, y in zip(("h", "grad_a", "grad_b"), got, want):
+            if not torch.equal(x, y):
+                raise AssertionError(f"linear_scan backward {shape}: {name} not equal to "
+                                     f"autograd through the plain version (max |err| "
+                                     f"{float((x - y).abs().max()):.3g})")
+    assert by_copy[4] and by_copy[16], by_copy
+    g = torch.randn(a.shape, generator=gen, device=dev)
+    h = ls.linear_scan(a, b)
+    ga, gb = ls.linear_scan_backward(a, g, h)
+    for _ in range(10):
+        ra, rb = ls.linear_scan_backward(a, g, h)
+        if not (torch.equal(ga, ra) and torch.equal(gb, rb)):
+            raise AssertionError("linear_scan backward main shape: reruns differ")
+    records = one_launch(torch, "lin_walk_bwd", dev)
+    log(f"  linear_scan backward: {len(cases)} shapes and views (copies of 4 / 16 bytes: "
+        f"{by_copy[4]} / {by_copy[16]} cases) equal to autograd through the plain version, "
+        f"one fwd and one bwd launch each; {list(a.shape)} 10 reruns bit-identical; 5 calls "
+        f"gave the profiler {records}: one launch a backward")
+
+
 def flash_main_inputs(torch, dev, which: str):
     """K6 at its main shapes, bf16: yi-6b's prefill (phase 7; causal, 32
     heads over 4 KV heads, D 128) or recurrentgemma-9b's local layers
@@ -1144,6 +1253,24 @@ def time_kernels(torch, sr, bt, oh, ws, da, ls, fa, dev, pool: int) -> dict:
         plain_ms=cuda_ms(lambda: ls.linear_scan_plain(a, b), iters=3, warmup=1),
         library_ms=None, bound_ms=b_bound, bound_by=by)
     del a, b
+    # its backward at one RG-LRU layer of phase 11's training step: a, g and
+    # h read once, grad_a and grad_b written once; a multiply, an add and a
+    # multiply an element.  No single PyTorch call computes it either.
+    a, b = rglru_like(torch, (TRAIN_BATCH, TRAIN_SEQ, 4096), gen)
+    g = torch.randn(a.shape, generator=gen, device=dev)
+    h = ls.linear_scan(a, b)
+    bwd = lambda: ls.linear_scan_backward(a, g, h)
+    ga, gb = bwd()
+    pa, pb = ls.linear_scan_backward_plain(a, g, h)
+    b_bound, by = bound_ms(5 * a.numel() * 4, 3 * a.numel())
+    out["linear_scan"]["backward"] = dict(
+        shape=list(a.shape),
+        max_abs_err=max(float((ga - pa).abs().max()), float((gb - pb).abs().max())),
+        ms=cuda_ms(bwd, iters=EVENT_CALLS), device_ms=device_ms(bwd, ("lin_walk",)),
+        host_ms=host_ms(bwd),
+        plain_ms=cuda_ms(lambda: ls.linear_scan_backward_plain(a, g, h), iters=1, warmup=1),
+        library_ms=None, bound_ms=b_bound, bound_by=by)
+    del a, b, g, h, ga, gb, pa, pb
     # flash attention: one local layer of phase 8's prefill (the JSON row)
     # and one layer of phase 7's yi-6b prefill, bf16 on the tensor cores;
     # the library call is scaled_dot_product_attention with enable_gqa and
@@ -1763,12 +1890,14 @@ def prefill_ms(torch, model, params, toks, runs: int = 3) -> list:
     return times[1:]
 
 
-def profile_window(torch, fn, per: int, label: str, mine: dict | None = None) -> None:
+def profile_window(torch, fn, per: int, label: str, mine: dict | None = None,
+                   tries: int = 2, cuda_only: bool = False) -> None:
     """Run ``fn`` under the CUDA profiler; print the device's busy share of
     the window's wall and its largest device activities, per ``per``; and
     for each of ``mine`` (label: kernel names) the device time and share of
-    the busy time of the kernels whose names contain one of the names."""
-    events, wall = device_window(torch, fn)
+    the busy time of the kernels whose names contain one of the names.
+    ``tries`` and ``cuda_only`` as ``device_window``'s."""
+    events, wall = device_window(torch, fn, cuda_only=cuda_only, tries=tries)
     if events is None:
         log(f"  {label}: device busy not measured ({wall * 1e3:.3f} ms wall)")
         return
@@ -1810,7 +1939,7 @@ def serving_phase(torch, np, da, dev, card: str) -> tuple[dict, dict]:
     xla = dataclasses.replace(cfg, attn_impl="xla")
     oracle_model = build_model(xla, dev)
 
-    # the main path: 16 requests, K7 on every layer of every step
+    # the main path: SERVE_REQUESTS requests, K7 on every layer of every step
     da.counter.reset()
     run = serve(model, params, prompts, record=True)
     launches = da.counter.launches
@@ -1844,14 +1973,16 @@ def serving_phase(torch, np, da, dev, card: str) -> tuple[dict, dict]:
         f"by route {k7_routes}; "
         f"max_memory_allocated {peak / 1e9:.3f} GB; final lengths {lengths}")
 
-    # device busy share over 20 steps of the same traffic, under the profiler
+    # device busy share over PROFILED_STEPS steps of the same traffic, under
+    # the profiler
     warm = serve(model, params, prompts, steps=40)
     weng = warm["engine"]
 
-    def twenty():
-        for _ in range(20):
+    def profiled_steps():
+        for _ in range(PROFILED_STEPS):
             weng.step()
-    profile_window(torch, twenty, 20, "step (profiled window, steps 41-60)",
+    profile_window(torch, profiled_steps, PROFILED_STEPS,
+                   f"step (profiled window, steps 41-{40 + PROFILED_STEPS})",
                    {"K7": DECODE_KERNELS})
     del warm, weng
 
@@ -1871,6 +2002,7 @@ def serving_phase(torch, np, da, dev, card: str) -> tuple[dict, dict]:
     # same steps with two deliberately wrong attentions, which the limits
     # must catch
     from repro_torch.kernels import ops as kops
+    t_check = time.perf_counter()
     toks = torch.tensor([p[:64] for p in prompts[:SERVE_BATCH]], dtype=torch.int32, device=dev)
     want = teacher_forced(torch, transformer, params, toks, xla, dev)
     readings = logit_readings(teacher_forced(torch, transformer, params, toks, cfg, dev), want)
@@ -1897,11 +2029,13 @@ def serving_phase(torch, np, da, dev, card: str) -> tuple[dict, dict]:
         if within_logit_limits(bad):
             raise AssertionError(f"check 3's limits do not catch K7 with {name}: {bad}")
     del want
+    log(f"  check 3 (four teacher-forced runs): {time.perf_counter() - t_check:.1f} s")
 
     # prefill: B 4 x 1,024 tokens, every layer's attention on K6 (the main
     # path: the counters are reset just before it), against attn_impl="xla"
     # at the last position and every 128th
     from repro_torch.kernels import flash_attention as fa
+    t_check = time.perf_counter()
     rng = np.random.default_rng(2)
     ptoks = torch.tensor(rng.integers(3, cfg.vocab, (YI_PREFILL_BATCH, YI_PREFILL_SEQ)),
                          dtype=torch.int32, device=dev)
@@ -1928,14 +2062,17 @@ def serving_phase(torch, np, da, dev, card: str) -> tuple[dict, dict]:
     log("  " + show_readings(f"K6 vs xla at positions 127, 255, ..., {YI_PREFILL_SEQ - 1}",
                              readings, YI_PREFILL_LIMITS))
     assert within_logit_limits(readings, YI_PREFILL_LIMITS), readings
+    log(f"  the prefill's checks: {time.perf_counter() - t_check:.1f} s")
 
     # check 4: one request alone, then beside seven others
+    t_check = time.perf_counter()
     short = [p[:96] for p in prompts[:SERVE_BATCH]]
     alone = serve(model, params, short[:1])["reqs"][0].out_ids
     mixed = serve(model, params, short)["reqs"][0].out_ids
     assert alone == mixed, (alone, mixed)
     log(f"  slot isolation: request 0 ({len(short[0])}-token prompt) alone and beside 7 "
-        f"others gives the same {len(alone)} tokens")
+        f"others gives the same {len(alone)} tokens: {time.perf_counter() - t_check:.1f} s")
+    t_check = time.perf_counter()
 
     # check 5: max_seq 64 and a request of 100 tokens in all
     long = serve_prompts(np, cfg.vocab, n=1, seed=1)
@@ -1947,7 +2084,7 @@ def serving_phase(torch, np, da, dev, card: str) -> tuple[dict, dict]:
     assert lengths == runs[1]["engine"].cache["length"].tolist() and min(lengths) > 64, lengths
     log(f"  max_seq 64, a {len(long[0])}-token prompt + {SERVE_NEW} new: no fault, final "
         f"lengths {lengths}; {equal} tokens equal to the xla run, {parted} parted at a "
-        f"near-tie, max |logit diff| {worst:.4g}")
+        f"near-tie, max |logit diff| {worst:.4g}: {time.perf_counter() - t_check:.1f} s")
     del runs, model, oracle_model, params
     torch.cuda.empty_cache()
     return k7_routes, k6_routes
@@ -2104,7 +2241,9 @@ def prefill_phase(torch, np, fa, ls, dev, card: str) -> tuple[dict, dict]:
 DUP_ROWS = 4_000_000
 DUP_RIGHT_ROWS = 1_000_000
 DUP_STRINGS = tuple(f"s{i:02d}" for i in range(12))
-DIFF_LEFT_ROWS = 4_000_000    # the taxi difference's left side: rows [0, 4M)
+# the taxi difference's left side: rows [0, 2M), cut from 4M to pay for
+# phase 11 (its host-bound key factorization took 21.6 s at 4M on an H100)
+DIFF_LEFT_ROWS = 2_000_000
 FLOATS = [f"f{j}" for j in range(6)]
 # bench_dedup.py's three modes: (REPRO_* knobs, optimize)
 DEDUP_MODES = {"serial": ({"REPRO_BLOCK_DEDUP": "0"}, False), "block": ({}, False),
@@ -2502,7 +2641,8 @@ def algebra_phase(torch, np, dev, taxi, counters: dict) -> dict:
 # phase 10: the out-of-core engine under an HBM budget
 # -----------------------------------------------------------------------------
 OOC_BUDGET = 256 << 20     # the taxi frame is 2.3x this
-CSV_ROWS = 2_000_000       # rows of the taxi frame written to CSV and read back
+CSV_ROWS = 1_000_000       # rows of the taxi frame written to CSV and read back (cut
+#                            from 2,000,000 to pay for phase 11)
 OOC_CHAOS_SEED = 5
 OOC_CHAOS_WORKER = 0.25    # the chaos plan's transient task-error rate
 SVC_TENANTS = 3
@@ -3082,6 +3222,386 @@ def outofcore_phase(torch, np, dev, taxi, counters: dict) -> dict:
     return launches
 
 
+# -----------------------------------------------------------------------------
+# phase 11: training recurrentgemma-9b at full width
+# -----------------------------------------------------------------------------
+TRAIN_ARCH = "recurrentgemma-9b"
+TRAIN_BATCH, TRAIN_SEQ = 1, 4096          # tokens a step: one 4,096-token sequence
+TRAIN_DOCS, TRAIN_SHARD = 2048, 512       # synthetic_corpus(2048, seed=0), 4 shards
+PIPE_BATCHES = 8                          # batches held card against CPU
+STEPS_REPEATED, STEPS_FIT = 6, 8          # (a) one repeated batch; (b) Trainer.fit
+ORACLE_LAYERS = 5                         # one superblock (remat'd) + the 2-layer tail
+SMOKE_TRAIN = dict(seq_len=16, global_batch=4, shard_docs=100)
+# Limits of the 5-layer gradient oracle, K5 (forward and reverse walk)
+# against linear_scan_plain under autograd, on the same weights and batch:
+# |loss difference|, |grad norm ratio - 1|, and the largest relative norm
+# of a parameter's gradient difference.  The sound readings on an H100 are
+# exactly 0, 0, 0 (PERF.md, "Findings"): K5's forward is bit-equal to the plain
+# version and its backward equal to autograd through it, and the rest of
+# the step is deterministic on the card.  The limits leave room for float
+# noise only; the two deliberately wrong backwards read 7.0e-6 / 2.23
+# (grad_a zeroed) and 6.7e-3 / 0.805 (the carry dropped every 64 steps).
+ORACLE_LIMITS = (1e-6, 1e-6, 1e-5)
+
+
+def train_corpus() -> list:
+    """synthetic_corpus(TRAIN_DOCS, seed=0) with one short document (the
+    SELECTION drops it) and one duplicate (DROP-DUPLICATES drops it), as
+    tests/test_pipeline.py builds its corpus."""
+    from repro_torch.data import synthetic_corpus
+    corpus = synthetic_corpus(TRAIN_DOCS, seed=0)
+    corpus[10] = "short"
+    corpus[11] = corpus[12]
+    return corpus
+
+
+def train_pipeline(torch, dev, vocab: int):
+    """The pipeline on the card, its first PIPE_BATCHES batches against the
+    same pipeline's on the CPU (bit for bit), its shard-0 stages, and its
+    background prefetch; returns the pipeline and its first batch."""
+    from repro_torch.data import DataPipeline, PipelineConfig
+    pc = PipelineConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, shard_docs=TRAIN_SHARD)
+    corpus = train_corpus()
+    t0 = time.perf_counter()
+    pipe = DataPipeline(corpus, vocab, pc, device=dev)
+    card = [b for _, b in zip(range(PIPE_BATCHES), pipe.batches())]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = [b for _, b in zip(range(PIPE_BATCHES), DataPipeline(corpus, vocab, pc,
+                                                               device="cpu").batches())]
+    cpu_wall = time.perf_counter() - t0
+    assert len(card) == len(cpu) == PIPE_BATCHES
+    for i, (x, y) in enumerate(zip(card, cpu)):
+        for k in ("tokens", "labels", "mask"):
+            if x[k].device != dev or not torch.equal(x[k].cpu(), y[k]):
+                raise AssertionError(f"pipeline batch {i} {k}: the card's differs from the CPU's")
+    frame = pipe.session.collect(pipe._shard_plan(0))
+    texts = frame.col("text").to_pylist()
+    counts = frame.col("token_count").to_pylist()
+    assert "short" not in texts and len(texts) == len(set(texts)) == TRAIN_SHARD - 2, len(texts)
+    assert counts == sorted(counts)
+    stats = pipe.stats()
+    assert stats["background_tasks"] >= 1, stats
+    log(f"  pipeline: {TRAIN_DOCS} docs in shards of {TRAIN_SHARD}, SELECTION -> DROP-DUPLICATES "
+        f"-> MAP -> SORT on {dev} (shard 0: {TRAIN_SHARD} docs -> {len(texts)}), {PIPE_BATCHES} "
+        f"batches of {TRAIN_BATCH} x {TRAIN_SEQ} in {wall:.3f} s (CPU {cpu_wall:.3f} s), "
+        f"bit-equal to the CPU pipeline's; stats {stats}")
+    return pipe, card[0]
+
+
+def set_griffin_lam(torch, params: dict, cfg, seed: int) -> None:
+    gen = torch.Generator(device=params["embed"].device).manual_seed(seed)
+    with torch.no_grad():
+        for p in params["layers"]:
+            if "rglru" in p:
+                p["rglru"]["lam"].copy_(griffin_lam(torch, cfg.rnn_width_, gen))
+
+
+def wrong_scan(torch, ls, kind: str):
+    """K5 forward with a deliberately wrong backward: grad_a zeroed, or the
+    reverse walk restarted (dh and h_{t-1} taken as 0) every K5_WRONG_CUT
+    steps."""
+    class Wrong(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, a, b):
+            h = ls.linear_scan(a, b)
+            ctx.save_for_backward(a, h)
+            return h
+
+        @staticmethod
+        def backward(ctx, g):
+            a, h = ctx.saved_tensors
+            if kind == "zero":
+                ga, gb = ls.linear_scan_backward(a, g, h)
+                return torch.zeros_like(ga), gb
+            parts = [ls.linear_scan_backward(a[:, i:i + K5_WRONG_CUT], g[:, i:i + K5_WRONG_CUT],
+                                             h[:, i:i + K5_WRONG_CUT])
+                     for i in range(0, a.shape[1], K5_WRONG_CUT)]
+            return torch.cat([p[0] for p in parts], 1), torch.cat([p[1] for p in parts], 1)
+    return lambda a, b: Wrong.apply(a.float(), b.float())
+
+
+def oracle_readings(torch, want, got) -> tuple[float, float, float]:
+    (wl, wg), (gl, gg) = want, got
+    wn = torch.sqrt(sum((g.float() ** 2).sum() for g in wg))
+    gn = torch.sqrt(sum((g.float() ** 2).sum() for g in gg))
+    worst = max(float((x.float() - y.float()).norm() / y.float().norm().clamp(min=1e-30))
+                for x, y in zip(gg, wg))
+    return abs(float(gl) - float(wl)), abs(float(gn / wn) - 1), worst
+
+
+def gradient_oracle(torch, ls, cfg, dev, batch) -> None:
+    """One loss and gradient at full width and ORACLE_LAYERS layers (one
+    remat'd superblock, the 2-layer tail), K5 against linear_scan_plain
+    swapped into kernels.ops, within ORACLE_LIMITS; two wrong backwards
+    must break them."""
+    import dataclasses
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import build_model
+    from repro_torch.train.tree import leaves
+    small = dataclasses.replace(cfg, n_layers=ORACLE_LAYERS)
+    model = build_model(small, dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(2))
+    set_griffin_lam(torch, params, small, 3)
+    for p in leaves(params):
+        p.requires_grad_(True)
+
+    def run(scan=None):
+        right = kops.linear_scan
+        if scan is not None:
+            kops.linear_scan = scan
+        try:
+            loss, _ = model.loss_fn(params, batch)
+            return loss.detach(), torch.autograd.grad(loss, leaves(params))
+        finally:
+            kops.linear_scan = right
+
+    t0 = time.perf_counter()
+    ls.counter.reset()
+    mine = run()
+    torch.cuda.synchronize()
+    k5 = dict(ls.counter.routes)
+    wall = time.perf_counter() - t0
+    rglru = sum(1 for p in params["layers"] if "rglru" in p)
+    assert k5 == {"fwd": rglru + 2, "bwd": rglru}, k5     # the superblock's 2 recomputed
+    t0 = time.perf_counter()
+    plain = run(lambda a, b: ls.linear_scan_plain(a.float(), b.float()))
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    sound = oracle_readings(torch, plain, mine)
+    within = all(r <= lim for r, lim in zip(sound, ORACLE_LIMITS))
+    log(f"  gradient oracle, {ORACLE_LAYERS} layers at full width, {TRAIN_BATCH} x {TRAIN_SEQ}: "
+        f"K5 {wall:.3f} s ({k5}), linear_scan_plain under autograd {plain_wall:.3f} s; "
+        f"|loss diff| {sound[0]:.6g}, |grad norm ratio - 1| {sound[1]:.6g}, worst gradient "
+        f"{sound[2]:.6g} relative norm; limits {ORACLE_LIMITS}"
+        + (": within" if within else ": OUTSIDE"))
+    failures = [] if within else [f"K5 vs plain outside the oracle limits: {sound}"]
+    for kind, name in (("zero", "grad_a zeroed"),
+                       ("cut", f"the reverse walk's carry dropped every {K5_WRONG_CUT} steps")):
+        bad = oracle_readings(torch, plain, run(wrong_scan(torch, ls, kind)))
+        caught = not all(r <= lim for r, lim in zip(bad, ORACLE_LIMITS))
+        log(f"  {name}: |loss diff| {bad[0]:.6g}, |grad norm ratio - 1| {bad[1]:.6g}, worst "
+            f"gradient {bad[2]:.6g}" + (": caught" if caught else ": within the limits"))
+        if not caught:
+            failures.append(f"the oracle limits do not catch {name}: {bad}")
+    del model, params, mine, plain
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def param_digest(torch, params: dict) -> list:
+    """Per parameter, the sum of its bit patterns as integers: equal lists
+    for bit-identical parameters (and, in practice, different ones
+    otherwise)."""
+    from repro_torch.train.tree import leaves
+    sums = [p.detach().view(torch.int16 if p.element_size() == 2 else torch.int32)
+            .sum(dtype=torch.int64) for p in leaves(params)]
+    return torch.stack(sums).tolist()
+
+
+def step_walls(np, walls: list) -> str:
+    w = np.asarray(walls)
+    return (f"wall s {[round(x, 4) for x in walls]} (median {np.median(w):.4f}, p90 "
+            f"{np.percentile(w, 90):.4f}; {TRAIN_BATCH * TRAIN_SEQ / np.median(w):.1f} tokens/s)")
+
+
+def checkpoint_on_card(torch, dev) -> None:
+    """CheckpointManager round-trips a CUDA state (smoke config, after one
+    step) bit for bit, and run_with_recovery resumes at the exact cursor
+    after a failure before batch 8: the restart trains batches 7.. again
+    from the step-6 checkpoint, and ends at step 10."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataPipeline, PipelineConfig, synthetic_corpus
+    from repro_torch.models import build_model
+    from repro_torch.train import CheckpointManager, adafactor
+    from repro_torch.train.fault import FailurePlan, run_with_recovery
+    from repro_torch.train.schedule import constant
+    from repro_torch.train.trainer import TrainConfig, Trainer, init_state, make_train_step
+    from repro_torch.train.tree import leaves
+    cfg = get_smoke_config(TRAIN_ARCH)
+    model = build_model(cfg, dev)
+    corpus = synthetic_corpus(400, seed=5, mean_len=30)
+    pc = PipelineConfig(**SMOKE_TRAIN)
+    batch = next(DataPipeline(corpus, cfg.vocab, pc, device=dev).batches())
+    state, _ = make_train_step(model, adafactor(), constant(1e-3))(
+        init_state(model, 0, adafactor()), batch)
+    mgr = CheckpointManager(spill_dir("ckpt_roundtrip"), keep=2)
+    mgr.save(1, state, extra={"cursor": 1}, blocking=True)
+    back, extra = mgr.restore(init_state(model, 1, adafactor()))
+    for a, b in zip(leaves(state), leaves(back)):
+        assert a.device == b.device and a.dtype == b.dtype and torch.equal(a.detach(), b), a.shape
+    assert extra == {"cursor": 1}
+    seen = []
+
+    def run(plan):
+        trainer = Trainer(model, TrainConfig(lr=1e-3, total_steps=10,
+                                             checkpoint_dir=spill_dir("ckpt_recovery"),
+                                             checkpoint_every=3, log_every=100))
+        step_fn = trainer.train_step
+
+        def recording(st, b):
+            seen.append(int(b["tokens"][0, 0]))
+            return step_fn(st, b)
+        trainer.train_step = recording
+        return run_with_recovery(trainer, lambda: DataPipeline(corpus, cfg.vocab, pc,
+                                                               device=dev).batches(),
+                                 steps=10, failure_plan=plan)
+
+    failed = run(FailurePlan(fail_at_steps=(8,)))
+    after_failure = list(seen)
+    seen.clear()
+    clean = run(None)
+    assert int(failed["step"]) == int(clean["step"]) == 10
+    assert after_failure == seen[:7] + seen[6:], (after_failure, seen)
+    same = all(torch.equal(a.detach(), b.detach())
+               for a, b in zip(leaves(failed["params"]), leaves(clean["params"])))
+    log(f"  checkpoint on {dev} (smoke {TRAIN_ARCH}): {len(leaves(state))} tensors round-trip "
+        f"bit for bit; recovery from a failure before batch 8 resumed at the step-6 cursor "
+        f"(batches trained {len(after_failure)} = 7 + 4), ends at step 10; its parameters "
+        f"{'equal' if same else 'differ from'} an uninterrupted run's")
+
+
+def train_phase(torch, np, ls, fa, da, dev, card: str) -> dict:
+    """Phase 11; returns K5's launches by route in the main path's steps
+    ((a) and (b)); K6 and K7 must launch none."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, transformer
+    from repro_torch.train import adafactor
+    from repro_torch.train.schedule import constant
+    from repro_torch.train.trainer import TrainConfig, Trainer, init_state, make_train_step
+    from repro_torch.train.tree import leaves, leaves_with_paths, path_name
+    cfg = get_config(TRAIN_ARCH)
+    kinds = transformer.layer_kinds(cfg)
+    repeats, _ = cfg.repeats_and_tail()
+    rglru = kinds.count("rglru")
+    recomputed = repeats * cfg.pattern.count("rglru")
+    per_step = {"fwd": rglru + recomputed, "bwd": rglru}
+    pipe, batch = train_pipeline(torch, dev, cfg.vocab)
+    t_part = time.perf_counter()
+    gradient_oracle(torch, ls, cfg, dev, batch)
+    log(f"  the gradient oracle: {time.perf_counter() - t_part:.1f} s")
+    t_part = time.perf_counter()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, dev)
+    opt = adafactor()
+    state = init_state(model, torch.Generator(device=dev).manual_seed(0), opt)
+    set_griffin_lam(torch, state["params"], cfg, 1)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in leaves(state["params"]))
+    p_bytes = sum(p.numel() * p.element_size() for p in leaves(state["params"]))
+    opt_bytes = sum(t.numel() * t.element_size() for t in leaves(state["opt"]))
+    log(f"  {cfg.name}: {cfg.n_layers} layers ({rglru} rglru, {kinds.count('local')} local, "
+        f"window {cfg.window}), d {cfg.d_model}, vocab {cfg.vocab}; "
+        f"{n_params} parameters ({p_bytes / 1e9:.3f} GB, random from seed "
+        f"0, Λ as Griffin's init), Adafactor state {opt_bytes / 1e9:.3f} GB: "
+        f"{time.perf_counter() - t0:.1f} s")
+    step = make_train_step(model, opt, constant(1e-3))
+    counters = {"linear_scan": ls.counter, "flash_attention": fa.counter,
+                "decode_attention": da.counter}
+    for c in counters.values():
+        c.reset()
+    total = {"fwd": 0, "bwd": 0}
+
+    def one(state, b, walls, losses, norms):
+        before = dict(ls.counter.routes)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        got = {k: ls.counter.routes.get(k, 0) - before.get(k, 0) for k in per_step}
+        if got != per_step:
+            raise AssertionError(f"a step launched K5 {got}, want {per_step}")
+        return state
+
+    # (a) STEPS_REPEATED steps on one batch: the loss must fall
+    walls, losses, norms = [], [], []
+    digest = None
+    for i in range(STEPS_REPEATED):
+        state = one(state, batch, walls, losses, norms)
+        if i == 0:
+            digest = param_digest(torch, state["params"])
+    peak = torch.cuda.max_memory_allocated()
+    for k in total:
+        total[k] += ls.counter.routes.get(k, 0)
+    others = {k: c.launches for k, c in counters.items() if k != "linear_scan"}
+    assert others == {"flash_attention": 0, "decode_attention": 0}, others
+    log(f"  (a) {STEPS_REPEATED} steps of Adafactor at lr 1e-3 on one batch of {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}: loss {[round(x, 5) for x in losses]}, grad norm "
+        f"{[round(x, 5) for x in norms]}; {step_walls(np, walls)}; K5 {per_step} a step, K6 / K7 "
+        f"none; max_memory_allocated {peak / 1e9:.3f} GB (parameters {p_bytes / 1e9:.3f} + "
+        f"their gradients {p_bytes / 1e9:.3f} + Adafactor {opt_bytes / 1e9:.3f} GB) | {card}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall over the repeated batch: {losses}")
+    log(f"  (a) with the model's init: {time.perf_counter() - t_part:.1f} s")
+    t_part = time.perf_counter()
+    # one window of CUDA activity alone, not retaken if lost: 2 steps are
+    # ~43,000 device activities, and tracing their CPU activity too makes
+    # the window slow to read
+    profile_window(torch, lambda: [step(state, batch) for _ in range(2)], 2,
+                   "step (profiled, 2 steps)", {"K5 (fwd and bwd)": ("lin_walk",)},
+                   tries=1, cuda_only=True)
+    log(f"  the profiled steps: {time.perf_counter() - t_part:.1f} s")
+    t_part = time.perf_counter()
+
+    # determinism, a reading: the first step again from the same seed and
+    # batch (the model holds the parameters too: drop them before the new ones)
+    del state
+    model.params = None
+    torch.cuda.empty_cache()
+    state = init_state(model, torch.Generator(device=dev).manual_seed(0), opt)
+    set_griffin_lam(torch, state["params"], cfg, 1)
+    w2, l2, n2 = [], [], []
+    state = one(state, batch, w2, l2, n2)
+    again = param_digest(torch, state["params"])
+    names = [path_name(p) for p, _ in leaves_with_paths(state["params"])]
+    differ = [n for n, x, y in zip(names, digest, again) if x != y]
+    log(f"  determinism (a reading): the first step again from seed 0: loss {l2[0]!r} vs "
+        f"{losses[0]!r}, grad norm {n2[0]!r} vs {norms[0]!r}; updated parameters "
+        + ("bit-identical" if not differ else f"differ in {len(differ)} tensors, first "
+           f"{differ[:3]}") + f": {time.perf_counter() - t_part:.1f} s")
+    del state
+    model.params = None
+    torch.cuda.empty_cache()
+
+    # (b) Trainer.fit over the pipeline's batches, warmup-cosine schedule
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(model, TrainConfig(lr=1e-3, warmup_steps=2, total_steps=STEPS_FIT,
+                                         log_every=1))
+    before = dict(ls.counter.routes)
+    t0 = time.perf_counter()
+    state = trainer.fit(pipe.batches(), steps=STEPS_FIT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fit = {k: ls.counter.routes.get(k, 0) - before.get(k, 0) for k in per_step}
+    for k in total:
+        total[k] += fit[k]
+    hist = trainer.history
+    assert [r["step"] for r in hist] == list(range(1, STEPS_FIT + 1)), hist
+    assert all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in hist), hist
+    assert fit == {k: v * STEPS_FIT for k, v in per_step.items()}, fit
+    others = {k: c.launches for k, c in counters.items() if k != "linear_scan"}
+    assert others == {"flash_attention": 0, "decode_attention": 0}, others
+    fit_walls = [float(x) for x in np.diff([0.0] + [r["wall_s"] for r in hist])]
+    log(f"  (b) Trainer.fit, {STEPS_FIT} steps over the pipeline (warmup 2, cosine, Adafactor): "
+        f"loss {[round(r['loss'], 5) for r in hist]}, lr {[round(r['lr'], 8) for r in hist]}, "
+        f"grad norm {[round(r['grad_norm'], 5) for r in hist]}; {step_walls(np, fit_walls)}; "
+        f"{wall:.1f} s with init; K5 {fit}; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB | {card}")
+    del state, trainer, model
+    torch.cuda.empty_cache()
+    t_part = time.perf_counter()
+    checkpoint_on_card(torch, dev)
+    log(f"  checkpoint and recovery: {time.perf_counter() - t_part:.1f} s")
+    return total
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -3126,6 +3646,7 @@ def main() -> int:
     check_window_scan(torch, ws, dev)
     check_decode_attention(torch, da, dev)
     check_linear_scan(torch, ls, dev)
+    check_linear_scan_backward(torch, ls, dev)
     check_flash_attention(torch, fa, dev)
     check_wide_aggregate(torch, dev)
     timings = time_kernels(torch, sr, bt, oh, ws, da, ls, fa, dev, pool)
@@ -3142,6 +3663,12 @@ def main() -> int:
             f"{ms_text(rec['device_ms'])} ms{host}), plain "
             f"{rec['plain_ms']:.4f} ms, library {lib}, bound "
             f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), max |err| {rec['max_abs_err']:.3g}")
+        if "backward" in rec:
+            bw = rec["backward"]
+            log(f"  {rec['name']} backward {bw['shape']}: kernel {bw['ms']:.4f} ms (on the "
+                f"device {ms_text(bw['device_ms'])} ms, host {bw['host_ms']:.4f} ms a call), "
+                f"plain {bw['plain_ms']:.4f} ms, library none, bound {bw['bound_ms']:.4f} ms "
+                f"({bw['bound_by']}), max |err| {bw['max_abs_err']:.3g}")
     torch.cuda.empty_cache()
     log(f"[kernels] {time.perf_counter() - t0:.1f} s")
 
@@ -3157,7 +3684,7 @@ def main() -> int:
     launches = dict.fromkeys(counters, 0)
     # main-path launches by route of the kernels that have two
     by_route = {"segment_reduce": {"reg": 0, "table": 0}, "decode_attention": {"tc": 0, "fma": 0},
-                "flash_attention": {"tc": 0, "fma": 0}}
+                "flash_attention": {"tc": 0, "fma": 0}, "linear_scan": {"fwd": 0, "bwd": 0}}
 
     def add_routes(kernel: str, routes: dict) -> None:
         for route, n in routes.items():
@@ -3233,6 +3760,7 @@ def main() -> int:
     phase8, k6_routes = prefill_phase(torch, np, fa, ls, dev, card)
     for k, n in phase8.items():
         launches[k] += n
+    by_route["linear_scan"]["fwd"] += phase8["linear_scan"]
     add_routes("flash_attention", k6_routes)
     log(f"[prefill] {time.perf_counter() - t0:.1f} s")
 
@@ -3264,6 +3792,19 @@ def main() -> int:
         assert n > 0, f"phase 10 never launched {k}"
     add_routes("segment_reduce", phase10["segment_reduce"][1])
     log(f"[outofcore] {time.perf_counter() - t0:.1f} s")
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log(f"[train] {TRAIN_ARCH} at full width: the data pipeline, Adafactor steps of "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens, K5 forward and backward, checkpoint and recovery "
+        f"on {dev}")
+    for c in counters.values():
+        c.reset()
+    k5_routes = train_phase(torch, np, ls, fa, da, dev, card)
+    launches["linear_scan"] += sum(k5_routes.values())
+    by_route["linear_scan"]["fwd"] += k5_routes["fwd"]
+    by_route["linear_scan"]["bwd"] += k5_routes["bwd"]
+    log(f"[train] {time.perf_counter() - t0:.1f} s")
 
     record = []
     for k in ("segment_reduce", "block_transpose", "onehot_encode", "window_scan",

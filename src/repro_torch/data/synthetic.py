@@ -1,7 +1,9 @@
-"""Synthetic tabular data shaped like the paper's NYC-taxicab benchmark
-(Fig. 6 uses taxi trips replicated 1–11×), built straight from numpy arrays.
+"""Synthetic data generators: a toy text corpus (for the end-to-end
+training examples) and tabular data shaped like the paper's NYC-taxicab
+benchmark (Fig. 6 uses taxi trips replicated 1–11×), the tables built
+straight from numpy arrays.
 
-For a given seed both generators give the same numbers as the JAX package's
+For a given seed every generator gives the same values as the JAX package's
 ``repro/data/synthetic.py``: the same ``rng`` calls in the same order, the
 same null masks (a null slot stores 0, as schema parsing leaves it) and the
 same first-occurrence dictionary.  They skip the per-value Python lists,
@@ -17,6 +19,25 @@ from ..core.frame import Column, Frame
 from ..core.labels import RangeLabels, labels_from_values
 
 _PAYMENT = ("card", "cash", "dispute")
+_WORDS = (
+    "the of and a to in is you that it he was for on are as with his they I "
+    "at be this have from or one had by word but not what all were we when "
+    "your can said there use an each which she do how their if will up other "
+    "about out many then them these so some her would make like him into time "
+    "has look two more write go see number no way could people my than first "
+    "water been call who oil its now find long down day did get come made may"
+).split()
+
+
+def synthetic_corpus(n_docs: int, seed: int = 0, mean_len: int = 64) -> list[str]:
+    """``n_docs`` documents of at least 4 words drawn from a fixed list of
+    common English words, Poisson(``mean_len``) words each."""
+    rng = np.random.default_rng(seed)
+    docs = []
+    for _ in range(n_docs):
+        n = max(4, int(rng.poisson(mean_len)))
+        docs.append(" ".join(rng.choice(_WORDS, size=n)))
+    return docs
 
 
 def _first_occurrence(idx: np.ndarray, k: int) -> tuple[np.ndarray, tuple]:

@@ -51,6 +51,8 @@ _SIGNATURES = {
                                   _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I32, _I32,
                                   _F32, _P),
     "repro_linear_scan": (_P, _P, _P, _I32, _I64, _I32, _I64, _I64, _I64, _I64, _I32, _P),
+    "repro_linear_scan_bwd": (_P, _P, _P, _P, _P, _I32, _I64, _I32, _I64, _I64, _I64, _I64,
+                              _I64, _I64, _I32, _P),
     "repro_flash_attention": (_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I64, _I64,
                               _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
                               _I32, _I64, _F32, _P),

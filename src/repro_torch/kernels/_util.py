@@ -8,7 +8,7 @@ import threading
 import torch
 
 __all__ = ["widen_for_kernel", "narrow_from_kernel", "on_cpu", "on_device", "cuda_stream",
-           "LaunchCounter"]
+           "refuse_grad", "LaunchCounter"]
 
 
 # The kernels move float32 and int32 words; bools and narrow ints are widened
@@ -42,6 +42,18 @@ def on_cpu(kernel: str, *tensors: torch.Tensor) -> bool:
         return True
     raise ValueError(f"{kernel}: tensors must all be on the CPU or all on one "
                      f"CUDA device, got {sorted(str(t.device) for t in tensors)}")
+
+
+def refuse_grad(kernel: str, tag: str, *tensors: torch.Tensor) -> None:
+    """Raise where a kernel without a backward would be recorded for one:
+    grad mode on and an input requiring grad, on any device.  The kernel
+    fills its output through ctypes, which autograd cannot see, so on the
+    card the gradient would be lost without a word."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel} ({tag}) has no backward, in this port or in the JAX package; "
+            "training takes the einsum attention paths (attn_impl 'xla' or 'chunked', "
+            "which 'auto' picks for the loss)")
 
 
 _SAME_DEVICE = contextlib.nullcontext()

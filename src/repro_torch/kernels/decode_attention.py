@@ -33,7 +33,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ._util import LaunchCounter, cuda_stream, on_cpu, on_device
+from ._util import LaunchCounter, cuda_stream, on_cpu, on_device, refuse_grad
 
 __all__ = ["decode_attention", "decode_attention_plain", "counter", "route", "splits",
            "split_keys", "fma_splits", "SPLIT_KEYS"]
@@ -112,6 +112,7 @@ def decode_attention_plain(q, k_cache, v_cache, length, *, scale=None):
 def decode_attention(q, k_cache, v_cache, length, *, scale=None):
     """q (B, H, D), caches (B, S, KVH, D), lengths (B,) → (B, H, D); or the
     single-sequence q (H, D), caches (S, KVH, D), int length → (H, D)."""
+    refuse_grad("decode_attention", "K7", q, k_cache, v_cache)
     single, qb, kb, vb, lb = _batched(q, k_cache, v_cache, length)
     if on_cpu("decode_attention", qb, kb, vb, lb):
         return decode_attention_plain(q, k_cache, v_cache, length, scale=scale)

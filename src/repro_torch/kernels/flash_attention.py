@@ -31,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from ._util import LaunchCounter, cuda_stream, on_cpu, on_device
+from ._util import LaunchCounter, cuda_stream, on_cpu, on_device, refuse_grad
 
 __all__ = ["flash_attention", "flash_attention_plain", "tma_operand", "counter", "TILE_Q"]
 
@@ -107,6 +107,7 @@ def tma_operand(t: torch.Tensor) -> torch.Tensor:
 def flash_attention(q, k, v, *, causal: bool = True, scale=None, window=None):
     """q (B, Sq, H, D), k / v (B, Sk, KVH, D) → (B, Sq, H, D); or the
     reference's (H, Sq, D) / (Sq, D) call."""
+    refuse_grad("flash_attention", "K6", q, k, v)
     rank = q.dim()
     qb, kb, vb = _batched(q, k, v)
     if on_cpu("flash_attention", qb, kb, vb):

@@ -1,2 +1,3 @@
-"""Launch layer of the port: the serving entry point (``launch/serve.py``).
+"""Launch layer of the port: the serving and training entry points
+(``launch/serve.py``, ``launch/train.py``).
 The reference's mesh, sharding and dry-run modules are ROADMAP M11."""

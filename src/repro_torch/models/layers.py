@@ -119,3 +119,24 @@ def embed(params: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 def unembed(params: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """(..., d) @ (V, d)^T → (..., V) logits in f32."""
     return x.float() @ params.float().t()
+
+
+# -----------------------------------------------------------------------------
+# losses
+# -----------------------------------------------------------------------------
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor | None = None, z_loss: float = 1e-4) -> torch.Tensor:
+    """Next-token cross entropy with optional z-loss; logits (..., V) f32,
+    labels (...) integer (widened to int64 for the gather), mask (...) or
+    None → the scalar mean over the mask (at least 1)."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if z_loss:
+        nll = nll + z_loss * logz ** 2
+    if mask is not None:
+        nll = nll * mask
+        denom = torch.clamp(mask.sum(), min=1.0)
+    else:
+        denom = math.prod(labels.shape)
+    return nll.sum() / denom

@@ -9,13 +9,19 @@ plain functions on the nested dict of tensors that both return, and every
 entry point takes that dict first, as the reference's take its pytree.
 Parameters and caches live on the model's device: CUDA unless the caller
 asks for another.
+
+``loss_fn`` is what training differentiates (``transformer.train_forward``:
+the einsum attention paths, remat).  The inference entry points
+(``forward``, ``prefill``, ``decode_step``) run under ``torch.no_grad()``,
+so they record nothing even when the parameters require grad, as the
+trainer's do.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from . import transformer
+from . import layers, transformer
 from ..configs.base import ArchConfig
 from ..core.dtypes import resolve_device
 
@@ -55,13 +61,16 @@ class Model(nn.Module):
         self.params, tree = _as_module(params)
         return tree
 
+    @torch.no_grad()
     def forward(self, params: dict, tokens: torch.Tensor, memory=None) -> torch.Tensor:
         logits, _ = transformer.forward(params, tokens, self.cfg, memory)
         return logits
 
+    @torch.no_grad()
     def prefill(self, params: dict, tokens: torch.Tensor, memory=None) -> torch.Tensor:
         return transformer.prefill(params, tokens, self.cfg, memory)
 
+    @torch.no_grad()
     def decode_step(self, params: dict, token: torch.Tensor, cache: dict, memory=None):
         return transformer.decode_step(params, token, cache, self.cfg, memory)
 
@@ -69,9 +78,13 @@ class Model(nn.Module):
         return transformer.cache_init(self.cfg, batch, s_max, self.device)
 
     def loss_fn(self, params: dict, batch: dict):
-        raise NotImplementedError(
-            "loss_fn is training, which the port has not brought over yet "
-            "(ROADMAP M10: training with the kernels' backward passes)")
+        """(loss, {"xent", "moe_aux"}) of a batch {"tokens", "labels",
+        "mask"?, "memory"?}, as the reference's: the next-token cross entropy
+        with z-loss plus the MoE auxiliary loss (0 here: no MoE ported)."""
+        logits, aux = transformer.train_forward(params, batch["tokens"], self.cfg,
+                                                batch.get("memory"))
+        xent = layers.softmax_xent(logits, batch["labels"], batch.get("mask"))
+        return xent + aux, {"xent": xent, "moe_aux": aux}
 
     def param_count(self) -> tuple[int, int]:
         return self.cfg.param_count()

@@ -3,9 +3,10 @@ serving path (cache structure + one decode step).
 
 The reference (``repro/models/transformer.py``) scans ``repeats`` stacked
 superblocks and unrolls a tail.  Here the layers are a Python list in layer
-order and run as a Python loop — no scan, no remat: PyTorch runs eagerly.
-Layer i is of kind ``cfg.pattern[i % len(cfg.pattern)]``, as in the
-reference's repeats-then-tail order.
+order and run as a Python loop — no scan: PyTorch runs eagerly.  Layer i is
+of kind ``cfg.pattern[i % len(cfg.pattern)]``, as in the reference's
+repeats-then-tail order; a superblock is one pattern group of layers in the
+repeats, layers ``r * P .. r * P + P - 1``.
 
 Supported in this slice: block kinds ``attn``/``global``/``local`` (a
 windowed causal attention) and ``rglru`` (Griffin's recurrent block) with
@@ -23,6 +24,17 @@ chunked by length and its decode always takes the einsum path; the function
 computed is the same.  ``local`` decode keeps the einsum path over its ring
 buffer, as the reference's does.  The ``rglru`` forward runs K5
 (``kernels.ops.linear_scan``) whatever ``attn_impl`` says.
+
+Training (``train_forward``, the forward ``Model.loss_fn`` differentiates)
+takes the reference's route: attention picked as its ``_pick_impl(cfg,
+seq_len)`` picks it ("xla" at 2,048 tokens or fewer, "chunked" above, or
+``cfg.attn_impl`` when that is "xla" or "chunked"), because K6 has no
+backward in either package; ``attn_impl="pallas"`` raises.  K5 runs forward
+and backward (its autograd Function).  With ``cfg.remat`` each superblock
+runs under ``torch.utils.checkpoint`` (non-reentrant), which saves its input
+alone and recomputes it in the backward, as the reference's
+``jax.checkpoint(..., policy=nothing_saveable)``; the tail layers are not
+wrapped.
 """
 from __future__ import annotations
 
@@ -30,6 +42,7 @@ import math
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import attention, layers, recurrent
 from ..configs.base import ArchConfig
@@ -159,6 +172,49 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     position is unembedded: the same row as ``forward``'s, without the
     (B,S,V) float32 logits (8.4 GB for recurrentgemma-9b at B 2, S 4096)."""
     return logits(params, hidden(params, tokens, cfg)[:, -1], cfg)
+
+
+# =============================================================================
+# training forward
+# =============================================================================
+def _train_impl(cfg: ArchConfig, seq_len: int) -> str:
+    """The reference's ``_pick_impl(cfg, seq_len)``: the einsum paths the
+    loss differentiates."""
+    if cfg.attn_impl == "pallas":
+        raise RuntimeError(
+            f"{cfg.name}: attn_impl='pallas' cannot train: flash_attention (K6) has no "
+            "backward, in this port or in the JAX package; use 'auto', 'xla' or 'chunked'")
+    if cfg.attn_impl != "auto":
+        return cfg.attn_impl
+    return "chunked" if seq_len > 2048 else "xla"
+
+
+def train_forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
+                  memory: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B,S) → (logits (B,S,V) f32, moe_aux scalar (0: no MoE here)),
+    recorded for autograd: superblocks under ``checkpoint`` when
+    ``cfg.remat``, the tail unwrapped."""
+    impl = _train_impl(cfg, tokens.shape[1])
+    if cfg.remat and cfg.remat_policy != "nothing":
+        raise NotImplementedError(
+            f"{cfg.name}: remat_policy={cfg.remat_policy!r} is not ported (the port's remat "
+            "saves nothing inside a superblock, as the reference's 'nothing' policy)")
+    period = len(cfg.pattern)
+    repeats, _ = cfg.repeats_and_tail()
+
+    def superblock(x, *block_params):
+        for kind, p in zip(cfg.pattern, block_params):
+            x = _block_apply(kind, p, x, cfg, impl)
+        return x
+
+    x = _embed(params, tokens, cfg)
+    for r in range(repeats):
+        group = params["layers"][r * period:(r + 1) * period]
+        x = (checkpoint(superblock, x, *group, use_reentrant=False) if cfg.remat
+             else superblock(x, *group))
+    for i, p in enumerate(params["layers"][repeats * period:]):
+        x = _block_apply(cfg.pattern[i], p, x, cfg, impl)
+    return logits(params, x, cfg), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 # =============================================================================

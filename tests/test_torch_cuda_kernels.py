@@ -9,7 +9,8 @@ so that the card's machine (which has no JAX) runs it with
 held against the JAX package in ``tests/test_torch_kernels.py``.
 
 Tolerances: transpose, one-hot, counts, min / max, cummax / cummin and
-linear_scan bit-equal; float sums and cumsum rtol=atol=1e-4, as
+linear_scan and its backward bit-equal (the backward: to autograd through
+linear_scan_plain, ``torch.equal``); float sums and cumsum rtol=atol=1e-4, as
 tests/test_kernels.py has them; decode_attention (K7) float32 2e-3, bf16
 4e-3; flash_attention (K6) float32 2e-3, bf16 one bf16 ulp (2^-7 |x|) plus
 1e-5.
@@ -344,6 +345,50 @@ def test_cuda_linear_scan_matches_plain(rng, cuda, shape):
     out = ls_mod.linear_scan(a, b)
     assert out.shape == a.shape and torch.equal(out, ls_mod.linear_scan(a, b))
     assert torch.equal(out, ls_mod.linear_scan_plain(a, b))   # the same two roundings a step
+
+
+def _scan_grads(fn, a, b, w):
+    a, b = a.detach().clone().requires_grad_(), b.detach().clone().requires_grad_()
+    h = fn(a, b)
+    return (h.detach(),) + torch.autograd.grad((h * w).sum(), (a, b))
+
+
+@pytest.mark.parametrize("shape", LINSCAN_SHAPES + [(1, 5), (63, 128), (64, 33), (65, 70),
+                                                    (3, 129, 70), (2, 130, 4096)])
+def test_cuda_linear_scan_backward_matches_autograd_plain(rng, cuda, shape):
+    """K5's reverse walk: grad_a and grad_b equal (torch.equal) to autograd
+    through linear_scan_plain on the card, one "bwd" launch a backward;
+    reruns bit-identical."""
+    a, b = (_t(x).to(cuda) for x in _linscan_inputs(rng, shape))
+    w = _t(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+    ls_mod.counter.reset()
+    got = _scan_grads(ls_mod.linear_scan, a, b, w)
+    assert ls_mod.counter.routes == {"fwd": 1, "bwd": 1}
+    want = _scan_grads(ls_mod.linear_scan_plain, a, b, w)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+    again = _scan_grads(ls_mod.linear_scan, a, b, w)
+    assert all(torch.equal(g, x) for g, x in zip(got, again))
+
+
+def test_cuda_linear_scan_backward_reads_strided_views(rng, cuda):
+    """a as a view with batch and time strides (16-byte copies) and at a
+    4-byte offset (4-byte copies); the gradient of a sum (stride 0 over
+    the channels) made contiguous by the wrapper."""
+    big = _t((rng.random((6, 260, 2, 128)) * 0.95).astype(np.float32)).to(cuda)
+    bb = _t(rng.standard_normal((6, 260, 2, 128)).astype(np.float32)).to(cuda)
+    for sl in ((slice(None, None, 2), slice(None, None, 2), 0),
+               (slice(None, None, 2), slice(None, None, 2), 1, slice(5, 75))):
+        a, b = big[sl], bb[sl]
+        for w in (torch.ones_like(a), _t(rng.standard_normal(a.shape).astype(np.float32)).to(cuda)):
+            got = _scan_grads(ls_mod.linear_scan, a, b, w)
+            want = _scan_grads(ls_mod.linear_scan_plain, a, b, w)
+            assert all(torch.equal(g, x) for g, x in zip(got, want))
+        a2, b2 = a.detach().clone().requires_grad_(), b.detach().clone().requires_grad_()
+        ga, gb = torch.autograd.grad(ls_mod.linear_scan(a2, b2).sum(), (a2, b2))
+        wa, wb = ls_mod.linear_scan_backward_plain(a, torch.ones_like(a),
+                                                   ls_mod.linear_scan_plain(a, b))
+        assert torch.equal(ga, wa) and torch.equal(gb, wb)
 
 
 @pytest.mark.parametrize("h,sq,sk,d", FLASH_SHAPES)

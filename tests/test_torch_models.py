@@ -428,7 +428,18 @@ def test_unported_configs_raise(arch):
         build_model(get_smoke_config(arch), "cpu")
 
 
-def test_loss_fn_raises_naming_training():
-    m = build_model(get_smoke_config("yi-6b"), "cpu")
-    with pytest.raises(NotImplementedError, match="training"):
-        m.loss_fn({}, {})
+def test_loss_fn_raises_naming_training(smoke_models):
+    """loss_fn, which raised until training was ported, now gives the
+    reference's loss on the yi-6b smoke model (bf16, same parameters and
+    batch, half a row masked): within LOGIT_TOL."""
+    rm, rp, tm, tp = smoke_models["yi-6b"]
+    rng = np.random.default_rng(7)
+    toks = rng.integers(0, rm.cfg.vocab, (2, 12)).astype(np.int32)
+    labels = rng.integers(0, rm.cfg.vocab, (2, 12)).astype(np.int32)
+    mask = np.ones((2, 12), np.float32)
+    mask[1, 6:] = 0
+    want, wmet = rm.loss_fn(rp, {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels),
+                                 "mask": jnp.asarray(mask)})
+    got, met = tm.loss_fn(tp, {"tokens": _t(toks), "labels": _t(labels), "mask": _t(mask)})
+    assert set(met) == set(wmet) == {"xent", "moe_aux"}
+    assert abs(got.item() - float(want)) < LOGIT_TOL, (got.item(), float(want))
