@@ -56,7 +56,13 @@ Phases (any failure raises and the script exits non-zero):
                  bf16 (ten reruns bit-identical), rows before every key 0
                  (f32 and bf16), and in bf16: windows 63, 64 and 65 at Sq =
                  Sk and Sq < Sk, D 33 through the wrapper's padded copy, q /
-                 k / v as views of one fused projection; then the CUDA-only
+                 k / v as views of one fused projection; K6 non-causal
+                 (bf16 and f32) at the whisper encoder's shape (4 x 1,500
+                 frames, 8 heads, D 64), both cross shapes of phase 12 (Sq
+                 32 over M 1,500, D 64; over M 1,600, 64 heads over 8, D
+                 128), and Sk 1, 63, 65 and 1,500 at Sq != Sk; K7 with
+                 every length M at the decode-cross shapes, against its
+                 plain version and K6 at Sq = 1; then the CUDA-only
                  pytest cases, ``python -m pytest --noconftest
                  tests/test_torch_cuda_kernels.py`` in a child process
                  (every case must pass; none may skip)
@@ -171,6 +177,24 @@ Phases (any failure raises and the script exits non-zero):
                  no K6 / K7; walls, tokens/s, peak memory; at the smoke
                  config, checkpoint round-trip on the card and recovery at
                  the exact cursor
+ 12. zoo       — the rest of the model zoo through Model.prefill and
+                 ServeEngine: rwkv6-1.6b, granite-moe-3b-a800m and
+                 whisper-base at full width and depth, qwen3-moe-235b-a22b
+                 cut to 2 layers (all 128 experts) and llama-3.2-vision-90b
+                 to 5 (4 attn + their cross layer) at full width (each cut
+                 printed); random bf16 weights and memory from seeds.  Per
+                 config: a prefill of 4 x 32 tokens (K6: every attention,
+                 the encoder's and the cross layers' non-causal), 4
+                 requests of the same prompts and 16 new tokens (K7: decode
+                 self- and cross-attention, every length M), the prefill
+                 wall, the step median, peak memory, K6 / K7 launches;
+                 checked against attn_impl="xla" on the same weights
+                 (logits at every prefill position and the served streams,
+                 within the serving limits; MoE's xla run replays the
+                 kernel run's expert choices, the free run's reading and
+                 its route flips printed), rwkv's chunked form against its
+                 sequential scan, and teacher-forced decode with the
+                 (encoded) memory against the forward
 
 Run from the root of a checkout:  python3 chip_smoke.py
 The last two lines of standard output are the kernels' JSON record and
@@ -1088,6 +1112,84 @@ def check_flash_attention(torch, fa, dev) -> None:
         f"bit-identical; f32 took route fma, bf16 route tc")
 
 
+# K6 non-causal (the encoder's and the cross layers' call) and K7 at the
+# decode-cross shape: (B, Sq, H, KVH, Sk, D).  The whisper encoder
+# (1,500 frames, 8 heads, D 64), both cross shapes at phase 12's prompt
+# length (whisper: M 1,500; llama-vision: M 1,600, 64 heads over 8, D 128),
+# and Sk of 1, 63, 65 and 1,500 (none a multiple of the 64-key tile) at Sq
+# != Sk
+ZOO_BATCH, ZOO_PROMPT, ZOO_NEW = 4, 32, 16
+NON_CAUSAL_SHAPES = [(ZOO_BATCH, 1500, 8, 8, 1500, 64), (ZOO_BATCH, ZOO_PROMPT, 8, 8, 1500, 64),
+                     (ZOO_BATCH, ZOO_PROMPT, 64, 8, 1600, 128), (2, 100, 8, 2, 1, 64),
+                     (2, 100, 8, 2, 63, 64), (2, 100, 8, 2, 65, 64), (2, 300, 8, 8, 1500, 64),
+                     (2, 1500, 8, 2, 65, 64)]
+# (B, H, KVH, M, D) of decode's cross-attention: every length M
+DECODE_CROSS_SHAPES = [(ZOO_BATCH, 8, 8, 1500, 64), (ZOO_BATCH, 64, 8, 1600, 128)]
+
+
+def check_flash_non_causal(torch, fa, dev) -> None:
+    """K6 with causal=False at NON_CAUSAL_SHAPES: bf16 on the tensor cores
+    within the bf16 limit, float32 on the FMA kernel within K6_F32_TOL,
+    each against its plain version; the first three (the main path's
+    shapes) ten reruns bit-identical."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    worst16 = worst32 = 0.0
+    fa.counter.reset()
+    for i, (b, sq, h, kvh, sk, d) in enumerate(NON_CAUSAL_SHAPES):
+        tag = f"flash_attention non-causal {(b, sq, h, kvh, sk, d)}"
+        q = torch.randn((b, sq, h, d), generator=gen, device=dev)
+        k = torch.randn((b, sk, kvh, d), generator=gen, device=dev)
+        v = torch.randn((b, sk, kvh, d), generator=gen, device=dev)
+        qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        got = fa.flash_attention(qb, kb, vb, causal=False)
+        for _ in range(10 if i < 3 else 1):
+            if not torch.equal(got, fa.flash_attention(qb, kb, vb, causal=False)):
+                raise AssertionError(f"{tag} bf16: reruns differ")
+        r = bf16_ratio(torch, got, fa.flash_attention_plain(qb, kb, vb, causal=False))
+        assert r <= 1.0, f"{tag} bf16: {r:.3g} of the limit"
+        worst16 = max(worst16, r)
+        got = fa.flash_attention(q, k, v, causal=False)
+        want = fa.flash_attention_plain(q, k, v, causal=False)
+        torch.testing.assert_close(got, want, rtol=K6_F32_TOL, atol=K6_F32_TOL,
+                                   msg=lambda m: f"{tag} f32: {m}")
+        worst32 = max(worst32, float((got - want).abs().max()))
+        del q, k, v, qb, kb, vb, got, want
+    routes = dict(fa.counter.routes)
+    assert routes.get("fma") == len(NON_CAUSAL_SHAPES), routes
+    log(f"  flash_attention non-causal: {len(NON_CAUSAL_SHAPES)} shapes (B, Sq, H, KVH, Sk, D) "
+        f"{NON_CAUSAL_SHAPES}: bf16 (route tc) within {K6_BF16_RTOL:.4g}|x| + {K6_BF16_ATOL} "
+        f"(worst {worst16:.3g} of it), f32 (route fma) within {K6_F32_TOL} (worst "
+        f"{worst32:.3g}); the main shapes' 10 reruns bit-identical; launches by route {routes}")
+
+
+def check_decode_cross(torch, da, fa, dev) -> None:
+    """K7 at DECODE_CROSS_SHAPES with every length M (decode's
+    cross-attention) on route tc: within K7_BF16_TOL of its plain version
+    and of K6 non-causal at Sq = 1, ten reruns bit-identical."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    msgs = []
+    for b, h, kvh, m, d in DECODE_CROSS_SHAPES:
+        tag = f"decode_attention cross {(b, h, kvh, m, d)}"
+        q = torch.randn((b, h, d), generator=gen, device=dev).bfloat16()
+        k = torch.randn((b, m, kvh, d), generator=gen, device=dev).bfloat16()
+        v = torch.randn((b, m, kvh, d), generator=gen, device=dev).bfloat16()
+        full = torch.full((b,), m, dtype=torch.int32, device=dev)
+        got = da.decode_attention(q, k, v, full)
+        for _ in range(10):
+            if not torch.equal(got, da.decode_attention(q, k, v, full)):
+                raise AssertionError(f"{tag}: reruns differ")
+        errs = []
+        flash = fa.flash_attention(q[:, None], k, v, causal=False)[:, 0]
+        for name, want in (("plain", da.decode_attention_plain(q, k, v, full)),
+                           ("K6 at Sq 1", flash)):
+            torch.testing.assert_close(got.float(), want.float(), rtol=K7_BF16_TOL,
+                                       atol=K7_BF16_TOL, msg=lambda e: f"{tag} vs {name}: {e}")
+            errs.append(f"{float((got.float() - want.float()).abs().max()):.3g} vs {name}")
+        msgs.append(f"{(b, h, kvh, m, d)} max |err| {', '.join(errs)}")
+    log(f"  decode_attention cross (every length M, route tc), within {K7_BF16_TOL}, 10 reruns "
+        f"bit-identical: {'; '.join(msgs)}")
+
+
 def check_wide_aggregate(torch, dev) -> None:
     """An all-column aggregate of a frame wider than one segment_reduce
     launch takes (the wide output of .T): on the card and on the CPU."""
@@ -1306,6 +1408,55 @@ def time_kernels(torch, sr, bt, oh, ws, da, ls, fa, dev, pool: int) -> dict:
             f"; scaled_dot_product_attention off the plain version by {lib_err:.3g}")
         out["flash_attention" if which == "rg" else "flash_attention_yi"] = rec
         del q, k, v, got, want, mask, qs, ks, vs
+    # non-causal, phase 12's main shapes: one whisper encoder layer (4 x
+    # 1,500 frames, 8 heads, D 64) on K6, and one decode cross-attention of
+    # whisper (4 slots over all 1,500 frames) on K7; the library call is
+    # scaled_dot_product_attention without a mask
+    b_, sq, h, kvh, sk, d = NON_CAUSAL_SHAPES[0]
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q = torch.randn((b_, sq, h, d), generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn((b_, sk, kvh, d), generator=gen, device=dev).bfloat16() for _ in range(2))
+    qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+    pairs = b_ * h * sq * sk
+    b_bound, by = bound_ms(2 * (2 * q.numel() + k.numel() + v.numel()), 4 * d * pairs,
+                           BF16_OPS_PER_S)
+    enc = lambda: fa.flash_attention(q, k, v, causal=False)
+    out["flash_attention_non_causal"] = dict(
+        name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention_tc.cu",
+        replaces="src/repro/kernels/flash_attention.py:75", shape=[b_, sq, h, kvh, d, "non-causal"],
+        max_abs_err=float((enc().float() - fa.flash_attention_plain(q, k, v, causal=False).float())
+                          .abs().max()),
+        ms=cuda_ms(enc, iters=EVENT_CALLS), device_ms=device_ms(enc, ("flash_tc",)),
+        plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=False), iters=3,
+                         warmup=1),
+        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True),
+                           iters=EVENT_CALLS),
+        bound_ms=b_bound, bound_by=by)
+    rec = out["flash_attention_non_causal"]
+    log(f"  flash_attention non-causal (route tc) {rec['shape']}: {pairs} pairs at "
+        f"{tflops_text(4 * d * pairs, rec['device_ms'])}")
+    b_, h, kvh, m, d = DECODE_CROSS_SHAPES[0]
+    q = torch.randn((b_, h, d), generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn((b_, m, kvh, d), generator=gen, device=dev).bfloat16() for _ in range(2))
+    full = torch.full((b_,), m, dtype=torch.int32, device=dev)
+    qs, ks, vs = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    b_bound, by = bound_ms(2 * b_ * m * kvh * d * 2 + 2 * b_ * h * d * 2 + b_ * 4,
+                           4 * b_ * m * h * d)
+    cross = lambda: da.decode_attention(q, k, v, full)
+    sdpa_cross = lambda: F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True)
+    out["decode_attention_cross"] = dict(
+        name="decode_attention", route="cuda",
+        source="src/repro_torch/csrc/decode_attention_tc.cu",
+        replaces="src/repro/kernels/decode_attention.py:65", shape=[b_, h, kvh, d, m, "all M"],
+        max_abs_err=float((cross().float() - da.decode_attention_plain(q, k, v, full).float())
+                          .abs().max()),
+        ms=cuda_ms(cross, iters=EVENT_CALLS), device_ms=device_ms(cross, DECODE_KERNELS),
+        host_ms=host_ms(cross),
+        plain_ms=cuda_ms(lambda: da.decode_attention_plain(q, k, v, full)),
+        library_ms=cuda_ms(sdpa_cross, iters=EVENT_CALLS),
+        library_device_ms=device_ms(sdpa_cross, None), library_host_ms=host_ms(sdpa_cross),
+        bound_ms=b_bound, bound_by=by)
+    del q, k, v, qs, ks, vs
     # the FMA route: float32 at the reference's largest shape, causal; its
     # bound is the float32 CUDA cores' rate
     h, sq, sk, d = FLASH_SHAPES[-1]
@@ -3602,6 +3753,245 @@ def train_phase(torch, np, ls, fa, da, dev, card: str) -> dict:
     return total
 
 
+# -----------------------------------------------------------------------------
+# phase 12: the rest of the model zoo, served
+# -----------------------------------------------------------------------------
+# (arch, layers kept).  Three run at full width and depth; qwen3-moe
+# (2.35e11 parameters) and llama-vision (8.77e10) do not fit in 80 GB of
+# bf16 and keep their full width cut in depth: qwen3 to 2 layers (all 128
+# experts, top-8), llama-vision to one pattern period, 4 attn layers and
+# their cross layer
+ZOO = (("rwkv6-1.6b", None), ("granite-moe-3b-a800m", None), ("whisper-base", None),
+       ("qwen3-moe-235b-a22b", 2), ("llama-3.2-vision-90b", 5))
+
+
+def attention_calls(cfg, memory: bool) -> tuple[int, int]:
+    """(K6 launches a forward, K7 launches a decode step) of ``cfg`` with
+    attn_impl auto: one a self- or cross-attention (two a dec layer, plus
+    the encoder's layers when there is a memory); local decode and the
+    recurrent kinds run neither."""
+    from repro_torch.models import transformer
+    kinds = transformer.layer_kinds(cfg)
+    none = {"rglru": 0, "rwkv": 0, "dec": 2}
+    fwd = sum(none.get(k, 1) for k in kinds) + (cfg.encoder_layers if memory else 0)
+    return fwd, sum(0 if k == "local" else none.get(k, 1) for k in kinds)
+
+
+@contextlib.contextmanager
+def routes_taped(tape: list, replay: bool):
+    """Record every MoE top-k choice (``models.moe._top_k``) in call order
+    into ``tape``, or, with ``replay``, take each call's experts from the
+    tape (their probabilities from this run).  Two runs that differ only in
+    how attention rounds (K6 / K7 or the einsum path) can tip a router
+    near-tie to another expert; the oracle replays the kernel run's choices,
+    so that its comparison measures attention alone."""
+    from repro_torch.models import moe
+    real = moe._top_k
+    calls = iter(list(tape))
+
+    def recording(probs, k):
+        vals, idx = real(probs, k)
+        tape.append(idx)
+        return vals, idx
+
+    def replaying(probs, k):
+        idx = next(calls, None)
+        if idx is None or idx.shape != probs.shape[:-1] + (k,):
+            raise AssertionError("the replayed run routes other calls than the recorded one")
+        return probs.gather(-1, idx), idx
+
+    moe._top_k = replaying if replay else recording
+    try:
+        yield
+    finally:
+        moe._top_k = real
+
+
+def route_flips(torch, a: list, b: list) -> tuple[int, int]:
+    """(tokens whose set of experts differs in some call, tokens x calls)
+    between two tapes of the same calls."""
+    flips = sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum()) for x, y in zip(a, b))
+    return flips, sum(x[..., 0].numel() for x in a)
+
+
+def zoo_config(torch, np, fa, da, dev, card: str, arch: str, keep) -> tuple[dict, dict, list]:
+    """One config of phase 12; returns K6's and K7's launches by route in
+    its main runs (one prefill, then the engine) and its failed checks."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, transformer
+    full = get_config(arch)
+    cfg = full if keep is None else dataclasses.replace(full, n_layers=keep)
+    if keep is not None:
+        log(f"  cut: {arch} to {keep} of {full.n_layers} layers at full width: "
+            f"{full.param_count()[0]:.4g} parameters ({2 * full.param_count()[0] / 1e9:.1f} GB "
+            f"in bf16) do not fit in 80 GB; {cfg.param_count()[0]:.4g} kept")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(3, cfg.vocab, (ZOO_BATCH, ZOO_PROMPT), generator=gen, device=dev,
+                         dtype=torch.int32)
+    mem = None
+    if cfg.cross_memory_len:       # the modality stub: frame / patch embeddings
+        mem = torch.randn((ZOO_BATCH, cfg.cross_memory_len, cfg.d_model), generator=gen,
+                          device=dev).bfloat16()
+    torch.cuda.synchronize()
+    kinds = transformer.layer_kinds(cfg)
+    log(f"  {arch}: {cfg.n_layers} layers {sorted(set(kinds))}"
+        f"{f' + {cfg.encoder_layers} encoder layers' if cfg.encoder_layers else ''}, d "
+        f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv}, head dim {cfg.head_dim_}, mlp "
+        f"{cfg.mlp}{f' ({cfg.n_experts} experts, top-{cfg.top_k})' if cfg.n_experts else ''}, "
+        f"ff {cfg.d_ff}, vocab {cfg.vocab}, memory {cfg.cross_memory_len}; "
+        f"{sum(p.numel() for p in model.parameters())} parameters, random from seed 0: "
+        f"{time.perf_counter() - t0:.1f} s")
+    xla = dataclasses.replace(cfg, attn_impl="xla")
+    k6_fwd, k7_step = attention_calls(cfg, mem is not None)
+    failures = []
+
+    # the main path, part 1: one prefill of 4 x 32 tokens, every attention
+    # on K6 (the encoder's and the cross layers' non-causal)
+    fa.counter.reset()
+    da.counter.reset()
+    with torch.inference_mode():
+        last = model.prefill(params, toks, mem)
+    torch.cuda.synchronize()
+    k6 = dict(fa.counter.routes)
+    if k6 != ({"tc": k6_fwd} if k6_fwd else {}) or da.counter.launches:
+        raise AssertionError(f"{arch} prefill launched K6 {k6}, K7 {da.counter.launches}, "
+                             f"want K6 {k6_fwd} on route tc and no K7")
+    assert last.shape == (ZOO_BATCH, cfg.vocab) and bool(torch.isfinite(last).all()), arch
+    walls = []
+    with torch.inference_mode():
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            model.prefill(params, toks, mem)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+
+    # the main path, part 2: 4 requests of the same 32-token prompts, 16 new
+    # tokens each, through ServeEngine (31 teacher-forced steps, then 16)
+    prompts = toks.tolist()
+    serve_tape = []
+    fa.counter.reset()
+    da.counter.reset()
+    with routes_taped(serve_tape, replay=False):
+        run = serve(model, params, prompts, max_batch=ZOO_BATCH, max_seq=ZOO_PROMPT + ZOO_NEW,
+                    new=ZOO_NEW, record=True)
+    steps = int(run["engine"].metrics["steps"])
+    k7 = dict(da.counter.routes)
+    if k7 != ({"tc": steps * k7_step} if k7_step else {}) or fa.counter.launches:
+        raise AssertionError(f"{arch} serving launched K7 {k7}, K6 {fa.counter.launches} in "
+                             f"{steps} steps, want {k7_step} K7 a step on route tc and no K6")
+    step_ms = np.asarray(run["times"]) * 1e3
+    # phase 7's step bound: every weight read once (the embedding table
+    # gives B rows); MoE reads only the experts a step routes to, so there
+    # it is above the least a step can take
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    bound = (weights - params["embed"].numel() * params["embed"].element_size()) / HBM_BYTES_PER_S
+    log(f"  {arch}: prefill {ZOO_BATCH} x {ZOO_PROMPT} wall ms {[round(w, 3) for w in walls[1:]]} "
+        f"(median {np.median(walls[1:]):.3f}; first {walls[0]:.3f}), K6 {k6_fwd} launches a "
+        f"forward; serving {steps} steps ({int(run['engine'].metrics['tokens_out'])} tokens out), "
+        f"step ms median {np.median(step_ms):.3f} (p90 {np.percentile(step_ms, 90):.3f}; weights "
+        f"read once {bound * 1e3:.3f}), K7 "
+        f"{k7_step} launches a step, K6 0; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB | {card}")
+
+    # check 1: the forward at every position, K6 against the einsum path
+    # (MoE: the einsum run replays the K6 run's expert choices; the free
+    # run's reading and its route flips are printed beside it); for rwkv (no
+    # attention) the chunked form against the sequential scan
+    def all_logits(c, tape=None, replay=False):
+        with torch.inference_mode(), (routes_taped(tape, replay) if tape is not None
+                                      else contextlib.nullcontext()):
+            return transformer.logits(params, transformer.hidden(params, toks, c, mem), cfg)
+
+    moe_cfg = cfg.mlp == "moe"
+    tape, free_tape = [], []
+    got = all_logits(cfg, tape if moe_cfg else None)
+    if "rwkv" in kinds:
+        what, want = "chunked RWKV vs sequential", all_logits(
+            dataclasses.replace(xla, rwkv_chunked=True))
+    else:
+        what, want = "K6 vs xla", all_logits(xla, tape if moe_cfg else None, replay=True)
+    readings = logit_readings(got, want)
+    log("    " + show_readings(f"prefill logits at every position, {what}"
+                               + (" (the K6 run's expert choices replayed)" if moe_cfg else ""),
+                               readings, SERVE_LIMITS))
+    if not within_logit_limits(readings):
+        failures.append(f"{arch} prefill {what}: {readings}")
+    if moe_cfg:
+        free = logit_readings(got, all_logits(xla, free_tape))
+        flips, n = route_flips(torch, tape, free_tape)
+        log(f"    without the replay: max |logit diff| {free[0]:.4g}, mean {free[1]:.4g}, top-1 "
+            f"agreement {free[2]:.4f}; {flips} of {n} token routings chose other experts")
+    del want
+
+    # check 2: the same requests served with attn_impl="xla" (same weights;
+    # MoE: the K7 run's expert choices replayed)
+    with (routes_taped(serve_tape, replay=True) if moe_cfg else contextlib.nullcontext()):
+        oracle = serve(build_model(xla, dev), params, prompts, max_batch=ZOO_BATCH,
+                       max_seq=ZOO_PROMPT + ZOO_NEW, new=ZOO_NEW, record=True)
+    try:
+        equal, parted, worst, widest = same_streams(torch, run, oracle, f"{arch} serving")
+        log(f"    serving K7 vs xla: {equal} of {sum(len(r.out_ids) for r in run['reqs'])} tokens "
+            f"equal before any parting, {parted} requests parted at a near-tie (widest margin "
+            f"{widest:.4g}), max |logit diff| {worst:.4g} (tolerance {FULL_LOGIT_TOL})")
+    except AssertionError as e:
+        failures.append(str(e))
+        log(f"    serving K7 vs xla: {e}")
+    del run, oracle
+
+    # check 3: teacher-forced decode of the prompts against the forward at
+    # every position, with the memory (encoded for whisper): K7 on the
+    # decode cross-attention over all M.  MoE routes B tokens a decode step
+    # and B x S a forward, so groups and capacities differ (in the reference
+    # too): its decode is held to the xla oracle above instead.
+    if cfg.mlp == "moe":
+        log("    decode vs forward: not compared (MoE capacity groups differ by design)")
+    else:
+        with torch.inference_mode():
+            enc = mem
+            if cfg.encoder_layers:
+                enc = transformer.encode(params["encoder"], mem, cfg)
+            cache = transformer.cache_init(cfg, ZOO_BATCH, ZOO_PROMPT, dev)
+            outs = []
+            for i in range(ZOO_PROMPT):
+                lg, cache = transformer.decode_step(params, toks[:, i], cache, cfg, enc)
+                outs.append(lg)
+            readings = logit_readings(torch.stack(outs, 1), got)
+        log("    " + show_readings("teacher-forced decode vs the forward at every position",
+                                   readings, SERVE_LIMITS))
+        if not within_logit_limits(readings):
+            failures.append(f"{arch} decode vs forward: {readings}")
+    del got, params, model
+    torch.cuda.empty_cache()
+    return k6, k7, failures
+
+
+def zoo_phase(torch, np, fa, da, dev, card: str) -> tuple[dict, dict]:
+    """Phase 12; returns K6's and K7's launches by route in the main runs of
+    the five configs.  Every config runs and prints before the phase fails
+    on any check."""
+    k6 = {"tc": 0, "fma": 0}
+    k7 = {"tc": 0, "fma": 0}
+    failures = []
+    for arch, keep in ZOO:
+        t0 = time.perf_counter()
+        a, b, failed = zoo_config(torch, np, fa, da, dev, card, arch, keep)
+        for total, routes in ((k6, a), (k7, b)):
+            for route, n in routes.items():
+                total[route] += n
+        failures += failed
+        log(f"  {arch}: {time.perf_counter() - t0:.1f} s")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    return k6, k7
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -3648,6 +4038,8 @@ def main() -> int:
     check_linear_scan(torch, ls, dev)
     check_linear_scan_backward(torch, ls, dev)
     check_flash_attention(torch, fa, dev)
+    check_flash_non_causal(torch, fa, dev)
+    check_decode_cross(torch, da, fa, dev)
     check_wide_aggregate(torch, dev)
     timings = time_kernels(torch, sr, bt, oh, ws, da, ls, fa, dev, pool)
     for rec in timings.values():
@@ -3806,6 +4198,16 @@ def main() -> int:
     by_route["linear_scan"]["bwd"] += k5_routes["bwd"]
     log(f"[train] {time.perf_counter() - t0:.1f} s")
 
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log(f"[zoo] {', '.join(a for a, _ in ZOO)} through Model.prefill and ServeEngine on {dev}")
+    k6_routes, k7_routes = zoo_phase(torch, np, fa, da, dev, card)
+    launches["flash_attention"] += sum(k6_routes.values())
+    launches["decode_attention"] += sum(k7_routes.values())
+    add_routes("flash_attention", k6_routes)
+    add_routes("decode_attention", k7_routes)
+    log(f"[zoo] {time.perf_counter() - t0:.1f} s")
+
     record = []
     for k in ("segment_reduce", "block_transpose", "onehot_encode", "window_scan",
               "linear_scan", "flash_attention", "decode_attention"):
@@ -3815,6 +4217,10 @@ def main() -> int:
             rec["at_figure1"] = timings["onehot_encode_figure1"]
         if k == "window_scan":
             rec["at_16m"] = timings["window_scan_16m"]
+        if k == "flash_attention":
+            rec["at_non_causal"] = timings["flash_attention_non_causal"]
+        if k == "decode_attention":
+            rec["at_cross"] = timings["decode_attention_cross"]
         rec["routes"] = KERNEL_ROUTES.get(k, {"cuda": rec["source"]})
         if k in by_route:
             rec["launches_by_route"] = by_route[k]

@@ -107,7 +107,11 @@ def params_from_arrays(tree: dict[str, Any], cfg, device=None) -> dict[str, Any]
     axis, one tree per pattern position (``params["blocks"][pos]``), and
     keeps the rest of the layers unstacked in ``params["tail"]``; the port
     keeps one dict per layer in layer order (``params["layers"]``).  Keys
-    and (in, out) layouts are the reference's, so nothing is transposed."""
+    and (in, out) layouts are the reference's, so nothing is transposed:
+    the encoder's unstacked ``{"enc_layers": [...], "final_norm"}``, the
+    stacked experts (E, d, f) / (E, f, d) with their float32 router, the
+    cross / lnx entries and the RWKV parameters come across as they are,
+    every array bit-exact."""
     dev = resolve_device(device)
     repeats, _ = cfg.repeats_and_tail()
     layers = [_tree(_index(tree["blocks"][pi], r), dev)
@@ -116,8 +120,7 @@ def params_from_arrays(tree: dict[str, Any], cfg, device=None) -> dict[str, Any]
     if len(layers) != cfg.n_layers:
         raise ValueError(f"{cfg.name}: {len(layers)} layers in the tree, "
                          f"config has {cfg.n_layers}")
-    out = {k: _tree(v, dev) for k, v in tree.items()
-           if k not in ("blocks", "tail", "encoder")}
+    out = {k: _tree(v, dev) for k, v in tree.items() if k not in ("blocks", "tail")}
     out["layers"] = layers
     return out
 

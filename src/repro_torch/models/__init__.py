@@ -1,4 +1,4 @@
-"""Model zoo of the port: the dense attention architectures of the
-reference's ``repro.models`` on PyTorch (the serving slice; see ROADMAP M10
-for what is still to come)."""
+"""Model zoo of the port: every architecture of the reference's
+``repro.models`` on PyTorch — dense and local attention, RG-LRU, RWKV6, MoE,
+and cross-attention / encoder-decoder blocks."""
 from .model import Model, build_model  # noqa: F401

@@ -1,5 +1,5 @@
 """Attention: GQA self-attention (RoPE, optional QKV bias, optional local
-window) and KV-cache decode.
+window), cross-attention, and KV-cache decode.
 
 Execution paths, selected by ``impl`` as in the reference
 (``repro/models/attention.py``):
@@ -8,8 +8,10 @@ Execution paths, selected by ``impl`` as in the reference
   * "pallas"  — the fused kernels, each the CUDA kernel on a CUDA tensor
                 and its plain version on the CPU: the forward's
                 ``multihead_attention`` calls ``kernels.ops.flash_attention``
-                (K6) on the un-repeated KV heads, and ``decode_self_attention``
-                calls ``kernels.ops.decode_attention`` (K7).
+                (K6) on the un-repeated KV heads (``cross_attention``
+                too, non-causal), and ``decode_self_attention`` and
+                ``decode_cross_attention`` call
+                ``kernels.ops.decode_attention`` (K7).
 
 Shapes: x (B, S, d); params store the q/k/v projections (d, H·Dh).  KV
 caches are (B, S_max, K, Dh) with a per-slot length (B,).
@@ -141,6 +143,44 @@ def self_attention(params: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
     q, k, v = _project_qkv(params, x, n_heads, n_kv, head_dim, positions, use_rope)
     out = multihead_attention(q, k, v, causal=causal, window=window, impl=impl)
     return out.reshape(b, s, n_heads * head_dim) @ params["wo"]
+
+
+def _project_memory(params, x, memory, n_heads, n_kv, head_dim):
+    """q from x (B,S,d), k and v from memory (B,M,d): the cross layer's
+    projections (the reference's take no bias)."""
+    b, s, _ = x.shape
+    m = memory.shape[1]
+    q = (x @ params["wq"]).reshape(b, s, n_heads, head_dim)
+    k = (memory @ params["wk"]).reshape(b, m, n_kv, head_dim)
+    v = (memory @ params["wv"]).reshape(b, m, n_kv, head_dim)
+    return q, k, v
+
+
+def cross_attention(params: dict, x: torch.Tensor, memory: torch.Tensor, *,
+                    n_heads: int, n_kv: int, head_dim: int, impl: str = "xla") -> torch.Tensor:
+    """x (B,S,d) attends to memory (B,M,d), non-causal — VLM image layers /
+    enc-dec.  "pallas" runs K6 over the un-repeated KV heads."""
+    b, s, _ = x.shape
+    q, k, v = _project_memory(params, x, memory, n_heads, n_kv, head_dim)
+    out = multihead_attention(q, k, v, causal=False, impl=impl)
+    return out.reshape(b, s, n_heads * head_dim) @ params["wo"]
+
+
+def decode_cross_attention(params: dict, x: torch.Tensor, memory: torch.Tensor, *,
+                           n_heads: int, n_kv: int, head_dim: int,
+                           impl: str = "xla") -> torch.Tensor:
+    """Cross-attention of one decode token, x (B,1,d), to memory (B,M,d).
+    The reference calls ``cross_attention`` (the einsum path) here; "pallas"
+    sends it through K7 with every length M, the same function as K6 at Sq
+    = 1 without the idle rows of a 64-row query tile."""
+    if impl != "pallas":
+        return cross_attention(params, x, memory, n_heads=n_heads, n_kv=n_kv,
+                               head_dim=head_dim, impl="xla")
+    b, m = x.shape[0], memory.shape[1]
+    q, k, v = _project_memory(params, x, memory, n_heads, n_kv, head_dim)
+    full = torch.full((b,), m, dtype=torch.int32, device=x.device)
+    out = kops.decode_attention(q.reshape(b, n_heads, head_dim), k, v, full)
+    return out.reshape(b, 1, n_heads * head_dim) @ params["wo"]
 
 
 # -----------------------------------------------------------------------------

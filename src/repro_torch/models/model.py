@@ -14,7 +14,10 @@ asks for another.
 the einsum attention paths, remat).  The inference entry points
 (``forward``, ``prefill``, ``decode_step``) run under ``torch.no_grad()``,
 so they record nothing even when the parameters require grad, as the
-trainer's do.
+trainer's do.  Each takes the ``memory`` a config with
+``cross_memory_len`` attends to (frame embeddings that ``forward`` /
+``prefill`` / ``loss_fn`` encode first when the config has an encoder; an
+already encoded memory for ``decode_step``).
 """
 from __future__ import annotations
 
@@ -41,6 +44,12 @@ def _as_module(tree) -> tuple[nn.Module, dict | list]:
         return mod, out
     subs = [_as_module(v) for v in tree]
     return nn.ModuleList([m for m, _ in subs]), [t for _, t in subs]
+
+
+def _needs_memory(cfg: ArchConfig) -> bool:
+    """Whether the model's cross / dec layers attend to a memory (B,
+    cross_memory_len, d): VLM patch or audio frame embeddings."""
+    return cfg.cross_memory_len > 0
 
 
 class Model(nn.Module):
@@ -80,7 +89,7 @@ class Model(nn.Module):
     def loss_fn(self, params: dict, batch: dict):
         """(loss, {"xent", "moe_aux"}) of a batch {"tokens", "labels",
         "mask"?, "memory"?}, as the reference's: the next-token cross entropy
-        with z-loss plus the MoE auxiliary loss (0 here: no MoE ported)."""
+        with z-loss plus the MoE auxiliary loss (0 without MoE layers)."""
         logits, aux = transformer.train_forward(params, batch["tokens"], self.cfg,
                                                 batch.get("memory"))
         xent = layers.softmax_xent(logits, batch["labels"], batch.get("mask"))

@@ -1,5 +1,5 @@
-"""Transformer stack assembly: parameter init, forward / prefill, and the
-serving path (cache structure + one decode step).
+"""Transformer stack assembly: parameter init, forward / prefill, the
+encoder, and the serving path (cache structure + one decode step).
 
 The reference (``repro/models/transformer.py``) scans ``repeats`` stacked
 superblocks and unrolls a tail.  Here the layers are a Python list in layer
@@ -8,22 +8,30 @@ of kind ``cfg.pattern[i % len(cfg.pattern)]``, as in the reference's
 repeats-then-tail order; a superblock is one pattern group of layers in the
 repeats, layers ``r * P .. r * P + P - 1``.
 
-Supported in this slice: block kinds ``attn``/``global``/``local`` (a
-windowed causal attention) and ``rglru`` (Griffin's recurrent block) with
-the ``swiglu``/``gelu`` MLPs, RMSNorm or LayerNorm, RoPE.  The other kinds,
-MoE, encoders and sinusoidal positions raise ``NotImplementedError`` naming
-their ROADMAP item.
+Block kinds: ``attn``/``global``/``local`` (a windowed causal attention),
+``cross`` (attends to a memory: VLM image layers), ``dec`` (a whisper
+decoder layer: causal self-attention, then cross-attention to the encoded
+memory), ``rglru`` (Griffin's recurrent block) and ``rwkv`` (RWKV6
+time-mix); MLPs ``swiglu``, ``gelu``, ``moe`` (``moe.moe_apply``, whose
+auxiliary loss the forward sums) and ``rwkv_cmix``; RMSNorm or LayerNorm;
+RoPE, or sinusoidal positions added to the embedding when ``use_rope`` is
+false.  Configs with ``encoder_layers`` carry a whisper-style encoder
+(``encode``) that the forward runs over the memory it is given.
 
 Kernel routing (ROADMAP Queue 3, the port's wiring differences): when
 ``cfg.attn_impl`` is "auto" or "pallas", ``forward`` / ``prefill`` send
-every attention through the flash kernel K6 (``kernels.ops.flash_attention``)
-and ``_decode_block`` sends the ``attn``/``global`` layers' decode attention
-through K7 (``kernels.ops.decode_attention``); "xla" and "chunked" keep the
-masked-einsum paths, the oracles.  The reference's "auto" picks xla or
-chunked by length and its decode always takes the einsum path; the function
-computed is the same.  ``local`` decode keeps the einsum path over its ring
-buffer, as the reference's does.  The ``rglru`` forward runs K5
-(``kernels.ops.linear_scan``) whatever ``attn_impl`` says.
+every attention — causal self-attention, the encoder's non-causal
+self-attention and cross-attention — through the flash kernel K6
+(``kernels.ops.flash_attention``), and ``_decode_block`` sends the decode
+self-attention of ``attn``/``global``/``dec`` layers and the decode
+cross-attention of ``cross``/``dec`` layers through K7
+(``kernels.ops.decode_attention``; cross with every length M); "xla" and
+"chunked" keep the masked-einsum paths, the oracles.  The reference's
+"auto" picks xla or chunked by length and its decode always takes the
+einsum path; the function computed is the same.  ``local`` decode keeps
+the einsum path over its ring buffer, as the reference's does.  The
+``rglru`` forward runs K5 (``kernels.ops.linear_scan``) whatever
+``attn_impl`` says; ``rwkv`` runs no kernel, in either package.
 
 Training (``train_forward``, the forward ``Model.loss_fn`` differentiates)
 takes the reference's route: attention picked as its ``_pick_impl(cfg,
@@ -31,40 +39,37 @@ seq_len)`` picks it ("xla" at 2,048 tokens or fewer, "chunked" above, or
 ``cfg.attn_impl`` when that is "xla" or "chunked"), because K6 has no
 backward in either package; ``attn_impl="pallas"`` raises.  K5 runs forward
 and backward (its autograd Function).  With ``cfg.remat`` each superblock
-runs under ``torch.utils.checkpoint`` (non-reentrant), which saves its input
-alone and recomputes it in the backward, as the reference's
-``jax.checkpoint(..., policy=nothing_saveable)``; the tail layers are not
-wrapped.
+runs under ``torch.utils.checkpoint`` (non-reentrant); the tail layers are
+not wrapped.  ``remat_policy`` "nothing" saves the superblock's inputs
+alone, as the reference's ``nothing_saveable``; "dots" also saves the
+outputs of its matmuls without batch dimensions (``aten.mm``: the
+projections and MLPs, not attention's or the experts' batched products),
+as the reference's ``dots_with_no_batch_dims_saveable``.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from . import attention, layers, recurrent
+from . import attention, layers, moe, recurrent
 from ..configs.base import ArchConfig
 
-KINDS = ("attn", "global", "local", "rglru")
+KINDS = ("attn", "global", "local", "cross", "dec", "rglru", "rwkv")
+MLPS = ("swiglu", "gelu", "moe", "rwkv_cmix")
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise on what this slice of the port does not run."""
+    """Raise on a block kind or MLP no config of the reference has."""
     bad = sorted(set(cfg.pattern) - set(KINDS))
     if bad:
-        raise NotImplementedError(
-            f"{cfg.name}: block kinds {bad} are not ported yet (ROADMAP M10e: rwkv "
-            "with its channel mix, cross/dec blocks)")
-    if cfg.mlp not in ("swiglu", "gelu"):
-        raise NotImplementedError(
-            f"{cfg.name}: mlp={cfg.mlp!r} is not ported yet (ROADMAP M10e: MoE and "
-            "rwkv channel-mix)")
-    if cfg.encoder_layers or cfg.cross_memory_len or not cfg.use_rope:
-        raise NotImplementedError(
-            f"{cfg.name}: encoders, cross-attention memory and sinusoidal positions "
-            "are not ported yet (ROADMAP M10e: cross/dec blocks)")
+        raise ValueError(f"{cfg.name}: unknown block kinds {bad} (known: {KINDS})")
+    if cfg.mlp not in MLPS:
+        raise ValueError(f"{cfg.name}: unknown mlp {cfg.mlp!r} (known: {MLPS})")
 
 
 def layer_kinds(cfg: ArchConfig) -> list[str]:
@@ -83,23 +88,40 @@ def _norm_apply(cfg: ArchConfig, p, x):
     return layers.rmsnorm(p, x) if cfg.norm == "rmsnorm" else layers.layernorm(p, x)
 
 
+def _attn_init(gen: torch.Generator, cfg: ArchConfig) -> dict:
+    return attention.attn_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim_,
+                               cfg.qkv_bias)
+
+
 def _block_init(gen: torch.Generator, kind: str, cfg: ArchConfig) -> dict:
     p: dict[str, Any] = {"ln1": _norm_init(cfg, gen.device), "ln2": _norm_init(cfg, gen.device)}
-    if kind == "rglru":
+    if kind == "cross":
+        p["cross"] = _attn_init(gen, cfg)
+    elif kind == "dec":
+        p["attn"] = _attn_init(gen, cfg)
+        p["lnx"] = _norm_init(cfg, gen.device)
+        p["cross"] = _attn_init(gen, cfg)
+    elif kind == "rglru":
         p["rglru"] = recurrent.rglru_block_init(gen, cfg.d_model, cfg.rnn_width_)
+    elif kind == "rwkv":
+        p["rwkv"] = recurrent.rwkv6_block_init(gen, cfg.d_model, cfg.rwkv_head_dim)
     else:
-        p["attn"] = attention.attn_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv,
-                                        cfg.head_dim_, cfg.qkv_bias)
-    if cfg.mlp == "gelu":
+        p["attn"] = _attn_init(gen, cfg)
+    if cfg.mlp == "moe":
+        p["mlp"] = moe.moe_init(gen, cfg.d_model, cfg.d_ff, cfg.n_experts)
+    elif cfg.mlp == "gelu":
         p["mlp"] = layers.gelu_mlp_init(gen, cfg.d_model, cfg.d_ff)
+    elif cfg.mlp == "rwkv_cmix":
+        p["mlp"] = recurrent.rwkv_cmix_init(gen, cfg.d_model, cfg.d_ff)
     else:
         p["mlp"] = layers.swiglu_init(gen, cfg.d_model, cfg.d_ff)
     return p
 
 
 def init_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
-    """{"embed", "final_norm", "unembed"?, "layers": [per-layer dicts]} on
-    ``gen``'s device."""
+    """{"embed", "final_norm", "unembed"?, "layers": [per-layer dicts],
+    "encoder"?: {"enc_layers": [attn blocks], "final_norm"}} on ``gen``'s
+    device."""
     check_supported(cfg)
     params: dict[str, Any] = {
         "embed": layers.embed_init(gen, cfg.vocab, cfg.d_model),
@@ -108,6 +130,11 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
     if not cfg.tie_embeddings:
         params["unembed"] = layers.embed_init(gen, cfg.vocab, cfg.d_model)
     params["layers"] = [_block_init(gen, kind, cfg) for kind in layer_kinds(cfg)]
+    if cfg.encoder_layers:
+        params["encoder"] = {
+            "enc_layers": [_block_init(gen, "attn", cfg) for _ in range(cfg.encoder_layers)],
+            "final_norm": _norm_init(cfg, gen.device),
+        }
     return params
 
 
@@ -120,27 +147,106 @@ def _pick_impl(cfg: ArchConfig) -> str:
     return "pallas" if cfg.attn_impl in ("auto", "pallas") else cfg.attn_impl
 
 
-def _mlp_apply(cfg: ArchConfig, p, h):
-    return layers.gelu_mlp(p, h) if cfg.mlp == "gelu" else layers.swiglu(p, h)
+def _mlp_apply(cfg: ArchConfig, p, h, x_prev=None) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """(the MLP's output, the MoE aux loss or None)."""
+    if cfg.mlp == "moe":
+        m, aux = moe.moe_apply(p, h, n_experts=cfg.n_experts, top_k=cfg.top_k,
+                               capacity_factor=cfg.capacity_factor, n_groups=cfg.moe_groups)
+        return m, aux["load_balance_loss"] * 0.01 + aux["router_z_loss"] * 1e-3
+    if cfg.mlp == "gelu":
+        return layers.gelu_mlp(p, h), None
+    if cfg.mlp == "rwkv_cmix":
+        return recurrent.rwkv_cmix(p, h, x_prev=x_prev), None
+    return layers.swiglu(p, h), None
 
 
-def _block_apply(kind: str, p: dict, x: torch.Tensor, cfg: ArchConfig,
-                 impl: str) -> torch.Tensor:
+def _cross(cfg: ArchConfig, p, h, memory, impl):
+    return attention.cross_attention(p, h, memory, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
+                                     head_dim=cfg.head_dim_, impl=impl)
+
+
+def _block_apply(kind: str, p: dict, x: torch.Tensor, cfg: ArchConfig, memory, impl: str,
+                 causal: bool = True) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """(x, the MoE aux loss or None)."""
     h = _norm_apply(cfg, p["ln1"], x)
     if kind == "rglru":
         y = recurrent.rglru_block(p["rglru"], h)
+    elif kind == "rwkv":
+        y = (recurrent.rwkv6_chunked if cfg.rwkv_chunked else recurrent.rwkv6_block)(
+            p["rwkv"], h, head_dim=cfg.rwkv_head_dim)
+    elif kind == "cross":
+        y = _cross(cfg, p["cross"], h, memory, impl)
     else:
         y = attention.self_attention(p["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
-                                     head_dim=cfg.head_dim_, causal=True,
+                                     head_dim=cfg.head_dim_, causal=causal or kind == "dec",
                                      window=cfg.window if kind == "local" else None,
                                      impl=impl, use_rope=cfg.use_rope)
+        if kind == "dec":
+            x = x + y
+            y = _cross(cfg, p["cross"], _norm_apply(cfg, p["lnx"], x), memory, impl)
     x = x + y
-    return x + _mlp_apply(cfg, p["mlp"], _norm_apply(cfg, p["ln2"], x))
+    m, aux = _mlp_apply(cfg, p["mlp"], _norm_apply(cfg, p["ln2"], x))
+    return x + m, aux
+
+
+@functools.lru_cache(maxsize=8)
+def _sinusoid_np(s: int, d: int):
+    pos = np.arange(s)[:, None]
+    i = np.arange(d // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * i / d)
+    return np.concatenate([np.sin(ang), np.cos(ang)], axis=-1).astype(np.float32)
+
+
+def _sinusoid(s: int, d: int, device) -> torch.Tensor:
+    return torch.from_numpy(_sinusoid_np(s, d)).to(device)
+
+
+def _sinusoid_at(length: torch.Tensor, d: int) -> torch.Tensor:
+    """(B,) positions → their (B, d) sinusoidal rows, computed in float32
+    as the reference's decode computes them (not read off the float64
+    table)."""
+    i = torch.arange(d // 2, dtype=torch.float32, device=length.device)
+    ang = length[:, None].float() / torch.pow(10000.0, 2 * i / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def _embed(params: dict, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     x = layers.embed(params["embed"], tokens) * math.sqrt(cfg.d_model)
     return x.to(torch.bfloat16)
+
+
+def _embed_seq(params: dict, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """tokens (B,S) → (B,S,d) bf16, with the sinusoidal table of positions
+    0..S-1 added when the config has no RoPE."""
+    x = _embed(params, tokens, cfg)
+    if not cfg.use_rope:
+        x = x + _sinusoid(tokens.shape[1], cfg.d_model, x.device).to(x.dtype)
+    return x
+
+
+def encode(enc_params: dict, frames: torch.Tensor, cfg: ArchConfig,
+           impl: str | None = None) -> torch.Tensor:
+    """Whisper-style encoder over stubbed frame embeddings (B,F,d): the
+    sinusoidal table added in bf16, then non-causal attn blocks and the
+    encoder's final norm.  ``impl`` defaults to the forward's pick."""
+    impl = _pick_impl(cfg) if impl is None else impl
+    x = frames.to(torch.bfloat16) + _sinusoid(frames.shape[1], cfg.d_model,
+                                              frames.device).to(torch.bfloat16)
+    for p in enc_params["enc_layers"]:
+        x, _ = _block_apply("attn", p, x, cfg, None, impl, causal=False)
+    return _norm_apply(cfg, enc_params["final_norm"], x)
+
+
+def _encoded(params: dict, memory, cfg: ArchConfig, impl: str):
+    """The memory the blocks attend to: encoded when the config has an
+    encoder, as given otherwise."""
+    if cfg.encoder_layers and memory is not None:
+        return encode(params["encoder"], memory, cfg, impl)
+    return memory
+
+
+def _add_aux(total: torch.Tensor, aux) -> torch.Tensor:
+    return total if aux is None else total + aux
 
 
 def logits(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -149,21 +255,54 @@ def logits(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return layers.unembed(params.get("unembed", params["embed"]), x)
 
 
-def hidden(params: dict, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def _blocks(params: dict, x: torch.Tensor, cfg: ArchConfig, memory, impl: str,
+            wrap=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every layer over x → (x, the MoE aux loss), summed as the reference
+    sums it: within each superblock, then the superblocks and the tail
+    layers.  ``wrap(fn, *args)`` runs each superblock (remat); the tail is
+    not wrapped."""
+    period = len(cfg.pattern)
+    repeats, _ = cfg.repeats_and_tail()
+
+    def superblock(x, memory, *block_params):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for kind, p in zip(cfg.pattern, block_params):
+            x, a = _block_apply(kind, p, x, cfg, memory, impl)
+            aux = _add_aux(aux, a)
+        return x, aux
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for r in range(repeats):
+        group = params["layers"][r * period:(r + 1) * period]
+        x, aux = (wrap or (lambda fn, *a: fn(*a)))(superblock, x, memory, *group)
+        total = total + aux
+    for i, p in enumerate(params["layers"][repeats * period:]):
+        x, aux = _block_apply(cfg.pattern[i], p, x, cfg, memory, impl)
+        total = _add_aux(total, aux)
+    return x, total
+
+
+def _stack(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
+           memory=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(the last block's output (B,S,d), the MoE aux loss)."""
+    impl = _pick_impl(cfg)
+    x = _embed_seq(params, tokens, cfg)
+    return _blocks(params, x, cfg, _encoded(params, memory, cfg, impl), impl)
+
+
+def hidden(params: dict, tokens: torch.Tensor, cfg: ArchConfig, memory=None) -> torch.Tensor:
     """tokens (B,S) → the last block's output (B,S,d), before the final
     norm."""
-    impl = _pick_impl(cfg)
-    x = _embed(params, tokens, cfg)
-    for kind, p in zip(layer_kinds(cfg), params["layers"]):
-        x = _block_apply(kind, p, x, cfg, impl)
-    return x
+    return _stack(params, tokens, cfg, memory)[0]
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
             memory: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B,S) → (logits (B,S,V) f32, moe_aux scalar (0: no MoE here))."""
-    x = hidden(params, tokens, cfg)
-    return logits(params, x, cfg), torch.zeros((), dtype=torch.float32, device=x.device)
+    """tokens (B,S) → (logits (B,S,V) f32, moe_aux scalar).  ``memory``
+    (B,M,d): frame embeddings, encoded here, for a config with an encoder;
+    else the memory cross layers attend to as it is."""
+    x, aux = _stack(params, tokens, cfg, memory)
+    return logits(params, x, cfg), aux
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
@@ -171,7 +310,7 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     """Prefill = the forward pass's last-position logits (B,V).  Only that
     position is unembedded: the same row as ``forward``'s, without the
     (B,S,V) float32 logits (8.4 GB for recurrentgemma-9b at B 2, S 4096)."""
-    return logits(params, hidden(params, tokens, cfg)[:, -1], cfg)
+    return logits(params, hidden(params, tokens, cfg, memory)[:, -1], cfg)
 
 
 # =============================================================================
@@ -189,32 +328,37 @@ def _train_impl(cfg: ArchConfig, seq_len: int) -> str:
     return "chunked" if seq_len > 2048 else "xla"
 
 
+# the reference's dots_with_no_batch_dims_saveable: matmuls without batch
+# dimensions; every x @ W of a (B, S, d) activation reaches aten.mm
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
 def train_forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
                   memory: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B,S) → (logits (B,S,V) f32, moe_aux scalar (0: no MoE here)),
-    recorded for autograd: superblocks under ``checkpoint`` when
-    ``cfg.remat``, the tail unwrapped."""
+    """tokens (B,S) → (logits (B,S,V) f32, moe_aux scalar), recorded for
+    autograd: superblocks under ``checkpoint`` when ``cfg.remat``, the tail
+    and the encoder unwrapped, as in the reference."""
     impl = _train_impl(cfg, tokens.shape[1])
-    if cfg.remat and cfg.remat_policy != "nothing":
-        raise NotImplementedError(
-            f"{cfg.name}: remat_policy={cfg.remat_policy!r} is not ported (the port's remat "
-            "saves nothing inside a superblock, as the reference's 'nothing' policy)")
-    period = len(cfg.pattern)
-    repeats, _ = cfg.repeats_and_tail()
-
-    def superblock(x, *block_params):
-        for kind, p in zip(cfg.pattern, block_params):
-            x = _block_apply(kind, p, x, cfg, impl)
-        return x
-
-    x = _embed(params, tokens, cfg)
-    for r in range(repeats):
-        group = params["layers"][r * period:(r + 1) * period]
-        x = (checkpoint(superblock, x, *group, use_reentrant=False) if cfg.remat
-             else superblock(x, *group))
-    for i, p in enumerate(params["layers"][repeats * period:]):
-        x = _block_apply(cfg.pattern[i], p, x, cfg, impl)
-    return logits(params, x, cfg), torch.zeros((), dtype=torch.float32, device=x.device)
+    kw = dict(use_reentrant=False)
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = _dots_context
+    x = _embed_seq(params, tokens, cfg)
+    if cfg.encoder_layers and memory is not None:
+        memory = encode(params["encoder"], memory, cfg, _train_impl(cfg, memory.shape[1]))
+    wrap = (lambda fn, *args: checkpoint(fn, *args, **kw)) if cfg.remat else None
+    x, total = _blocks(params, x, cfg, memory, impl, wrap)
+    return logits(params, x, cfg), total
 
 
 # =============================================================================
@@ -223,15 +367,22 @@ def train_forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
 def _layer_cache_init(kind: str, cfg: ArchConfig, batch: int, s_max: int, device) -> dict:
     if kind == "rglru":
         return recurrent.rglru_decode_init(batch, cfg.rnn_width_, device)
+    if kind == "rwkv":
+        c = recurrent.rwkv6_decode_init(batch, cfg.d_model, device, cfg.rwkv_head_dim)
+        c["cmix_prev"] = torch.zeros((batch, cfg.d_model), dtype=torch.bfloat16, device=device)
+        return c
+    if kind == "cross":
+        return {}
     slots = min(s_max, cfg.window or s_max) if kind == "local" else s_max
     return attention.cache_init(batch, slots, cfg.n_kv, cfg.head_dim_, device)
 
 
 def cache_init(cfg: ArchConfig, batch: int, s_max: int, device) -> dict:
     """{"layers": [per-layer state], "length": (B,) int32}.  A layer's state
-    is {"k", "v"} (B, slots, KVH, Dh) bf16, with s_max slots for attn/global
-    and a ring of min(s_max, window) for local; or {"h" (B, dr) f32,
-    "conv_buf" (B, 3, dr) bf16} for rglru."""
+    is {"k", "v"} (B, slots, KVH, Dh) bf16, with s_max slots for
+    attn/global/dec and a ring of min(s_max, window) for local; {"h" (B, dr)
+    f32, "conv_buf" (B, 3, dr) bf16} for rglru; {"S" (B, H, Dh, Dh) f32,
+    "x_prev" and "cmix_prev" (B, d) bf16} for rwkv; {} for cross."""
     check_supported(cfg)
     return {"layers": [_layer_cache_init(kind, cfg, batch, s_max, device)
                        for kind in layer_kinds(cfg)],
@@ -257,29 +408,49 @@ def _decode_local(p: dict, h, cache: dict, length, cfg: ArchConfig):
     return out.reshape(b, 1, cfg.n_heads * cfg.head_dim_) @ p["wo"], cache
 
 
-def _decode_block(kind: str, p: dict, x, cache: dict, length, cfg: ArchConfig):
+def _decode_block(kind: str, p: dict, x, cache: dict, length, cfg: ArchConfig, memory):
+    impl = _pick_impl(cfg)
+    dims = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim_)
     h = _norm_apply(cfg, p["ln1"], x)
     if kind == "rglru":
         y, cache = recurrent.rglru_decode(p["rglru"], h, cache)
+    elif kind == "rwkv":
+        y, cache = recurrent.rwkv6_decode(p["rwkv"], h, cache, head_dim=cfg.rwkv_head_dim)
     elif kind == "local":
         y, cache = _decode_local(p["attn"], h, cache, length, cfg)
+    elif kind == "cross":
+        y = attention.decode_cross_attention(p["cross"], h, memory, impl=impl, **dims)
     else:
-        y, cache = attention.decode_self_attention(
-            p["attn"], h, cache, length, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
-            head_dim=cfg.head_dim_, impl=_pick_impl(cfg), use_rope=cfg.use_rope)
+        y, cache = attention.decode_self_attention(p["attn"], h, cache, length, impl=impl,
+                                                   use_rope=cfg.use_rope, **dims)
+        if kind == "dec":
+            x = x + y
+            y = attention.decode_cross_attention(p["cross"], _norm_apply(cfg, p["lnx"], x),
+                                                 memory, impl=impl, **dims)
     x = x + y
-    return x + _mlp_apply(cfg, p["mlp"], _norm_apply(cfg, p["ln2"], x)), cache
+    h2 = _norm_apply(cfg, p["ln2"], x)
+    x_prev = None
+    if cfg.mlp == "rwkv_cmix" and kind == "rwkv":
+        x_prev = cache["cmix_prev"][:, None].to(h2.dtype)
+    m, _ = _mlp_apply(cfg, p["mlp"], h2, x_prev)
+    if kind == "rwkv":
+        cache["cmix_prev"].copy_(h2[:, 0])
+    return x + m, cache
 
 
 def decode_step(params: dict, token: torch.Tensor, cache: dict, cfg: ArchConfig,
                 memory: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
     """token (B,) one decode step → (logits (B,V) f32, cache).  The layers'
     states are written in place; the returned dict carries them and the new
-    lengths."""
+    lengths.  ``memory`` (B,M,d) must be already encoded, as the
+    reference's: decode never runs the encoder.  Without RoPE, each slot's
+    sinusoidal position is that of its length (``_sinusoid_at``)."""
     length = cache["length"]
     x = _embed(params, token[:, None], cfg)
+    if not cfg.use_rope:
+        x = x + _sinusoid_at(length, cfg.d_model)[:, None].to(x.dtype)
     new_layers = []
     for kind, p, c in zip(layer_kinds(cfg), params["layers"], cache["layers"]):
-        x, c = _decode_block(kind, p, x, c, length, cfg)
+        x, c = _decode_block(kind, p, x, c, length, cfg, memory)
         new_layers.append(c)
     return logits(params, x, cfg)[:, 0], {"layers": new_layers, "length": length + 1}

@@ -23,7 +23,7 @@ import torch
 
 from ..core.trace import Metrics
 from ..data.tokenizer import EOS
-from ..models.model import Model
+from ..models.model import Model, _needs_memory
 
 
 @dataclasses.dataclass
@@ -48,6 +48,14 @@ class ServeEngine:
         self._pending: list[Request] = []
         self._next_feed = np.zeros(max_batch, np.int32)     # token to feed next
         self._prompt_pos = np.zeros(max_batch, np.int64)    # progress in prompt
+        # the reference decodes a model with cross layers against a zero
+        # memory of (max_batch, cross_memory_len, d), never encoded
+        # (ROADMAP Queue 3, known divergences); it is the same every step
+        self._memory = None
+        if _needs_memory(model.cfg):
+            cfg = model.cfg
+            self._memory = torch.zeros((max_batch, cfg.cross_memory_len, cfg.d_model),
+                                       dtype=torch.bfloat16, device=model.device)
         self.metrics = Metrics("serve", steps=0, tokens_out=0, prefill_tokens=0)
 
     # ------------------------------------------------------------------
@@ -86,7 +94,8 @@ class ServeEngine:
             return 0
         with torch.inference_mode():
             feed = torch.from_numpy(self._next_feed.copy()).to(self.model.device)
-            logits, self.cache = self.model.decode_step(self.params, feed, self.cache)
+            logits, self.cache = self.model.decode_step(self.params, feed, self.cache,
+                                                        self._memory)
             next_tok = logits.argmax(dim=-1).cpu().numpy()        # the step's sync
         self.metrics.inc("steps")
 

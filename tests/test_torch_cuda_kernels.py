@@ -498,3 +498,55 @@ def test_cuda_flash_attention_f32_takes_the_fma_route(rng, cuda):
     fa_mod.flash_attention(q, k, v)
     fa_mod.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
     assert fa_mod.counter.routes == {"fma": 1, "tc": 1} and fa_mod.counter.launches == 2
+
+
+# ---- non-causal K6 and the decode-cross K7 (the encoder and cross layers) ------------
+@pytest.mark.parametrize("sk", [1, 63, 65, 1500])
+@pytest.mark.parametrize("sq", [1, 100, 1500])
+def test_cuda_flash_non_causal_at_ragged_key_lengths(rng, cuda, sq, sk):
+    """causal=False, the encoder's and the cross layers' call: Sk of 1, one
+    short of and one past the 64-key tile, and whisper's 1,500 frames (not a
+    multiple of 64), with Sq = Sk and Sq != Sk; bf16 on the tensor cores
+    within BF16_TOL, f32 on the FMA kernel within FLASH_TOL; 8 heads over 8
+    and over 2 KV heads, D 64."""
+    for kvh in (8, 2):
+        q = rng.standard_normal((2, sq, 8, 64)).astype(np.float32)
+        k, v = (rng.standard_normal((2, sk, kvh, 64)).astype(np.float32) for _ in range(2))
+        _tc_checked(*_bf16_on(cuda, q, k, v), causal=False)
+        q32, k32, v32 = (_t(a).to(cuda) for a in (q, k, v))
+        out = fa_mod.flash_attention(q32, k32, v32, causal=False)
+        torch.testing.assert_close(out, fa_mod.flash_attention_plain(q32, k32, v32, causal=False),
+                                   **FLASH_TOL)
+
+
+@pytest.mark.parametrize("b,sq,h,kvh,m,d", [(2, 300, 8, 8, 1500, 64), (2, 300, 64, 8, 1600, 128)])
+def test_cuda_flash_non_causal_cross_shapes(rng, cuda, b, sq, h, kvh, m, d):
+    """The cross layers' forward shapes: whisper (8 heads, D 64, M 1,500)
+    and llama-vision (64 heads over 8, D 128, M 1,600), bf16, ten reruns
+    bit-identical."""
+    q, k, v = _bf16_on(cuda, rng.standard_normal((b, sq, h, d)).astype(np.float32),
+                       *(rng.standard_normal((b, m, kvh, d)).astype(np.float32)
+                         for _ in range(2)))
+    out = _tc_checked(q, k, v, causal=False)
+    for _ in range(10):
+        assert torch.equal(out, fa_mod.flash_attention(q, k, v, causal=False))
+
+
+@pytest.mark.parametrize("b,h,kvh,m,d", [(4, 8, 8, 1500, 64), (4, 64, 8, 1600, 128),
+                                         (3, 8, 2, 65, 64)])
+def test_cuda_decode_attention_cross_every_length_m(rng, cuda, b, h, kvh, m, d):
+    """Decode's cross-attention: one token over the whole memory, every
+    length M (whisper's 1,500 and llama-vision's 1,600 frames, and 65), on
+    route tc within K7_BF16_TOL, one launch, reruns bit-identical; equal
+    within BF16_TOL to K6 non-causal at Sq = 1, the function it stands
+    for."""
+    q, k, v = (_t(a).to(cuda, torch.bfloat16) for a in _decode_inputs(rng, b, h, kvh, m, d))
+    lengths = torch.full((b,), m, dtype=torch.int32, device=cuda)
+    da_mod.counter.reset()
+    out = da_mod.decode_attention(q, k, v, lengths)
+    assert da_mod.counter.routes == {"tc": 1}
+    assert torch.equal(out, da_mod.decode_attention(q, k, v, lengths))
+    torch.testing.assert_close(out.float(), da_mod.decode_attention_plain(q, k, v, lengths).float(),
+                               rtol=K7_BF16_TOL, atol=K7_BF16_TOL)
+    flash = fa_mod.flash_attention(q[:, None], k, v, causal=False)[:, 0]
+    torch.testing.assert_close(out.float(), flash.float(), rtol=K7_BF16_TOL, atol=K7_BF16_TOL)

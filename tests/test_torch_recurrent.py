@@ -1,12 +1,20 @@
-"""RG-LRU layer of the PyTorch port against the JAX package
-(``repro/models/recurrent.py``): the causal convolution, the recurrence
-coefficients, the whole block (the reference under both kernel paths: its
-plain ``ref.linear_scan`` and the Pallas kernel in interpret mode), and the
-decode step with its state.
+"""Recurrent layers of the PyTorch port against the JAX package
+(``repro/models/recurrent.py``).  RG-LRU: the causal convolution, the
+recurrence coefficients, the whole block (the reference under both kernel
+paths: its plain ``ref.linear_scan`` and the Pallas kernel in interpret
+mode), and the decode step with its state.  RWKV6: the token-shift inputs,
+the sequential block, the chunked block, the channel mix and the decode
+step, each against its own reference counterpart.
 
 Inputs come from numpy seeds; both sides run in float32 on the CPU, at
-rtol = atol = 2e-3 (the reference's linear_scan tolerance).
+rtol = atol = 2e-3 (the reference's linear_scan tolerance).  RWKV6's decode
+takes bf16 activations, as the model feeds it: its outputs, rounded to bf16
+by the block's last matmul, at 2e-2 (a few bf16 ulps); its state, float32,
+at 2e-3.  The chunked block against the sequential one at 1e-2: the chunked
+form reorders the decay products (exp of within-chunk cumulative logs).
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +22,7 @@ import pytest
 import torch
 
 from repro.models import recurrent as rrec
+from repro_torch import convert
 from repro_torch.models import recurrent as trec
 
 TOL = dict(rtol=2e-3, atol=2e-3)
@@ -119,5 +128,148 @@ def test_rglru_init_and_decode_state_match_reference():
 
 
 def test_rwkv_raises_naming_m10e():
-    with pytest.raises(NotImplementedError, match="M10e"):
-        trec.rwkv6_block_init(torch.Generator(), 64)
+    """Until RWKV6 was ported (ROADMAP M10e) this init raised
+    NotImplementedError naming M10e.  Now it builds the reference's tree
+    (keys, shapes, dtypes: the mixes, decay and bonus float32, the
+    projections bf16), and the refusal it still carries is a width that is
+    not a whole number of heads: the port raises ValueError at init, where
+    the reference builds the tree and fails at its first forward, in a
+    reshape."""
+    rp = rrec.rwkv6_block_init(jax.random.PRNGKey(0), 64, 16)
+    tp = trec.rwkv6_block_init(torch.Generator().manual_seed(0), 64, 16)
+    assert _sig(tp) == _sig(rp)
+    np.testing.assert_array_equal(tp["decay_base"].numpy(), np.asarray(rp["decay_base"]))
+    with pytest.raises(ValueError, match="not a multiple of head_dim"):
+        trec.rwkv6_block_init(torch.Generator(), 64, 48)
+    bad = rrec.rwkv6_block_init(jax.random.PRNGKey(0), 64, 48)
+    with pytest.raises(TypeError):
+        rrec.rwkv6_block(bad, jnp.zeros((1, 3, 64), jnp.bfloat16), head_dim=48)
+
+
+# ---- RWKV6 --------------------------------------------------------------------------
+# parameters at D_RW = 48, 3 heads of 16: the decays' base the reference's
+# init (w from about 0.2 to near 1, so the state carries; a faster decay
+# overflows exp(-cumsum log w) over a chunk of 64, in either package), the
+# bonus and mixes large enough to count
+D_RW, HD, FF = 48, 16, 80
+
+
+def _sig(tree):
+    if isinstance(tree, dict):
+        return {k: _sig(v) for k, v in tree.items()}
+    return tuple(tree.shape), str(tree.dtype).split(".")[-1]
+
+
+def _rwkv_params(rng, projections=np.float32) -> dict:
+    """float32 parameters; the five projections in ``projections`` (bf16 as
+    the model stores them, for decode's bf16 activations)."""
+    p = {"mu": rng.random((5, D_RW)),
+         **{n: rng.standard_normal((D_RW, D_RW)) / np.sqrt(D_RW)
+            for n in ("w_r", "w_k", "w_v", "w_g", "w_o")},
+         "decay_a": rng.standard_normal((D_RW, 32)) / np.sqrt(D_RW),
+         "decay_b": rng.standard_normal((32, D_RW)) / np.sqrt(32),
+         "decay_base": np.linspace(-6.0, -0.5, D_RW),
+         "bonus": rng.standard_normal((D_RW // HD, HD)) * 0.5}
+    p = {k: v.astype(projections if k in ("w_r", "w_k", "w_v", "w_g", "w_o") else np.float32)
+         for k, v in p.items()}
+    p["ln_out"] = {"scale": (1 + 0.1 * rng.standard_normal(D_RW)).astype(np.float32),
+                   "bias": (0.1 * rng.standard_normal(D_RW)).astype(np.float32)}
+    return p
+
+
+def _cmix_params(rng) -> dict:
+    p = {"mu": rng.random((2, D_RW)), "w_k": rng.standard_normal((D_RW, FF)) / np.sqrt(D_RW),
+         "w_v": rng.standard_normal((FF, D_RW)) / np.sqrt(FF),
+         "w_r": rng.standard_normal((D_RW, D_RW)) / np.sqrt(D_RW)}
+    return {k: v.astype(np.float32) for k, v in p.items()}
+
+
+def _tree_both(p):
+    return jax.tree.map(jnp.asarray, p), convert._tree(p, "cpu")
+
+
+def test_rwkv6_inputs_match_reference(rng):
+    rp, tp = _tree_both(_rwkv_params(rng))
+    x = rng.standard_normal((2, 9, D_RW)).astype(np.float32)
+    xp = rng.standard_normal((2, 9, D_RW)).astype(np.float32)
+    want = rrec._rwkv6_inputs(rp, jnp.asarray(x), jnp.asarray(xp))
+    got = trec._rwkv6_inputs(tp, _t(x), _t(xp))
+    for name, g, w in zip("rkvgw", got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL, err_msg=name)
+    assert 0.1 < float(got[4].min()) < 0.7 and 0.99 < float(got[4].max()) < 1
+
+
+@pytest.mark.parametrize("s", [1, 13, 70])
+def test_rwkv6_block_matches_reference(rng, s):
+    """The sequential scan over time, float32."""
+    rp, tp = _tree_both(_rwkv_params(rng))
+    x = rng.standard_normal((2, s, D_RW)).astype(np.float32)
+    want = jax.jit(functools.partial(rrec.rwkv6_block, head_dim=HD))(rp, jnp.asarray(x))
+    np.testing.assert_allclose(trec.rwkv6_block(tp, _t(x), head_dim=HD).numpy(),
+                               np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("s,chunk", [(40, 16), (64, 64), (70, 64), (5, 8)])
+def test_rwkv6_chunked_matches_reference(rng, s, chunk):
+    """The chunked form against the reference's chunked form (padding when
+    the chunk does not divide S), and, looser, against the sequential scan
+    it reorders: the two are not bit-equal in either package."""
+    rp, tp = _tree_both(_rwkv_params(rng))
+    x = rng.standard_normal((2, s, D_RW)).astype(np.float32)
+    fn = functools.partial(rrec.rwkv6_chunked, head_dim=HD, chunk=chunk)
+    want = np.asarray(jax.jit(fn)(rp, jnp.asarray(x)))
+    got = trec.rwkv6_chunked(tp, _t(x), head_dim=HD, chunk=chunk).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_allclose(got, trec.rwkv6_block(tp, _t(x), head_dim=HD).numpy(),
+                               rtol=1e-2, atol=1e-2)
+
+
+def test_rwkv_cmix_matches_reference(rng):
+    """The channel mix with its own token shift, and with a given previous
+    token (decode's)."""
+    rp, tp = _tree_both(_cmix_params(rng))
+    x = rng.standard_normal((2, 7, D_RW)).astype(np.float32)
+    xp = rng.standard_normal((2, 1, D_RW)).astype(np.float32)
+    np.testing.assert_allclose(trec.rwkv_cmix(tp, _t(x)).numpy(),
+                               np.asarray(rrec.rwkv_cmix(rp, jnp.asarray(x))), **TOL)
+    np.testing.assert_allclose(
+        trec.rwkv_cmix(tp, _t(x[:, :1]), x_prev=_t(xp)).numpy(),
+        np.asarray(rrec.rwkv_cmix(rp, jnp.asarray(x[:, :1]), x_prev=jnp.asarray(xp))), **TOL)
+
+
+def test_rwkv6_decode_matches_reference(rng):
+    """Ten decode steps from the zero state, bf16 activations as the model
+    feeds them: outputs and states against the reference's, the state
+    written in place; the outputs follow the sequential forward over the
+    same tokens."""
+    import ml_dtypes
+    rp, tp = _tree_both(_rwkv_params(rng, ml_dtypes.bfloat16))
+    x = (rng.standard_normal((2, 10, D_RW))).astype(np.float32)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    tb = _t(x).bfloat16()
+    rstate = rrec.rwkv6_decode_init(2, D_RW, HD)
+    tstate = trec.rwkv6_decode_init(2, D_RW, "cpu", HD)
+    assert _sig(tstate) == _sig(rstate) and not any(t.any() for t in tstate.values())
+    s_tensor = tstate["S"]
+    step = jax.jit(functools.partial(rrec.rwkv6_decode, head_dim=HD))
+    outs = []
+    for i in range(10):
+        rout, rstate = step(rp, xb[:, i:i + 1], rstate)
+        tout, same = trec.rwkv6_decode(tp, tb[:, i:i + 1], tstate, head_dim=HD)
+        assert same is tstate and tstate["S"] is s_tensor
+        np.testing.assert_allclose(tout.float().numpy(), np.asarray(rout, np.float32),
+                                   rtol=2e-2, atol=2e-2)
+        for name in ("S", "x_prev"):
+            np.testing.assert_allclose(tstate[name].float().numpy(),
+                                       np.asarray(rstate[name], np.float32), **TOL)
+        outs.append(tout)
+    np.testing.assert_allclose(torch.cat(outs, 1).float().numpy(),
+                               trec.rwkv6_block(tp, tb, head_dim=HD).float().numpy(),
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_rwkv_cmix_init_builds_the_reference_tree():
+    r = rrec.rwkv_cmix_init(jax.random.PRNGKey(0), 32, 48)
+    t = trec.rwkv_cmix_init(torch.Generator().manual_seed(0), 32, 48)
+    assert _sig(t) == _sig(r)
