@@ -195,6 +195,23 @@ Phases (any failure raises and the script exits non-zero):
                  its route flips printed), rwkv's chunked form against its
                  sequential scan, and teacher-forced decode with the
                  (encoded) memory against the forward
+ 13. launch    — the launch layer: make_local_mesh() and elastic_remesh(1)
+                 give (1, 1) ("data", "model") meshes on the card (NCCL on a
+                 HashStore); yi-6b at full width plain, then its parameters,
+                 cache and tokens as DTensors placed by param_specs /
+                 cache_specs_tree / batch_specs on that mesh, one prefill of
+                 1 x 512 tokens and 8 decode steps under
+                 activation_sharding: K6 and K7 through the DTensor route
+                 (local_map) as often as in the plain run, every logit
+                 torch.equal to the plain run's; meanwhile, in four
+                 processes of their own (no card), the abstract dry-run of
+                 yi-6b x train_4k, qwen3-moe-235b-a22b x prefill_32k,
+                 llama-3.2-vision-90b x decode_32k and recurrentgemma-9b x
+                 long_500k at full size on the fake 16 x 16 mesh, each
+                 "analyzed", with its per-device FLOPs, bytes raw and fused,
+                 wire bytes by kind, argument bytes and roofline terms
+                 against the H100's data-sheet peaks (accounting, not a
+                 measurement)
 
 Run from the root of a checkout:  python3 chip_smoke.py
 The last two lines of standard output are the kernels' JSON record and
@@ -3992,6 +4009,178 @@ def zoo_phase(torch, np, fa, da, dev, card: str) -> tuple[dict, dict]:
     return k6, k7
 
 
+# =============================================================================
+# phase 13: the launch layer (meshes, sharding specs on DTensor, the dry-run)
+# =============================================================================
+LAUNCH_ARCH = "yi-6b"
+LAUNCH_PROMPT, LAUNCH_STEPS = 512, 8
+# the abstract dry-run's cells on the single-pod (16 x 16) mesh: dense
+# training, MoE prefill (EP + FSDP), SP decode of a cross-attention model, and
+# recurrent long-context decode
+LAUNCH_CELLS = (("yi-6b", "train_4k"), ("qwen3-moe-235b-a22b", "prefill_32k"),
+                ("llama-3.2-vision-90b", "decode_32k"), ("recurrentgemma-9b", "long_500k"))
+
+
+def sharded_serving(torch, np, fa, da, dev, mesh) -> tuple[dict, dict]:
+    """Phase 13 (b): yi-6b at full width, plain and then as DTensors placed by
+    ``param_specs`` / ``cache_specs_tree`` / ``batch_specs`` on ``mesh``, one
+    prefill of 1 x LAUNCH_PROMPT tokens and LAUNCH_STEPS decode steps each,
+    the DTensor run under ``activation_sharding``; every logit must be
+    ``torch.equal`` and K6 / K7 must launch as often, by route.  Returns the
+    DTensor run's launches of K6 and K7 by route."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import sharding as shlib
+    from repro_torch.models import build_model
+    from repro_torch.models.sharding_ctx import activation_sharding
+    cfg = get_config(LAUNCH_ARCH)
+    t0 = time.perf_counter()
+    model = build_model(cfg, dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        3, cfg.vocab, (1, LAUNCH_PROMPT)).astype(np.int32)).to(dev)
+    s_max = LAUNCH_PROMPT + LAUNCH_STEPS
+
+    def run(params, tokens, cache):
+        out = [model.prefill(params, tokens)]
+        for i in range(LAUNCH_STEPS):
+            logits, cache = model.decode_step(params, tokens[:, i], cache)
+            out.append(logits)
+        return out
+
+    fa.counter.reset()
+    da.counter.reset()
+    plain = [t.clone() for t in run(params, tokens, model.cache_init(1, s_max))]
+    torch.cuda.synchronize()
+    plain_routes = (dict(fa.counter.routes), dict(da.counter.routes))
+    t_plain = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    shape = ShapeConfig("phase13", s_max, 1, "decode")
+    dparams = shlib.distribute(params, shlib.param_specs(cfg, params, mesh), mesh)
+    cache = model.cache_init(1, s_max)
+    dcache = shlib.distribute(cache, shlib.cache_specs_tree(cfg, shape, mesh, cache), mesh)
+    batch = {"tokens": tokens}
+    dtokens = shlib.distribute(batch, shlib.batch_specs(cfg, shape, mesh, batch), mesh)["tokens"]
+    fa.counter.reset()
+    da.counter.reset()
+    with activation_sharding(mesh, shlib.effective_dp(cfg, mesh)) as rec, implicit_replication():
+        got = run(dparams, dtokens, dcache)
+    got = [t.full_tensor() for t in got]
+    torch.cuda.synchronize()
+    routes = (dict(fa.counter.routes), dict(da.counter.routes))
+    kinds = sorted({type(t).__name__ for t in (dparams["embed"], dcache["layers"][0]["k"])})
+    log(f"  {cfg.name} at full width ({cfg.param_count()[0]} parameters, seed 0) on mesh "
+        f"{tuple(mesh.shape)} {mesh.mesh_dim_names}: plain run {t_plain:.1f} s (init included), "
+        f"DTensor run {time.perf_counter() - t1:.1f} s; parameters and cache as {kinds}; "
+        f"wq {dparams['layers'][0]['attn']['wq'].placements}, cache k "
+        f"{dcache['layers'][0]['k'].placements}; operators run replicated {rec.replicated}")
+    log(f"  launches by route (K6, K7): plain {plain_routes}, DTensor {routes}")
+    equal = [bool(torch.equal(a, b)) for a, b in zip(plain, got)]
+    log(f"  logits torch.equal to the plain run: prefill {equal[0]}, decode steps {equal[1:]}")
+    if routes != plain_routes or not routes[0] or not routes[1]:
+        raise AssertionError(f"phase 13: K6 / K7 launched {routes} through the DTensor route, "
+                             f"{plain_routes} in the plain run")
+    if not all(equal):
+        raise AssertionError(f"phase 13: DTensor logits differ from the plain run's: {equal}")
+    del params, dparams, cache, dcache, plain, got, model
+    torch.cuda.empty_cache()
+    return routes
+
+
+LAUNCH_CELL_TIMEOUT = 300   # seconds a dry-run cell may take (its own process)
+
+
+def start_cells(out_dir: Path) -> list:
+    """Phase 13 (c), started: one process a cell of LAUNCH_CELLS, each
+    ``python -m repro_torch.launch.dryrun`` on the single-pod mesh (its own
+    fake world, meta tensors, no card: CUDA_VISIBLE_DEVICES is empty), all at
+    once, while the card runs (a) and (b)."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for arch, shape in LAUNCH_CELLS:
+        out = open(out_dir / f"{arch}__{shape}.log", "w")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+               shape, "--mesh", "single", "--out", str(out_dir), "--force"]
+        procs.append((arch, shape, subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=out,
+                                                    stderr=subprocess.STDOUT), out))
+    return procs
+
+
+def stop_cells(procs: list) -> None:
+    for _, _, proc, out in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        out.close()
+
+
+def finish_cells(procs: list, out_dir: Path, card: str, t0: float) -> None:
+    """Phase 13 (c), finished: each cell's process must exit 0 and its
+    record reach "analyzed"; prints each cell's accounting."""
+    failures = []
+    for arch, shape, proc, out in procs:
+        try:
+            rc = proc.wait(timeout=max(1.0, LAUNCH_CELL_TIMEOUT - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            failures.append(f"{arch} x {shape}: over {LAUNCH_CELL_TIMEOUT} s")
+            continue
+        out.flush()
+        path = out_dir / f"{arch}__{shape}__single.json"
+        res = json.loads(path.read_text()) if path.exists() else {"status": f"no record, rc {rc}"}
+        if rc != 0 or res["status"] != "analyzed":
+            tail = (out_dir / f"{arch}__{shape}.log").read_text()[-2000:]
+            failures.append(f"{arch} x {shape}: rc {rc}, {res['status']} "
+                            f"{res.get('error', '')}\n{tail}")
+            continue
+        ha, rl = res["hlo_analysis"], res["roofline"]
+        log(f"  {arch} x {shape} on {res['chips']} devices (placed in {res['lower_s']:.1f} s, "
+            f"run in {res['compile_s']:.1f} s): per device {ha['flops']:.6g} FLOPs, "
+            f"{ha['hbm_bytes']:.6g} bytes raw, {ha['hbm_bytes_fused']:.6g} fused, wire "
+            f"{ha['wire_bytes_by_kind']} ({ha['collective_counts']}), arguments "
+            f"{res['arg_bytes_per_device']}, peak live "
+            f"{res['memory_analysis']['peak_live_bytes']}; kernels "
+            f"{ {k: v['calls'] for k, v in ha['kernels'].items()} }, replicated "
+            f"{ha['replicated_by_op']}")
+        log(f"    roofline against the H100 data sheet (989 TFLOP/s bf16, 3.35 TB/s, 450 GB/s "
+            f"NVLink a way; accounting, not a measurement) | {card}: compute "
+            f"{rl['compute_s']:.6g} s, memory {rl['memory_s']:.6g} s, collective "
+            f"{rl['collective_s']:.6g} s -> {rl['bottleneck']}; step bound {rl['step_s']:.6g} s, "
+            f"useful {rl['useful_flops_fraction']:.4g}, roofline fraction "
+            f"{rl['roofline_fraction']:.4g}")
+    if failures:
+        raise AssertionError("phase 13: " + "; ".join(failures))
+
+
+def launch_phase(torch, np, fa, da, dev, card: str) -> tuple[dict, dict]:
+    """Phase 13; returns K6's and K7's launches by route in the DTensor
+    run."""
+    from repro_torch.launch.mesh import close_local_group, make_local_mesh
+    from repro_torch.train.fault import elastic_remesh
+    t0 = time.perf_counter()
+    out_dir = ROOT / "build" / "dryrun_phase13"
+    procs = start_cells(out_dir)
+    try:
+        try:
+            mesh = make_local_mesh(dev)
+            remesh = elastic_remesh(1, device=dev)
+            for m in (mesh, remesh):
+                if tuple(m.shape) != (1, 1) or m.mesh_dim_names != ("data", "model"):
+                    raise AssertionError(f"phase 13: a {tuple(m.shape)} {m.mesh_dim_names} mesh")
+            log(f"  make_local_mesh() {tuple(mesh.shape)} {mesh.mesh_dim_names} on "
+                f"{mesh.device_type}, elastic_remesh(1) {tuple(remesh.shape)} "
+                f"{remesh.mesh_dim_names} ({time.perf_counter() - t0:.1f} s)")
+            k6, k7 = sharded_serving(torch, np, fa, da, dev, mesh)
+        finally:
+            close_local_group()
+        finish_cells(procs, out_dir, card, t0)
+    finally:
+        stop_cells(procs)
+    log(f"  dry-run cells done {time.perf_counter() - t0:.1f} s after the phase began")
+    return k6, k7
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -4207,6 +4396,19 @@ def main() -> int:
     add_routes("flash_attention", k6_routes)
     add_routes("decode_attention", k7_routes)
     log(f"[zoo] {time.perf_counter() - t0:.1f} s")
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log(f"[launch] meshes on {dev}, {LAUNCH_ARCH} as DTensors through prefill and decode, the "
+        f"abstract dry-run of {len(LAUNCH_CELLS)} cells")
+    for c in counters.values():
+        c.reset()
+    k6_routes, k7_routes = launch_phase(torch, np, fa, da, dev, card)
+    launches["flash_attention"] += sum(k6_routes.values())
+    launches["decode_attention"] += sum(k7_routes.values())
+    add_routes("flash_attention", k6_routes)
+    add_routes("decode_attention", k7_routes)
+    log(f"[launch] {time.perf_counter() - t0:.1f} s")
 
     record = []
     for k in ("segment_reduce", "block_transpose", "onehot_encode", "window_scan",

@@ -1,14 +1,27 @@
 """Shared helpers for the kernel wrappers: storage-dtype widening at the
-kernel boundary, device dispatch checks, and launch counters."""
+kernel boundary, device dispatch checks, launch counters, and the analytic
+charge a wrapper makes on meta tensors.
+
+**Meta tensors** (the dry-run, ``launch/dryrun.py``) reach a kernel's
+wrapper with shapes and no data.  No kernel launches and no plain version
+runs: the plain version would count what the kernel never does (K6's S x S
+probabilities).  The wrapper of K5, K6 or K7 returns an empty meta result
+of its output's shape and ``charge``s the kernel's analytic FLOPs and bytes
+(the counts of ``PERF.md``'s bound column) to the accounting that is
+active, if any (``launch/hlo_analysis.analyze``).  The other kernels are on
+no path the dry-run drives, and ``on_cpu`` refuses meta tensors for them
+as it refuses any device but the CPU and CUDA.
+"""
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import threading
 
 import torch
 
-__all__ = ["widen_for_kernel", "narrow_from_kernel", "on_cpu", "on_device", "cuda_stream",
-           "refuse_grad", "LaunchCounter"]
+__all__ = ["widen_for_kernel", "narrow_from_kernel", "on_cpu", "on_meta", "on_device",
+           "cuda_stream", "refuse_grad", "LaunchCounter", "charge", "charging"]
 
 
 # The kernels move float32 and int32 words; bools and narrow ints are widened
@@ -32,7 +45,9 @@ def on_cpu(kernel: str, *tensors: torch.Tensor) -> bool:
     """Device dispatch for a kernel wrapper: True when every tensor lies on
     the CPU (the plain version runs), False when every tensor lies on one
     CUDA device (the kernel runs).  Anything else raises — there is no
-    fallback from a CUDA tensor to the plain version."""
+    fallback from a CUDA tensor to the plain version.  Meta tensors take
+    the analytic branch (``on_meta``) of K5, K6 and K7 before this is asked,
+    and raise here in the other wrappers."""
     first = tensors[0]
     if first.is_cuda:
         dev = first.get_device()
@@ -42,6 +57,37 @@ def on_cpu(kernel: str, *tensors: torch.Tensor) -> bool:
         return True
     raise ValueError(f"{kernel}: tensors must all be on the CPU or all on one "
                      f"CUDA device, got {sorted(str(t.device) for t in tensors)}")
+
+
+def on_meta(kernel: str, *tensors: torch.Tensor) -> bool:
+    """True when every tensor is a meta tensor (the wrapper returns an empty
+    meta result and ``charge``s its counts); otherwise False, and a mix of
+    devices is left to ``on_cpu``, which raises."""
+    return all(t.is_meta for t in tensors)
+
+
+# the accounting a meta call charges: a callable (kernel, flops, nbytes), or None
+_CHARGE: contextvars.ContextVar = contextvars.ContextVar("repro_torch_kernel_charge",
+                                                         default=None)
+
+
+@contextlib.contextmanager
+def charging(sink):
+    """Route the meta calls' ``charge``s to ``sink(kernel, flops, nbytes)``
+    while active."""
+    token = _CHARGE.set(sink)
+    try:
+        yield
+    finally:
+        _CHARGE.reset(token)
+
+
+def charge(kernel: str, flops: float, nbytes: float) -> None:
+    """A kernel's analytic FLOPs and bytes for one meta call, to the active
+    accounting (none: nothing is recorded)."""
+    sink = _CHARGE.get()
+    if sink is not None:
+        sink(kernel, float(flops), float(nbytes))
 
 
 def refuse_grad(kernel: str, tag: str, *tensors: torch.Tensor) -> None:

@@ -27,13 +27,18 @@ makes all S slots valid.  Where no slot is valid (length 0) the kernel gives
 -1e30 mask never lets the guard fire), and the plain version the mean of V,
 as ``repro.kernels.ref.decode_attention`` does (ROADMAP, known divergences);
 decode always has length >= 1.
+
+On meta tensors (the dry-run) nothing runs: the lengths have no values, so
+every one of the S slots counts as valid, and the call charges 4 x D FLOPs
+a (slot, head, valid row), the valid K and V rows, q, the output and the
+lengths each moved once, and returns an empty meta output.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
-from ._util import LaunchCounter, cuda_stream, on_cpu, on_device, refuse_grad
+from ._util import LaunchCounter, charge, cuda_stream, on_cpu, on_device, on_meta, refuse_grad
 
 __all__ = ["decode_attention", "decode_attention_plain", "counter", "route", "splits",
            "split_keys", "fma_splits", "SPLIT_KEYS"]
@@ -114,6 +119,14 @@ def decode_attention(q, k_cache, v_cache, length, *, scale=None):
     single-sequence q (H, D), caches (S, KVH, D), int length → (H, D)."""
     refuse_grad("decode_attention", "K7", q, k_cache, v_cache)
     single, qb, kb, vb, lb = _batched(q, k_cache, v_cache, length)
+    if on_meta("decode_attention", qb, kb, vb, lb):
+        b, h, d = qb.shape
+        keys = b * kb.shape[1]
+        size = qb.element_size()
+        charge("decode_attention", 4 * keys * h * d,
+               2 * keys * kb.shape[2] * d * size + 2 * b * h * d * size + b * 4)
+        out = torch.empty((b, h, d), dtype=qb.dtype, device="meta")
+        return out[0] if single else out
     if on_cpu("decode_attention", qb, kb, vb, lb):
         return decode_attention_plain(q, k_cache, v_cache, length, scale=scale)
     b, h, d = qb.shape

@@ -25,13 +25,20 @@ query placed before the first key, where Sq > Sk) is 0 from the kernel, the
 value the Pallas kernel's ``l == 0`` guard is written for, and the mean of V
 from the plain version, as from ``repro.kernels.ref.flash_attention``
 (ROADMAP, known divergences).
+
+On meta tensors (the dry-run) nothing runs: the call charges K6's analytic
+count, 4 x D FLOPs a visible (query, key) pair of every batch row and head
+and q, k, v and the output each moved once (``visible_pairs``), and returns
+an empty meta output.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from . import _build
-from ._util import LaunchCounter, cuda_stream, on_cpu, on_device, refuse_grad
+from ._util import LaunchCounter, charge, cuda_stream, on_cpu, on_device, on_meta, refuse_grad
 
 __all__ = ["flash_attention", "flash_attention_plain", "tma_operand", "counter", "TILE_Q"]
 
@@ -89,6 +96,25 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, scale=None, window=No
     return _unbatched(out.to(q.dtype), rank)
 
 
+@functools.lru_cache(maxsize=256)
+def visible_pairs(sq: int, sk: int, causal: bool, window) -> int:
+    """(query, key) pairs of one head that the mask lets through: the band
+    the kernel visits, not Sq x Sk."""
+    p = torch.arange(sq, dtype=torch.int64) + (sk - sq)
+    hi = torch.clamp(p, max=sk - 1) if causal else torch.full_like(p, sk - 1)
+    lo = torch.clamp(p - window + 1, min=0) if window is not None else torch.zeros_like(p)
+    return int(torch.clamp(hi - lo + 1, min=0).sum())
+
+
+def _meta_call(qb, kb, vb, causal: bool, window) -> torch.Tensor:
+    b, sq, h, d = qb.shape
+    pairs = visible_pairs(sq, kb.shape[1], causal, window) * b * h
+    size = qb.element_size()
+    charge("flash_attention", 4 * d * pairs,
+           size * (2 * qb.numel() + kb.numel() + vb.numel()))
+    return torch.empty((b, sq, h, d), dtype=qb.dtype, device="meta")
+
+
 def tma_operand(t: torch.Tensor) -> torch.Tensor:
     """``t`` (B, S, heads, D) as the tensor-core kernel loads it: ``t`` itself
     where a TMA tensor map can read it (a 16-byte aligned base; B, S and
@@ -110,6 +136,8 @@ def flash_attention(q, k, v, *, causal: bool = True, scale=None, window=None):
     refuse_grad("flash_attention", "K6", q, k, v)
     rank = q.dim()
     qb, kb, vb = _batched(q, k, v)
+    if on_meta("flash_attention", qb, kb, vb):
+        return _unbatched(_meta_call(qb, kb, vb, causal, window), rank)
     if on_cpu("flash_attention", qb, kb, vb):
         return flash_attention_plain(q, k, v, causal=causal, scale=scale, window=window)
     b, sq, h, d = qb.shape

@@ -20,6 +20,11 @@ recurrence reversed in time (``linear_scan_backward``):
 launch of the kernel's reverse walk (``repro_linear_scan_bwd``), both equal
 to autograd through ``linear_scan_plain`` bit for bit, a zero's sign aside.
 ``counter.routes`` counts the launches by direction, "fwd" and "bwd".
+
+On meta tensors (the dry-run) nothing runs: the forward charges 2 FLOPs and
+3 x 4 bytes an element (a and b read, h written), the backward 3 FLOPs and
+5 x 4 bytes (a, g and h read, both gradients written), and each returns
+empty meta results.
 """
 from __future__ import annotations
 
@@ -27,7 +32,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import _build
-from ._util import LaunchCounter, cuda_stream, on_cpu, on_device
+from ._util import LaunchCounter, charge, cuda_stream, on_cpu, on_device, on_meta
 
 __all__ = ["linear_scan", "linear_scan_plain", "linear_scan_backward",
            "linear_scan_backward_plain", "counter", "chunks", "grid", "copy_bytes",
@@ -136,6 +141,10 @@ def linear_scan_backward(a: torch.Tensor, g: torch.Tensor,
     h: ``linear_scan_backward_plain`` on CPU tensors, else the backward
     kernel, one launch (route "bwd"): the forward's walk reversed in
     time."""
+    if on_meta("linear_scan", a, g, h):
+        charge("linear_scan", 3 * h.numel(), 5 * 4 * h.numel())
+        return (torch.empty(h.shape, dtype=torch.float32, device="meta"),
+                torch.empty(h.shape, dtype=torch.float32, device="meta"))
     if on_cpu("linear_scan", a, g, h):
         return linear_scan_backward_plain(a, g, h)
     if g.stride(-1) != 1:
@@ -165,7 +174,11 @@ class _LinearScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, a, b):
-        h = linear_scan_plain(a, b) if a.device.type == "cpu" else _walk(a, b)
+        if a.is_meta:
+            charge("linear_scan", 2 * a.numel(), 3 * 4 * a.numel())
+            h = torch.empty(a.shape, dtype=torch.float32, device="meta")
+        else:
+            h = linear_scan_plain(a, b) if a.device.type == "cpu" else _walk(a, b)
         ctx.save_for_backward(a, h)
         return h
 
@@ -183,6 +196,8 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.shape != b.shape or a.dim() not in (2, 3):
         raise ValueError(f"linear_scan: need a and b of one shape, (T, N) or (B, T, N), "
                          f"got {tuple(a.shape)} and {tuple(b.shape)}")
+    if on_meta("linear_scan", a, b):
+        return _LinearScan.apply(a, b)
     if not on_cpu("linear_scan", a, b) and (a.dtype != torch.float32
                                             or b.dtype != torch.float32):
         raise ValueError(f"linear_scan: need float32, got {a.dtype} and {b.dtype}")

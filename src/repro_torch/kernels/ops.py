@@ -4,6 +4,22 @@ Dispatch follows the tensors' device and nothing else: CPU tensors take the
 plain PyTorch versions, CUDA tensors the hand-written kernels (or the wrapper
 raises).  There is no environment override and no capability fallback.
 Inputs are widened to the kernels' storage types here (``_util``).
+
+**DTensors.**  K5, K6 and K7 also take DTensors (a model whose parameters
+``launch.sharding.distribute`` placed on a ``DeviceMesh``): the kernel runs
+on each device's shards through ``torch.distributed.tensor.experimental.
+local_map``, with the output placed as the query (K6, K7) or ``a`` (K5) is.
+A placement that keeps the kernel from running on the shards is
+redistributed first, and an accounting below counts that as a collective:
+a sharded sequence dim (the decode cache's flash-decode SP,
+``launch/sharding.cache_specs_tree``: the cache is gathered over its
+sequence, since a cross-device split-softmax combine is not written), a
+sharded head dim, a Partial.  Heads may stay sharded: where the KV heads
+divide as the query heads do, both stay sharded; where they do not (yi-6b's
+4 KV heads over 16 devices), the KV heads are gathered and each device
+takes the ones its query heads read.  Mesh dims of size 1 are left as they
+are, so on a (1, 1) mesh nothing moves and the kernel sees the whole
+tensors.
 """
 from __future__ import annotations
 
@@ -20,7 +36,7 @@ from .window_scan import window_scan as _winscan
 
 __all__ = ["transpose", "segment_reduce", "segment_reduce_multi",
            "window_scan", "linear_scan", "onehot_encode", "flash_attention",
-           "decode_attention"]
+           "decode_attention", "attention_on_shards"]
 
 _FLT_MAX = torch.finfo(torch.float32).max
 
@@ -88,6 +104,8 @@ def window_scan(x, op: str = "cumsum") -> torch.Tensor:
 
 
 def linear_scan(a, b) -> torch.Tensor:
+    if _is_dtensor(a):
+        return _sharded_scan(a.to(torch.float32), b.to(torch.float32))
     return _linscan(a.to(torch.float32), b.to(torch.float32))
 
 
@@ -96,8 +114,124 @@ def onehot_encode(codes, num_classes: int) -> torch.Tensor:
 
 
 def flash_attention(q, k, v, *, causal: bool = True, scale=None, window=None):
+    if _is_dtensor(q):
+        return attention_on_shards(
+            lambda q, k, v: _flash(q, k, v, causal=causal, scale=scale, window=window),
+            q, (k, v), q_head=2, kv_head=2)
     return _flash(q, k, v, causal=causal, scale=scale, window=window)
 
 
 def decode_attention(q, k_cache, v_cache, length, *, scale=None) -> torch.Tensor:
+    if _is_dtensor(q):
+        return attention_on_shards(
+            lambda q, k, v, n: _decode(q, k, v, n, scale=scale),
+            q, (k_cache, v_cache), q_head=1, kv_head=2, length=length)
     return _decode(q, k_cache, v_cache, length, scale=scale)
+
+
+# =============================================================================
+# DTensor route: the kernels on each device's shards
+# =============================================================================
+def _is_dtensor(x) -> bool:
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _as_dtensor(x, mesh):
+    """A plain tensor (e.g. decode's lengths, made on the fly) as a
+    replicated DTensor on ``mesh``."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if _is_dtensor(x):
+        return x
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def _run_local(fn, mesh, out_placements, args, placements):
+    """``fn`` on the local shards of ``args`` redistributed to
+    ``placements``, its output placed by ``out_placements``."""
+    from torch.distributed.tensor.experimental import local_map
+    args = [a.redistribute(mesh, pl) for a, pl in zip(args, placements)]
+    return local_map(fn, out_placements=out_placements, in_placements=tuple(placements),
+                     device_mesh=mesh)(*args)
+
+
+def attention_on_shards(fn, q, kv, *, q_head: int, kv_head: int, length=None):
+    """``fn(q, k, v[, length])`` — K6 (q (B, Sq, H, D), k / v (B, Sk, KVH,
+    D)), K7 (q (B, H, D), caches (B, S, KVH, D), lengths (B,)) or the model's
+    einsum attention — on the shards of DTensors; see the module's
+    docstring.  The batch dim may stay sharded (K / V and the lengths follow
+    the query's), and the heads; every other sharded dim is gathered."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = q.device_mesh
+    k, v = (_as_dtensor(t, mesh) for t in kv)
+    h, kvh = q.shape[q_head], k.shape[kv_head]
+    group = h // kvh
+    q_pl, kv_pl, n_pl = [], [], []
+    head_split, head_rank, kv_split = 1, 0, True
+    coord = mesh.get_coordinate() or [0] * mesh.ndim
+    for i, (pq, pk) in enumerate(zip(q.placements, k.placements)):
+        m = mesh.size(i)
+        if m == 1:
+            q_pl.append(pq)
+            kv_pl.append(pk)
+            n_pl.append(pq if pq == Shard(0) else Replicate())
+            continue
+        if pq == Shard(0):
+            q_pl.append(pq)
+            kv_pl.append(Shard(0))
+            n_pl.append(Shard(0))
+            continue
+        n_pl.append(Replicate())
+        if pq == Shard(q_head) and h % (head_split * m) == 0:
+            q_pl.append(pq)
+            head_rank = head_rank * m + coord[i]
+            head_split *= m
+            keep_kv = pk == Shard(kv_head) and kvh % head_split == 0 and kv_split
+            kv_split = keep_kv
+            kv_pl.append(Shard(kv_head) if keep_kv else Replicate())
+            continue
+        q_pl.append(Replicate())       # every device needs all of K / V
+        kv_pl.append(Replicate())
+    local_h = h // head_split
+    if head_split > 1 and not kv_split:
+        if local_h % group and group % local_h:    # the groups straddle devices
+            return _attention_replicated(fn, q, k, v, length, mesh)
+        first = head_rank * local_h // group
+        count = max(1, local_h // group)
+        kv_pl = [Replicate() if isinstance(p, Shard) and p.dim == kv_head else p
+                 for p in kv_pl]
+
+        def local(q, k, v, *rest):
+            k = k.narrow(kv_head, first, count)
+            v = v.narrow(kv_head, first, count)
+            return fn(q, k, v, *rest)
+    else:
+        local = fn
+    args, placements = [q, k, v], [q_pl, kv_pl, kv_pl]
+    if length is not None:
+        args.append(_as_dtensor(length, mesh))
+        placements.append(n_pl)
+    return _run_local(local, mesh, q_pl, args, placements)
+
+
+def _attention_replicated(fn, q, k, v, length, mesh):
+    from torch.distributed.tensor import Replicate, Shard
+    q_pl = [p if p == Shard(0) else Replicate() for p in q.placements]
+    args, placements = [q, k, v], [q_pl, q_pl, q_pl]
+    if length is not None:
+        args.append(_as_dtensor(length, mesh))
+        placements.append(q_pl)
+    return _run_local(fn, mesh, q_pl, args, placements)
+
+
+def _sharded_scan(a, b):
+    """K5 on DTensors (B, T, N): batch and channels stay sharded as ``a``'s
+    are; time is gathered."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = a.device_mesh
+    b = _as_dtensor(b, mesh)
+    pl = [p if mesh.size(i) == 1 or p in (Shard(0), Shard(a.ndim - 1)) else Replicate()
+          for i, p in enumerate(a.placements)]
+    return _run_local(_linscan, mesh, pl, [a, b], [pl, pl])

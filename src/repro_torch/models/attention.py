@@ -23,6 +23,7 @@ import math
 import torch
 
 from . import layers
+from .sharding_ctx import constrain_heads
 from ..kernels import ops as kops
 
 NEG = -1e30
@@ -46,9 +47,9 @@ def _project_qkv(params, x, n_heads, n_kv, head_dim, positions, use_rope=True):
     q, k, v = x @ params["wq"], x @ params["wk"], x @ params["wv"]
     if "bq" in params:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    q = q.reshape(b, s, n_heads, head_dim)
-    k = k.reshape(b, s, n_kv, head_dim)
-    v = v.reshape(b, s, n_kv, head_dim)
+    q = constrain_heads(q.reshape(b, s, n_heads, head_dim))
+    k = constrain_heads(k.reshape(b, s, n_kv, head_dim))
+    v = constrain_heads(v.reshape(b, s, n_kv, head_dim))
     if use_rope:
         q = layers.rope(q, positions)
         k = layers.rope(k, positions)
@@ -120,9 +121,21 @@ def _pallas_attention(q, k, v, *, causal: bool, window: int | None):
 
 def multihead_attention(q, k, v, *, causal=True, window=None, impl="xla", kv_len=None):
     """q (B,Sq,H,D), k/v (B,Sk,Hkv,D) — dispatches; the einsum paths
-    GQA-expand kv first."""
+    GQA-expand kv first.  On DTensors the einsum paths run on each device's
+    batch rows and heads (``kernels.ops.attention_on_shards``): left to
+    DTensor, the einsum's flattened (batch, head) dim keeps only the batch's
+    sharding and every device would compute every head."""
     if impl == "pallas" and kv_len is None:
         return _pallas_attention(q, k, v, causal=causal, window=window)
+    if hasattr(q, "device_mesh"):
+        return kops.attention_on_shards(
+            lambda q, k, v, *n: _einsum_attention(q, k, v, causal=causal, window=window,
+                                                  impl=impl, kv_len=n[0] if n else None),
+            q, (k, v), q_head=2, kv_head=2, length=kv_len)
+    return _einsum_attention(q, k, v, causal=causal, window=window, impl=impl, kv_len=kv_len)
+
+
+def _einsum_attention(q, k, v, *, causal, window, impl, kv_len):
     groups = q.shape[2] // k.shape[2]
     k, v = _repeat_kv(k, groups), _repeat_kv(v, groups)
     if impl == "chunked":
@@ -150,9 +163,9 @@ def _project_memory(params, x, memory, n_heads, n_kv, head_dim):
     projections (the reference's take no bias)."""
     b, s, _ = x.shape
     m = memory.shape[1]
-    q = (x @ params["wq"]).reshape(b, s, n_heads, head_dim)
-    k = (memory @ params["wk"]).reshape(b, m, n_kv, head_dim)
-    v = (memory @ params["wv"]).reshape(b, m, n_kv, head_dim)
+    q = constrain_heads((x @ params["wq"]).reshape(b, s, n_heads, head_dim))
+    k = constrain_heads((memory @ params["wk"]).reshape(b, m, n_kv, head_dim))
+    v = constrain_heads((memory @ params["wv"]).reshape(b, m, n_kv, head_dim))
     return q, k, v
 
 
@@ -196,13 +209,54 @@ def _write_slot(cache: torch.Tensor, new: torch.Tensor, length: torch.Tensor) ->
     """cache[b, length[b]] = new[b] where length[b] < S, else nothing — the
     reference's one-hot blend (attention.py:202-204) for finite caches, in
     place and without a host sync: a past-the-end slot writes row S-1's own
-    value back, so nothing is indexed out of range."""
+    value back, so nothing is indexed out of range.  A DTensor cache is
+    written on its shards (``put_slot``)."""
+    if hasattr(cache, "device_mesh"):
+        put_slot(cache, new, length)
+        return
     s = cache.shape[1]
     rows = torch.arange(cache.shape[0], device=cache.device)
     slot = length.clamp(0, s - 1).long()
     keep = cache[rows, slot]
     inside = (length >= 0) & (length < s)
     cache[rows, slot] = torch.where(inside[:, None, None], new.to(cache.dtype), keep)
+
+
+def put_slot(cache: torch.Tensor, new: torch.Tensor, slot: torch.Tensor) -> None:
+    """cache[b, slot[b]] = new[b] in place, slot in [0, S).  A DTensor cache
+    (batch and sequence possibly sharded: flash-decode SP) is written on
+    each device's shard, where the slot falls in its range of positions;
+    nothing moves between devices.  (DTensor has no rule for the in-place
+    ``index_put_`` on a sharded sequence dim, and gathering the cache to
+    write one row would move it whole every layer.)"""
+    if not hasattr(cache, "device_mesh"):
+        rows = torch.arange(cache.shape[0], device=cache.device)
+        cache[rows, slot.long()] = new.to(cache.dtype)
+        return
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = cache.device_mesh
+    if any(isinstance(p, Shard) and p.dim > 1 or p.is_partial() for p in cache.placements):
+        raise ValueError(f"put_slot: a cache sharded as {cache.placements}")
+    coord = mesh.get_coordinate() or [0] * mesh.ndim
+    seq_index = 0
+    for i, p in enumerate(cache.placements):
+        if p == Shard(1):
+            seq_index = seq_index * mesh.size(i) + coord[i]
+    rows_pl = [Shard(0) if p == Shard(0) else Replicate() for p in cache.placements]
+
+    def local(t):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        return t.redistribute(mesh, rows_pl).to_local()
+
+    shard, new, slot = cache.to_local(), local(new), local(slot)
+    width = shard.shape[1]
+    pos = slot - seq_index * width
+    inside = (pos >= 0) & (pos < width)
+    rows = torch.arange(shard.shape[0], device=shard.device)
+    at = pos.clamp(0, width - 1).long()
+    keep = shard[rows, at]
+    shard[rows, at] = torch.where(inside[:, None, None], new.to(shard.dtype), keep)
 
 
 def decode_self_attention(params: dict, x: torch.Tensor, cache: dict,

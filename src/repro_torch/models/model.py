@@ -25,7 +25,7 @@ import torch
 from torch import nn
 
 from . import layers, transformer
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, ShapeConfig
 from ..core.dtypes import resolve_device
 
 
@@ -101,3 +101,46 @@ class Model(nn.Module):
 
 def build_model(cfg: ArchConfig, device=None) -> Model:
     return Model(cfg, device)
+
+
+# =============================================================================
+# meta stand-ins for the dry-run (no allocation)
+# =============================================================================
+_META = torch.device("meta")
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict:
+    """Meta tensors of a (shape-kind) batch: tokens / labels / mask for
+    train, tokens for prefill, one token a slot for decode, and the memory
+    a config with ``cross_memory_len`` attends to."""
+    b, s = shape.global_batch, shape.seq_len
+    specs: dict = {}
+    if shape.kind == "train":
+        specs["tokens"] = torch.empty((b, s), dtype=torch.int32, device=_META)
+        specs["labels"] = torch.empty((b, s), dtype=torch.int32, device=_META)
+        specs["mask"] = torch.empty((b, s), dtype=torch.float32, device=_META)
+    elif shape.kind == "prefill":
+        specs["tokens"] = torch.empty((b, s), dtype=torch.int32, device=_META)
+    else:  # decode: one new token against an S-long cache
+        specs["token"] = torch.empty((b,), dtype=torch.int32, device=_META)
+    if _needs_memory(cfg):
+        specs["memory"] = torch.empty((b, cfg.cross_memory_len, cfg.d_model),
+                                      dtype=torch.bfloat16, device=_META)
+    return specs
+
+
+def cache_specs(cfg: ArchConfig, batch: int, s_max: int) -> dict:
+    """The decode cache of ``batch`` slots and ``s_max`` positions, on meta."""
+    return transformer.cache_init(cfg, batch, s_max, _META)
+
+
+def params_specs(cfg: ArchConfig) -> dict:
+    """The parameter tree of ``cfg`` on meta: ``init_params`` runs under a
+    fake-tensor mode (shapes and dtypes only; its generator is never drawn
+    from), and each leaf becomes a meta tensor."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from ..train.tree import leaves, unflatten
+    with FakeTensorMode():
+        fake = transformer.init_params(torch.Generator(), cfg)
+    return unflatten(fake, [torch.empty(t.shape, dtype=t.dtype, device=_META)
+                            for t in leaves(fake)])

@@ -56,22 +56,14 @@ def _top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def moe_apply(params: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
-              capacity_factor: float = 1.25,
-              n_groups: int = 16) -> tuple[torch.Tensor, dict]:
-    """x (B, S, d) → (B, S, d), aux {load_balance_loss, router_z_loss}.
-
-    Dispatch is group-local (GShard "groups"): the tokens are split into G
-    independent routing groups, each with its own capacity and slot space.
-    Within a group the slot positions are choice-major, so every token's
-    first choice is placed before any second choice."""
-    b, s, d = x.shape
-    t = b * s
-    g = _gcd_groups(t, n_groups)
-    tg = t // g
-    xt = x.reshape(g, tg, d)
-
-    logits = torch.einsum("gtd,de->gte", xt.float(), params["router"])
+def _dispatch(xt: torch.Tensor, router: torch.Tensor, n_experts: int, top_k: int,
+              capacity_factor: float):
+    """Group-local routing and dispatch of xt (G, Tg, d): (buffers (E, G·C,
+    d), keep, rows, gate_vals, logits, probs, expert_idx).  Every group has
+    its own capacity and slot space, so this runs on any subset of the
+    groups alone (the DTensor route runs it on each device's groups)."""
+    g, tg, d = xt.shape
+    logits = torch.einsum("gtd,de->gte", xt.float(), router)
     probs = torch.softmax(logits, dim=-1)                          # (G,Tg,E)
     gate_vals, expert_idx = _top_k(probs, top_k)                   # (G,Tg,k)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
@@ -91,25 +83,87 @@ def moe_apply(params: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
     # token-major routes: row t·k + j is token t's j-th choice
     e_flat = expert_idx.reshape(g, tg * top_k)
     s_flat = slot.reshape(g, tg * top_k)
-    groups = torch.arange(g, device=x.device)[:, None]
+    groups = torch.arange(g, device=xt.device)[:, None]
     rows = (e_flat * g + groups) * capacity + s_flat               # in (E, G, C)
     spare = n_experts * g * capacity
     src = xt.repeat_interleave(top_k, dim=1)                       # (G,Tg·k,d)
     buf = xt.new_zeros((spare + 1, d))
     buf = buf.index_copy(0, torch.where(keep, rows, spare).reshape(-1), src.reshape(-1, d))
     buffers = buf[:spare].reshape(n_experts, g * capacity, d)      # (E,G·C,d)
+    return buffers, keep, rows, gate_vals, logits, probs, expert_idx
 
-    # expert computation (SwiGLU), one batched product over the experts
-    gg = torch.bmm(buffers, params["w_gate"])
-    uu = torch.bmm(buffers, params["w_up"])
-    hh = F.silu(gg.float()).to(buffers.dtype) * uu
-    out_buf = torch.bmm(hh, params["w_down"]).reshape(spare, d)    # (E·G·C,d)
 
+def _combine(out_buf: torch.Tensor, keep, rows, gate_vals) -> torch.Tensor:
+    """out_buf (E, G·C, d) → (G, Tg, d): each token's kept routes gathered
+    back and weighted by their gates."""
+    g, tg, top_k = gate_vals.shape
+    d = out_buf.shape[-1]
+    out_buf = out_buf.reshape(-1, d)                               # (E·G·C,d)
     gathered = out_buf[torch.where(keep, rows, 0)]                 # (G,Tg·k,d)
     gathered = torch.where(keep[..., None], gathered, 0)
     w = gate_vals.reshape(g, tg * top_k)                           # token-major
     weighted = gathered * w[..., None].to(gathered.dtype)
-    out = weighted.reshape(g, tg, top_k, d).sum(dim=2)
+    return weighted.reshape(g, tg, top_k, d).sum(dim=2)
+
+
+def _experts(params: dict, buffers: torch.Tensor) -> torch.Tensor:
+    """SwiGLU of every expert over its buffer rows, one batched product."""
+    gg = torch.bmm(buffers, params["w_gate"])
+    uu = torch.bmm(buffers, params["w_up"])
+    hh = F.silu(gg.float()).to(buffers.dtype) * uu
+    return torch.bmm(hh, params["w_down"])                         # (E,G·C,d)
+
+
+def _sharded_dispatch_combine(params, xt, n_experts, top_k, capacity_factor):
+    """``_dispatch`` and ``_combine`` on each device's groups (DTensor
+    ``xt``): the groups stay on the mesh dims that shard them, so dispatch
+    moves no token and allocates only the local groups' buffers; the
+    experts' products run on DTensors (EP over "model"), and the combine
+    gathers each device's buffer rows back over the expert dim (the
+    all-to-all's return, counted as an all-gather)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = xt.device_mesh
+    on_groups = [Shard(0) if p == Shard(0) else Replicate() for p in xt.placements]
+    rows_of = [Shard(1) if p == Shard(0) else Replicate() for p in on_groups]
+    rep = [Replicate()] * mesh.ndim
+    xt = xt.redistribute(mesh, on_groups)
+    router = params["router"].redistribute(mesh, rep)
+    dispatch = local_map(
+        lambda x, r: _dispatch(x, r, n_experts, top_k, capacity_factor),
+        out_placements=(rows_of,) + (on_groups,) * 6, in_placements=(on_groups, rep),
+        device_mesh=mesh)
+    buffers, keep, rows, gate_vals, logits, probs, expert_idx = dispatch(xt, router)
+    out_buf = _experts(params, buffers).redistribute(mesh, rows_of)
+    combine = local_map(_combine, out_placements=on_groups,
+                        in_placements=(rows_of, on_groups, on_groups, on_groups),
+                        device_mesh=mesh)
+    return combine(out_buf, keep, rows, gate_vals), logits, probs, expert_idx
+
+
+def moe_apply(params: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
+              capacity_factor: float = 1.25,
+              n_groups: int = 16) -> tuple[torch.Tensor, dict]:
+    """x (B, S, d) → (B, S, d), aux {load_balance_loss, router_z_loss}.
+
+    Dispatch is group-local (GShard "groups"): the tokens are split into G
+    independent routing groups, each with its own capacity and slot space.
+    Within a group the slot positions are choice-major, so every token's
+    first choice is placed before any second choice.  On DTensors the
+    dispatch and combine run on each device's groups
+    (``_sharded_dispatch_combine``)."""
+    b, s, d = x.shape
+    t = b * s
+    g = _gcd_groups(t, n_groups)
+    tg = t // g
+    xt = x.reshape(g, tg, d)
+    if hasattr(xt, "device_mesh"):
+        out, logits, probs, expert_idx = _sharded_dispatch_combine(
+            params, xt, n_experts, top_k, capacity_factor)
+    else:
+        buffers, keep, rows, gate_vals, logits, probs, expert_idx = _dispatch(
+            xt, params["router"], n_experts, top_k, capacity_factor)
+        out = _combine(_experts(params, buffers), keep, rows, gate_vals)
 
     # aux losses
     me = probs.mean(dim=(0, 1))

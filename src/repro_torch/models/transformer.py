@@ -57,6 +57,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import attention, layers, moe, recurrent
+from .sharding_ctx import constrain_hidden
 from ..configs.base import ArchConfig
 
 KINDS = ("attn", "global", "local", "cross", "dec", "rglru", "rwkv")
@@ -260,7 +261,9 @@ def _blocks(params: dict, x: torch.Tensor, cfg: ArchConfig, memory, impl: str,
     """Every layer over x → (x, the MoE aux loss), summed as the reference
     sums it: within each superblock, then the superblocks and the tail
     layers.  ``wrap(fn, *args)`` runs each superblock (remat); the tail is
-    not wrapped."""
+    not wrapped.  Under ``sharding_ctx.activation_sharding`` the hidden state
+    is pinned on entry and after every superblock layer, where the
+    reference pins it (not in the tail)."""
     period = len(cfg.pattern)
     repeats, _ = cfg.repeats_and_tail()
 
@@ -268,9 +271,11 @@ def _blocks(params: dict, x: torch.Tensor, cfg: ArchConfig, memory, impl: str,
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for kind, p in zip(cfg.pattern, block_params):
             x, a = _block_apply(kind, p, x, cfg, memory, impl)
+            x = constrain_hidden(x)
             aux = _add_aux(aux, a)
         return x, aux
 
+    x = constrain_hidden(x)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for r in range(repeats):
         group = params["layers"][r * period:(r + 1) * period]
@@ -398,10 +403,9 @@ def _decode_local(p: dict, h, cache: dict, length, cfg: ArchConfig):
     w = cache["k"].shape[1]
     q, k, v = attention._project_qkv(p, h, cfg.n_heads, cfg.n_kv, cfg.head_dim_,
                                      length[:, None], cfg.use_rope)
-    rows = torch.arange(b, device=h.device)
-    slot = torch.remainder(length, w).long()
-    cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
+    slot = torch.remainder(length, w)
+    attention.put_slot(cache["k"], k[:, 0], slot)
+    attention.put_slot(cache["v"], v[:, 0], slot)
     out = attention.multihead_attention(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
                                         causal=False, impl="xla",
                                         kv_len=torch.clamp(length + 1, max=w))
@@ -444,13 +448,20 @@ def decode_step(params: dict, token: torch.Tensor, cache: dict, cfg: ArchConfig,
     states are written in place; the returned dict carries them and the new
     lengths.  ``memory`` (B,M,d) must be already encoded, as the
     reference's: decode never runs the encoder.  Without RoPE, each slot's
-    sinusoidal position is that of its length (``_sinusoid_at``)."""
+    sinusoidal position is that of its length (``_sinusoid_at``).  The hidden
+    state is pinned (``constrain_hidden``) where the reference's scanned
+    decode pins it: after the embedding and after each layer of the
+    repeats."""
     length = cache["length"]
     x = _embed(params, token[:, None], cfg)
     if not cfg.use_rope:
         x = x + _sinusoid_at(length, cfg.d_model)[:, None].to(x.dtype)
+    x = constrain_hidden(x)
+    scanned = cfg.repeats_and_tail()[0] * len(cfg.pattern)
     new_layers = []
-    for kind, p, c in zip(layer_kinds(cfg), params["layers"], cache["layers"]):
+    for i, (kind, p, c) in enumerate(zip(layer_kinds(cfg), params["layers"], cache["layers"])):
         x, c = _decode_block(kind, p, x, c, length, cfg, memory)
+        if i < scanned:
+            x = constrain_hidden(x)
         new_layers.append(c)
     return logits(params, x, cfg)[:, 0], {"layers": new_layers, "length": length + 1}

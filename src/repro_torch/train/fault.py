@@ -6,8 +6,9 @@
   * ``StragglerPolicy`` — prefetch-depth recommendation given observed step
     time jitter; the data pipeline's opportunistic scheduler consumes it (a
     straggling input shard must never stall the step loop).
-  * ``elastic_remesh`` — a device mesh for the surviving device count: not
-    ported (ROADMAP M11, meshes).
+  * ``elastic_remesh`` — the largest valid mesh for the surviving device
+    count, keeping the model axis (``launch/mesh.make_local_mesh``'s
+    devices: the ranks of this process's group).
 """
 from __future__ import annotations
 
@@ -80,7 +81,25 @@ class StragglerPolicy:
 
 
 def elastic_remesh(n_devices: int, axes: tuple[str, ...] = ("data", "model"),
-                   model_parallel: int | None = None):
-    raise NotImplementedError(
-        "elastic_remesh builds a device mesh, which the port has not brought over yet "
-        "(ROADMAP M11: meshes and sharding on torch DeviceMesh)")
+                   model_parallel: int | None = None, device=None):
+    """Build the largest valid mesh for the surviving device count.
+
+    Keeps the model axis fixed (TP degree is an architecture property) and
+    shrinks the data axis — the standard elastic-DP policy.  The devices are
+    the ranks of this process's group (a one-rank group is opened where none
+    is: NCCL on CUDA, unless ``device="cpu"``: gloo), the first of them
+    taken."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    from ..launch.mesh import open_local_group
+    import torch.distributed as dist
+    dev = open_local_group(device)
+    ranks = list(range(dist.get_world_size()))[:n_devices]
+    mp = model_parallel or 1
+    dp = max(1, len(ranks) // mp)
+    shape = (dp, mp) if len(axes) == 2 else (1, dp, mp)
+    n = int(np.prod(shape))
+    if n > len(ranks):
+        raise ValueError(f"elastic_remesh: {n} devices wanted for {shape}, "
+                         f"{len(ranks)} survive")
+    return DeviceMesh(dev.type, torch.tensor(ranks[:n]).reshape(shape), mesh_dim_names=axes)

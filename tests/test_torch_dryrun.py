@@ -1,0 +1,125 @@
+"""The abstract dry-run of the port (``repro_torch.launch.dryrun``) against
+the reference's: every block kind (dense, MoE, RWKV, RG-LRU, encoder–decoder)
+and shape kind (train, prefill, decode) at smoke size on a fake (2, 2)
+mesh, reaching "analyzed" with the reference's argument bytes and model
+FLOPs; and the dot FLOPs of a prefill on a (1, 1) mesh against
+``analyze_hlo`` of the reference's compiled prefill.  Every world opened
+here is closed by its test."""
+import dataclasses
+import importlib
+import os
+
+import jax
+import jax.numpy as jnp
+import pytest
+
+from repro.configs import get_smoke_config as r_smoke
+from repro.launch import sharding as r_sh
+from repro.launch.hlo_analysis import analyze_hlo
+from repro.models import build_model as r_build
+from repro.models import model as r_model
+from repro.train import optimizer as r_opt
+from repro_torch.configs import ShapeConfig, get_smoke_config
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import abstract_world
+
+
+def _reference(name: str):
+    """``repro.launch.<name>``: the reference's dry-run module sets XLA_FLAGS
+    when imported (for a process of its own); the variable is put back."""
+    before = os.environ.get("XLA_FLAGS")
+    try:
+        return importlib.import_module(f"repro.launch.{name}")
+    finally:
+        if before is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = before
+
+
+class _FakeMesh:
+    def __init__(self, shape: dict):
+        self.shape = shape
+        self.axis_names = tuple(shape)
+
+
+def _mesh(shape):
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh("cpu", shape, mesh_dim_names=("data", "model"))
+
+
+CELL_ARCHS = ("yi-6b", "granite-moe-3b-a800m", "rwkv6-1.6b", "recurrentgemma-9b",
+              "whisper-base")
+CELL_SHAPES = {"train": ShapeConfig("train_s", 8, 8, "train"),
+               "prefill": ShapeConfig("prefill_s", 8, 4, "prefill"),
+               "decode": ShapeConfig("decode_s", 16, 4, "decode")}
+
+
+def _reference_groups(cfg, shape, mesh) -> dict:
+    """The argument groups of the reference's ``_*_artifacts``, built as
+    they build them (no lowering: the duck-typed mesh has no devices)."""
+    params = r_model.params_specs(cfg)
+    pspecs = r_sh.param_specs(cfg, params, mesh)
+    batch = r_model.input_specs(cfg, shape)
+    bspecs = r_sh.batch_specs(cfg, shape, mesh, batch)
+    if shape.kind == "train":
+        opt = jax.eval_shape(r_opt.get_optimizer(cfg.optimizer).init, params)
+        state = {"params": params, "opt": opt, "step": jax.ShapeDtypeStruct((), jnp.int32)}
+        specs = {"params": pspecs, "opt": r_sh.opt_state_specs(pspecs, params, opt),
+                 "step": jax.sharding.PartitionSpec()}
+        return {"state": (state, specs), "batch": (batch, bspecs)}
+    groups = {"params": (params, pspecs), "batch": (batch, bspecs)}
+    if shape.kind == "decode":
+        cache = r_model.cache_specs(cfg, shape.global_batch, shape.seq_len)
+        groups["cache"] = (cache, r_sh.cache_specs_tree(cfg, shape, mesh, cache))
+    return groups
+
+
+@pytest.mark.parametrize("kind", sorted(CELL_SHAPES))
+@pytest.mark.parametrize("arch", CELL_ARCHS)
+def test_dryrun_cell_analyzed(arch, kind):
+    cfg, shape = get_smoke_config(arch), CELL_SHAPES[kind]
+    with abstract_world(4):
+        res = dryrun.analyze_cell(cfg, shape, _mesh((2, 2)))
+    assert res["status"] == "analyzed"
+    assert res["chips"] == 4
+    ha, rl = res["hlo_analysis"], res["roofline"]
+    assert ha["flops"] > 0 and ha["hbm_bytes_fused"] <= ha["hbm_bytes"]
+    assert ha["collective_counts"]            # the batch is sharded: gradients / psums move
+    assert res["memory_analysis"]["peak_live_bytes"] >= \
+        res["memory_analysis"]["argument_size_in_bytes"] > 0
+    if kind == "decode" and "attn" in cfg.pattern:
+        assert ha["kernels"]["decode_attention"]["calls"] == cfg.pattern.count("attn") * (
+            cfg.n_layers // len(cfg.pattern))
+    if arch == "recurrentgemma-9b" and kind != "decode":
+        assert ha["kernels"]["linear_scan"]["calls"] > 0
+
+    r_dry = _reference("dryrun")
+    rcfg = r_smoke(arch)
+    assert rl["model_flops_global"] == r_dry._model_flops(rcfg, shape)
+    want = r_dry._sharded_arg_bytes(_reference_groups(rcfg, shape, _FakeMesh(
+        {"data": 2, "model": 2})), _FakeMesh({"data": 2, "model": 2}))
+    assert res["arg_bytes_per_device"] == want
+
+
+def test_prefill_dot_flops_match_the_reference_hlo():
+    """yi-6b's smoke config with attn_impl "xla" on a (1, 1) mesh: the
+    prefill's dot FLOPs against ``analyze_hlo`` of the reference's compiled
+    prefill on one CPU device.  The reference's prefill unembeds every
+    position and slices the last; the port's unembeds only the last (its
+    (B, S, V) float32 logits are never made), so the S - 1 positions' 2·d·V
+    FLOPs each are added to the port's count."""
+    b, s = 2, 16
+    rcfg = dataclasses.replace(r_smoke("yi-6b"), attn_impl="xla")
+    rm = r_build(rcfg)
+    rparams = jax.eval_shape(lambda: rm.init(jax.random.PRNGKey(0)))
+    hlo = jax.jit(rm.prefill).lower(rparams, jax.ShapeDtypeStruct((b, s), jnp.int32))
+    want = analyze_hlo(hlo.compile().as_text()).flops
+    cfg = dataclasses.replace(get_smoke_config("yi-6b"), attn_impl="xla")
+    with abstract_world(1):
+        res = dryrun.analyze_cell(cfg, ShapeConfig("p", s, b, "prefill"), _mesh((1, 1)))
+    got = res["hlo_analysis"]["flops"] + 2 * b * (s - 1) * cfg.d_model * cfg.vocab
+    assert got == pytest.approx(want, rel=1e-2)
+    assert res["hlo_analysis"]["kernels"] == {}      # "xla": no K6
+
+

@@ -56,15 +56,43 @@ def test_source_imports_neither_jax_nor_repro(path):
     assert not [m for m in mods if re.match(r"repro\b(?!_torch)", m)], mods
 
 
+def test_import_opens_no_process_group_and_sets_no_environment():
+    """Importing every module of the port (the launch layer's mesh, sharding
+    and dry-run modules among them) opens no process group, changes no
+    environment variable (the reference's dry-run sets XLA_FLAGS at
+    import) and imports neither jax nor repro."""
+    res = _run("""
+        import importlib, os, pkgutil, sys
+        before = dict(os.environ)
+        import repro_torch
+        names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        assert "repro_torch.launch.dryrun" in names and "repro_torch.launch.hillclimb" in names
+        import torch.distributed as dist
+        assert not dist.is_initialized()
+        assert dict(os.environ) == before, set(os.environ.items()) ^ set(before.items())
+        bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+                     or m == "repro" or m.startswith("repro."))
+        assert not bad, bad
+        print("ok")
+    """)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
 def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is satisfiable here")
     res = _run("""
         from repro_torch.core import DataFrame, Frame, Session
         from repro_torch.data import taxi_like_frame, numeric_matrix_frame
+        from repro_torch.launch import make_local_mesh
+        from repro_torch.train.fault import elastic_remesh
         calls = [lambda: Session(), lambda: DataFrame({"a": [1, 2]}),
                  lambda: Frame.from_pydict({"a": [1]}), lambda: taxi_like_frame(10),
-                 lambda: numeric_matrix_frame(4, 2)]
+                 lambda: numeric_matrix_frame(4, 2), lambda: make_local_mesh(),
+                 lambda: elastic_remesh(1)]
         for call in calls:
             try:
                 call()

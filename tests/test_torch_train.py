@@ -449,8 +449,24 @@ def test_straggler_policy_scales_with_jitter():
 
 
 def test_elastic_remesh_raises_naming_m11():
-    with pytest.raises(NotImplementedError, match="M11"):
-        elastic_remesh(4)
+    """Kept under its id from before the launch layer (M11) was ported, when
+    ``elastic_remesh`` raised naming M11.  It now builds the mesh: on the
+    CPU (a one-rank gloo group, closed after) the (1, 1) ("data", "model")
+    mesh the reference's ``elastic_remesh(4)`` builds from one CPU device,
+    and without ``device="cpu"`` it targets CUDA, raising without a GPU."""
+    from repro.train.fault import elastic_remesh as r_elastic_remesh
+    from repro_torch.launch.mesh import close_local_group
+    want = r_elastic_remesh(4)
+    try:
+        got = elastic_remesh(4, device="cpu")
+        assert tuple(got.shape) == tuple(want.devices.shape) == (1, 1)
+        assert got.mesh_dim_names == tuple(want.axis_names) == ("data", "model")
+        assert got.device_type == "cpu"
+    finally:
+        close_local_group()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            elastic_remesh(4)
 
 
 # ---- kernels under grad ----------------------------------------------------------------
