@@ -62,12 +62,17 @@ Phases (any failure raises and the script exits non-zero):
                  32 over M 1,500, D 64; over M 1,600, 64 heads over 8, D
                  128), and Sk 1, 63, 65 and 1,500 at Sq != Sk; K7 with
                  every length M at the decode-cross shapes, against its
-                 plain version and K6 at Sq = 1; then the CUDA-only
+                 plain version and K6 at Sq = 1; K7's split route (the
+                 partials mode on each piece of the serving cache, cut
+                 into 2, 4 and 8 pieces, combined in order) against the
+                 whole cache in bf16 and f32 within K7_BF16_TOL, the
+                 partials mode timed at the serving shape; then the CUDA-only
                  pytest cases, ``python -m pytest --noconftest
                  tests/test_torch_cuda_kernels.py`` in a child process
                  (every case must pass; none may skip)
   (4, 5, 6 and 9 time each step unprofiled, then run the steps once more under
-  the CUDA profiler for the device's busy time within each)
+  the CUDA profiler for the device's busy time within each; phase 9 its fused
+  and per-node operator steps only)
   4. fig6      — the Fig. 6 mix at 16,000,000 rows of taxi_like_frame in an
                  EAGER session: fillna, groupby(n).count(), count(), a
                  groupby(n).agg(sum, mean, min, max), get_dummies of
@@ -122,7 +127,7 @@ Phases (any failure raises and the script exits non-zero):
                  REPRO_BLOCK_DEDUP=0, block, fused), bit-identical and equal
                  to numpy's first occurrences / anti-join; on phase 4's taxi
                  frame drop_duplicates(passenger_count, payment_type) (18
-                 rows) and a difference of rows [0, 2M) against f0 > 0;
+                 rows) and a difference of rows [0, 1M) against f0 > 0;
                  map -> filter -> groupby().agg(4) fused into GROUPBY (K1,
                  3 launches a block, route reg), filter -> cumsum(6) -> map
                  fused into WINDOW (K4, 6 launches a block), sort -> filter
@@ -131,7 +136,15 @@ Phases (any failure raises and the script exits non-zero):
                  serial REPRO_SHUFFLE=0 path), with fewer rows gathered; the
                  fusion counters' invariant; the host seconds of the dedup
                  key work (_row_keys, _keys_to_ids) and K1's / K4's device
-                 time under the profiler
+                 time under the profiler; three map -> filter chains (one
+                 multiply inexact: f0 * 3 + 1) with compiled map and
+                 predicate runs (REPRO_JIT_UDFS unset, the card's default)
+                 and eager (=0), bit-identical, with their walls; an
+                 adopted chain's statement alone and while another chain
+                 probes (traces and compiles) in a second thread, with the
+                 blocks that ran eagerly meanwhile; the compiled programs
+                 adopted and rejected over the phase, by reason (the phase
+                 fails if none is adopted)
  10. outofcore — the engine under a 256 MiB HBM budget (a deployment's
                  80 GB card cut to fit the time limit; the 0.6 GB taxi
                  frame is 2.3x it, and is held on the host): the store's
@@ -152,7 +165,8 @@ Phases (any failure raises and the script exits non-zero):
                  block's file corrupted on every read and recomputed from
                  the lineage the engine recorded), bit-identical with the
                  recovery counters equal to the injections; read_csv of
-                 1,000,000 taxi rows (cut from 2,000,000 for phase 11; equal to the
+                 250,000 taxi rows (cut from 2,000,000 to pay for phase 11 and
+                 for compiled map / predicate runs; equal to the
                  frame written) and its GROUPBY against numpy; a
                  QueryService of 3 tenants sharing one budgeted store, their
                  groupby(n) / agg(4) / groupby(1) statements concurrent, per-session stats summing to the
@@ -211,7 +225,11 @@ Phases (any failure raises and the script exits non-zero):
                  "analyzed", with its per-device FLOPs, bytes raw and fused,
                  wire bytes by kind, argument bytes and roofline terms
                  against the H100's data-sheet peaks (accounting, not a
-                 measurement)
+                 measurement); and the decode cell once more on K7's
+                 route before the cross-device combine (the
+                 sequence-sharded cache gathered), its all-gather a device
+                 before and after, with the prediction printed first (no
+                 all-gather of cache rows may remain)
 
 Run from the root of a checkout:  python3 chip_smoke.py
 The last two lines of standard output are the kernels' JSON record and
@@ -401,7 +419,12 @@ KERNEL_ROUTES = {
                        "table": "src/repro_torch/csrc/segment_reduce.cu: seg_pass1, seg_pass2"},
     "decode_attention": {"tc": "src/repro_torch/csrc/decode_attention_tc.cu: decode_tc",
                          "fma": "src/repro_torch/csrc/decode_attention.cu: decode_split, "
-                                "decode_combine"},
+                                "decode_combine",
+                         "tc_partials": "src/repro_torch/csrc/decode_attention_tc.cu: decode_tc "
+                                        "(partials mode: O, M, L in float32, for the combine "
+                                        "across devices of a sequence-sharded cache)",
+                         "fma_partials": "src/repro_torch/csrc/decode_attention.cu: "
+                                         "decode_split, decode_combine (partials mode)"},
     "flash_attention": {"tc": "src/repro_torch/csrc/flash_attention_tc.cu: flash_tc",
                         "fma": "src/repro_torch/csrc/flash_attention.cu: flash_fwd"},
 }
@@ -1207,6 +1230,51 @@ def check_decode_cross(torch, da, fa, dev) -> None:
         f"bit-identical: {'; '.join(msgs)}")
 
 
+SPLIT_PIECES = (2, 4, 8)   # the serving cache cut as 2, 4 or 8 devices would hold it
+
+
+def split_decode(torch, da, q, k, v, lengths, pieces: int):
+    """K7's split route on one card: the partials of each of ``pieces``
+    equal runs of the cache's rows, each with the lengths cut to its rows,
+    combined in order (what ``kernels.ops`` does across devices)."""
+    rows = k.shape[1] // pieces
+    parts = [da.decode_attention_partials(q, k[:, i * rows:(i + 1) * rows],
+                                          v[:, i * rows:(i + 1) * rows],
+                                          da.piece_lengths(lengths, i * rows, rows))
+             for i in range(pieces)]
+    return da.combine_partials(parts, q.dtype)
+
+
+def check_decode_split(torch, da, dev) -> None:
+    """K7's partials mode and the combine against the whole-cache route at
+    the serving shape, bf16 (route tc) and float32 (route fma), the cache
+    cut into 2, 4 and 8 pieces: within K7_BF16_TOL, 0 at length 0, reruns
+    bit-identical, one partials launch a piece."""
+    q, k, v, lengths = decode_main_inputs(torch, dev)
+    lengths = lengths.clone()
+    lengths[0] = 0
+    msgs = []
+    for dt in (torch.bfloat16, torch.float32):
+        qd, kd, vd = (t.to(dt) for t in (q, k, v))
+        whole = da.decode_attention(qd, kd, vd, lengths)
+        for n in SPLIT_PIECES:
+            before = dict(da.counter.routes)
+            got = split_decode(torch, da, qd, kd, vd, lengths, n)
+            route = da.route(dt) + "_partials"
+            if da.counter.routes.get(route, 0) - before.get(route, 0) != n:
+                raise AssertionError(f"decode_attention split {dt} {n}: routes {da.counter.routes}")
+            if not torch.equal(got, split_decode(torch, da, qd, kd, vd, lengths, n)):
+                raise AssertionError(f"decode_attention split {dt} {n}: reruns differ")
+            assert not got[0].any() and not whole[0].any(), "split: length 0 is not 0"
+            torch.testing.assert_close(got.float(), whole.float(), rtol=K7_BF16_TOL,
+                                       atol=K7_BF16_TOL,
+                                       msg=lambda e: f"decode_attention split {dt} {n}: {e}")
+            msgs.append(f"{str(dt)[6:]} {n} pieces {float((got.float() - whole.float()).abs().max()):.3g}")
+    log(f"  decode_attention split route (partials of each piece + combine) at the serving "
+        f"shape against the whole cache, within {K7_BF16_TOL}, reruns bit-identical, max "
+        f"|err|: {'; '.join(msgs)}")
+
+
 def check_wide_aggregate(torch, dev) -> None:
     """An all-column aggregate of a frame wider than one segment_reduce
     launch takes (the wide output of .T): on the card and on the CPU."""
@@ -1357,6 +1425,36 @@ def time_kernels(torch, sr, bt, oh, ws, da, ls, fa, dev, pool: int) -> dict:
     log(f"  decode_attention {out['decode_attention']['shape']}: {keys} valid cache rows; "
         f"scaled_dot_product_attention (enable_gqa, length mask) off the plain version by "
         f"{lib_err:.3g}")
+    # the partials mode at the same shape: the whole cache in one launch
+    # (float32 O, M, L out), and the split route over 8 pieces (8 partials
+    # launches, then the combine's elementwise work)
+    part = lambda: da.decode_attention_partials(q, k, v, lengths)
+    o, m, l = part()
+    po, pm, pl = da.decode_attention_partials_plain(q, k, v, lengths)
+    p_err = float((o / l[..., None] - po / pl[..., None]).abs().max())
+    p_bound, p_by = bound_ms(2 * keys * kvh * d * 2 + b_ * h * d * 2 + b_ * 4
+                             + b_ * h * (d + 2) * 4, 4 * keys * h * d)
+    parts = [da.decode_attention_partials(q, k[:, i * 128:(i + 1) * 128], v[:, i * 128:(i + 1) * 128],
+                                          da.piece_lengths(lengths, i * 128, 128))
+             for i in range(k.shape[1] // 128)]
+    comb = lambda: da.combine_partials(parts, q.dtype)
+    split = lambda: split_decode(torch, da, q, k, v, lengths, k.shape[1] // 128)
+    out["decode_attention"]["partials"] = dict(
+        route="tc_partials", shape=[b_, h, kvh, d, k.shape[1]], max_abs_err=p_err,
+        ms=cuda_ms(part, iters=EVENT_CALLS), device_ms=device_ms(part, DECODE_KERNELS),
+        host_ms=host_ms(part),
+        plain_ms=cuda_ms(lambda: da.decode_attention_partials_plain(q, k, v, lengths)),
+        bound_ms=p_bound, bound_by=p_by,
+        split_pieces=len(parts), split_ms=cuda_ms(split), combine_ms=cuda_ms(comb),
+        combine_device_ms=device_ms(comb, None))
+    pr = out["decode_attention"]["partials"]
+    log(f"  decode_attention partials (route tc_partials) {pr['shape']}: kernel {pr['ms']:.4f} "
+        f"ms (on the device {ms_text(pr['device_ms'])} ms, host {pr['host_ms']:.4f} ms a "
+        f"call), plain {pr['plain_ms']:.4f} ms, bound {pr['bound_ms']:.4f} ms "
+        f"({pr['bound_by']}), O / L off the plain version by {p_err:.3g}; the split route "
+        f"over {len(parts)} pieces of 128 rows {pr['split_ms']:.4f} ms, of it the combine "
+        f"{pr['combine_ms']:.4f} ms (on the device {ms_text(pr['combine_device_ms'])} ms)")
+    del o, m, l, po, pm, pl, parts
     # linear scan: one RG-LRU layer of phase 8's prefill; no single PyTorch
     # call computes the recurrence
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -2409,9 +2507,10 @@ def prefill_phase(torch, np, fa, ls, dev, card: str) -> tuple[dict, dict]:
 DUP_ROWS = 4_000_000
 DUP_RIGHT_ROWS = 1_000_000
 DUP_STRINGS = tuple(f"s{i:02d}" for i in range(12))
-# the taxi difference's left side: rows [0, 2M), cut from 4M to pay for
-# phase 11 (its host-bound key factorization took 21.6 s at 4M on an H100)
-DIFF_LEFT_ROWS = 2_000_000
+# the taxi difference's left side: rows [0, 1M), cut from 4M to pay for
+# phase 11 and for compiled map / predicate runs (its host-bound key
+# factorization took 21.6 s at 4M on an H100)
+DIFF_LEFT_ROWS = 1_000_000
 FLOATS = [f"f{j}" for j in range(6)]
 # bench_dedup.py's three modes: (REPRO_* knobs, optimize)
 DEDUP_MODES = {"serial": ({"REPRO_BLOCK_DEDUP": "0"}, False), "block": ({}, False),
@@ -2452,6 +2551,22 @@ def scale_udf(col: str):
         out[col] = Column(c.data * 2.0 + 1.0, Domain.FLOAT, c.mask, None)
         return out
     return alg.Udf(name=f"algebra_scale_{col}", fn=fn, deps=frozenset([col]), elementwise=True)
+
+
+def scale3_udf(col: str):
+    """``col -> col * 3 + 1``: the multiply is inexact, so a compiled
+    program that fused it with the add into one FMA would round otherwise
+    than eager's two kernels."""
+    from repro_torch.core import Domain
+    from repro_torch.core import algebra as alg
+    from repro_torch.core.frame import Column
+
+    def fn(cols, frame):
+        out = dict(cols)
+        c = cols[col]
+        out[col] = Column(c.data * 3.0 + 1.0, Domain.FLOAT, c.mask, None)
+        return out
+    return alg.Udf(name=f"algebra_scale3_{col}", fn=fn, deps=frozenset([col]), elementwise=True)
 
 
 @contextlib.contextmanager
@@ -2569,12 +2684,14 @@ def fresh(s, q):
     return collect
 
 
-def algebra_steps(run, dev, taxi, dup, right) -> dict:
+def algebra_steps(run, dev, taxi, dup, right, dedup: bool = True) -> dict:
     """Phase 9's steps, each in a fresh LAZY session; ``run(label, thunk,
     kernels=...)`` runs each (timed, or under the profiler).  Returns the
     results, the sessions' counters and the K1 / K4 launches of each fused
     / unfused step.  The fused operators go first: the card's profiler has
-    lost the later windows of a process."""
+    lost the later windows of a process.  ``dedup=False`` leaves out the
+    dedup chains and the taxi dedup / difference (host-bound: the profiled
+    rerun keeps to the steps with kernel time to read)."""
     from repro_torch.core import DataFrame
     from repro_torch.kernels import segment_reduce as sr
     from repro_torch.kernels import window_scan as ws
@@ -2617,6 +2734,8 @@ def algebra_steps(run, dev, taxi, dup, right) -> dict:
         out["info"][f"join_{tag}"] = fused_info(s, q)
         s.close()
 
+    if not dedup:
+        return out
     # bench_dedup.py's two chains in its three modes
     for mode, (env, optimize) in DEDUP_MODES.items():
         with knobs(env):
@@ -2773,6 +2892,105 @@ def check_algebra(torch, np, dev, out: dict, serial: dict) -> None:
     assert np.array_equal(label_array(np, out["sort_fused"].row_labels), perm[sel[perm]])
 
 
+# phase 9's map -> filter chains, compiled (REPRO_JIT_UDFS unset: the card's
+# default) and eager (REPRO_JIT_UDFS=0): {label: (frame, columns, filter,
+# udf)}.  Each projects its numeric columns first: a map run over a frame
+# with a coded (string) column stays eager, as the reference's does
+def jit_queries(taxi, dup) -> dict:
+    floats = ["f0", "f1", "f2"]
+    return {"taxi[f0, f1, f2]: f0 * 2 + 1 -> f1 > 0":
+            (taxi, floats, lambda m: m[m["f1"] > 0], scale_udf("f0")),
+            "taxi[f0, f1, f2]: f0 * 3 + 1 -> f0 > 2.5":
+            (taxi, floats, lambda m: m[m["f0"] > 2.5], scale3_udf("f0")),
+            "dup[k, v, x]: x * 2 + 1 -> v > 10":
+            (dup, ["k", "v", "x"], lambda m: m[m["v"] > 10], scale_udf("x"))}
+
+
+@contextlib.contextmanager
+def jit_mode(value: str | None):
+    """``REPRO_JIT_UDFS`` set to ``value`` (None: unset) for a block."""
+    saved = os.environ.pop("REPRO_JIT_UDFS", None)
+    if value is not None:
+        os.environ["REPRO_JIT_UDFS"] = value
+    try:
+        yield
+    finally:
+        os.environ.pop("REPRO_JIT_UDFS", None)
+        if saved is not None:
+            os.environ["REPRO_JIT_UDFS"] = saved
+
+
+def jit_chains(torch, np, dev, taxi, dup) -> None:
+    """The map -> filter chains of ``jit_queries``, each in a fresh LAZY
+    session with compiled map and predicate runs (the first run probes and
+    compiles, the second reuses the programs) and eagerly: bit-identical;
+    the statement walls both ways."""
+    from repro_torch.core import DataFrame
+    for label, (frame, cols, filt, udf) in jit_queries(taxi, dup).items():
+        got, walls = {}, {}
+        for mode, value in (("compiled", None), ("compiled again", None), ("eager", "0")):
+            with jit_mode(value):
+                s = lazy_session(dev)
+                q = filt(DataFrame(frame, session=s)[cols].map_udf(udf))
+                t0 = time.perf_counter()
+                got[mode] = q.collect()
+                torch.cuda.synchronize()
+                walls[mode] = time.perf_counter() - t0
+                s.close()
+        for mode in ("compiled", "compiled again"):
+            if not same_frame(torch, np, got[mode], got["eager"]):
+                raise AssertionError(f"phase 9 {label}: {mode} != eager")
+        log(f"  {label}: {got['eager'].nrows} rows, compiled == eager bit for bit; walls "
+            f"compiled {walls['compiled']:.3f} s (the probe and compile included), again "
+            f"{walls['compiled again']:.3f} s, eager {walls['eager']:.3f} s")
+
+
+def probe_stall(torch, np, dev, taxi) -> None:
+    """``jit_queries``' first chain (its programs adopted) alone, and again
+    while a chain never run before (f1 * 2 + 1 -> f2 > 0) probes, traces
+    and compiles, in a second thread: the adopted chain's blocks that meet
+    the probe's gate run eagerly instead of waiting.  Both statements are
+    held to eager bit for bit."""
+    import threading
+    from repro_torch.core import DataFrame, physical
+    floats = ["f0", "f1", "f2"]
+    chains = {"adopted": (lambda m: m[m["f1"] > 0], scale_udf("f0")),
+              "new": (lambda m: m[m["f2"] > 0], scale_udf("f1"))}
+
+    def run(name: str, value: str | None = None):
+        filt, udf = chains[name]
+        with jit_mode(value):
+            s = lazy_session(dev)
+            t0 = time.perf_counter()
+            out = filt(DataFrame(taxi, session=s)[floats].map_udf(udf)).collect()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            s.close()
+        return out, wall
+
+    _, alone = run("adopted")
+    before = physical.jit_stats()
+    probing = {}
+    second = threading.Thread(target=lambda: probing.update(zip(("out", "wall"), run("new"))))
+    second.start()
+    t0 = time.perf_counter()
+    while not physical._GATE._alone and second.is_alive() and time.perf_counter() - t0 < 60:
+        time.sleep(0.001)
+    overlapped = physical._GATE._alone
+    during, wall = run("adopted")
+    second.join()
+    after = physical.jit_stats()
+    for name, got in (("adopted", during), ("new", probing["out"])):
+        if not same_frame(torch, np, got, run(name, "0")[0]):
+            raise AssertionError(f"phase 9 probe stall: the {name} chain != eager")
+    log(f"  an adopted chain (f0 * 2 + 1 -> f1 > 0) alone {alone:.3f} s; while f1 * 2 + 1 -> "
+        f"f2 > 0 probes in a second thread (its statement {probing['wall']:.3f} s, "
+        f"{after['compile_s'] - before['compile_s']:.2f} s in its probes' compiled first "
+        f"calls; the gate {'held' if overlapped else 'not yet held'} as the adopted chain "
+        f"started) {wall:.3f} s; {after['eager_blocks'] - before['eager_blocks']} blocks of "
+        f"adopted chains ran eagerly meanwhile instead of waiting; both bit-identical to eager")
+
+
 def taxi_blocks() -> int:
     """The taxi frame's row blocks in a session (its default grid)."""
     from repro_torch.core.partition import default_grid
@@ -2781,7 +2999,7 @@ def taxi_blocks() -> int:
 
 def same_algebra(torch, np, a: dict, b: dict) -> None:
     """The profiled rerun's phase-9 results equal the timed run's."""
-    for k in a:
+    for k in b:
         if k != "info":
             assert same_frame(torch, np, a[k], b[k]), f"{k}: rerun differs"
 
@@ -2792,16 +3010,28 @@ def algebra_phase(torch, np, dev, taxi, counters: dict) -> dict:
     dup = timed(f"duplicate-heavy frame ({DUP_ROWS} rows) on the card",
                 lambda: dup_frame(torch, np, dev, DUP_ROWS, 11))
     right = dup_frame(torch, np, dev, DUP_RIGHT_ROWS, 12)
+    from repro_torch.core import physical
     for c in counters.values():
         c.reset()
+    physical.reset_jit_stats()
     out = algebra_steps(timed, dev, taxi, dup, right)
     launches = {k: (c.launches, dict(c.routes)) for k, c in counters.items()}
     log(f"[algebra] launches {dict((k, n) for k, (n, _) in launches.items())}")
     check_algebra(torch, np, dev, out, algebra_serial(dev, taxi))
-    log("[algebra] results match numpy, the serial paths and the per-node plans; the same "
-        "steps again under the CUDA profiler:")
-    same_algebra(torch, np, out, algebra_steps(profiled, dev, taxi, dup, right))
-    log("[algebra] the profiled rerun is bit-identical")
+    log("[algebra] results match numpy, the serial paths and the per-node plans; the "
+        "fused and per-node steps again under the CUDA profiler:")
+    same_algebra(torch, np, out, algebra_steps(profiled, dev, taxi, dup, right, dedup=False))
+    log("[algebra] the profiled rerun is bit-identical; map -> filter chains with compiled "
+        "map and predicate runs (REPRO_JIT_UDFS unset, the card's default) and eager (=0):")
+    jit_chains(torch, np, dev, taxi, dup)
+    probe_stall(torch, np, dev, taxi)
+    jit = physical.jit_stats()
+    log(f"[algebra] compiled programs over phase 9: adopted {jit['adopted']}, rejected by reason "
+        f"{jit['rejected']}, {jit['compile_s']:.2f} s in the probes' compiled first calls, "
+        f"{jit['eager_blocks']} blocks of adopted chains run eagerly during a probe; "
+        f"chains {jit['chains']}")
+    if not sum(jit["adopted"].values()):
+        raise AssertionError(f"phase 9: no chain adopted a compiled program: {jit}")
     return launches
 
 
@@ -2809,8 +3039,9 @@ def algebra_phase(torch, np, dev, taxi, counters: dict) -> dict:
 # phase 10: the out-of-core engine under an HBM budget
 # -----------------------------------------------------------------------------
 OOC_BUDGET = 256 << 20     # the taxi frame is 2.3x this
-CSV_ROWS = 1_000_000       # rows of the taxi frame written to CSV and read back (cut
-#                            from 2,000,000 to pay for phase 11)
+CSV_ROWS = 250_000         # rows of the taxi frame written to CSV and read back (cut
+#                            from 2,000,000 to pay for phase 11 and for compiled map /
+#                            predicate runs)
 OOC_CHAOS_SEED = 5
 OOC_CHAOS_WORKER = 0.25    # the chaos plan's transient task-error rate
 SVC_TENANTS = 3
@@ -4019,6 +4250,13 @@ LAUNCH_PROMPT, LAUNCH_STEPS = 512, 8
 # recurrent long-context decode
 LAUNCH_CELLS = (("yi-6b", "train_4k"), ("qwen3-moe-235b-a22b", "prefill_32k"),
                 ("llama-3.2-vision-90b", "decode_32k"), ("recurrentgemma-9b", "long_500k"))
+# the decode cell again on K7's route before the cross-device combine (the
+# sequence-sharded cache gathered for K7 in every layer), in a process of its
+# own, for the all-gather bytes before and after
+LAUNCH_GATHERED = ("llama-3.2-vision-90b", "decode_32k")
+GATHERED_CELL = ("import sys; from repro_torch.kernels import ops; "
+                 "ops._sequence_dims = lambda *a: []; from repro_torch.launch import dryrun; "
+                 "sys.argv[0] = 'dryrun'; dryrun.main()")
 
 
 def sharded_serving(torch, np, fa, da, dev, mesh) -> tuple[dict, dict]:
@@ -4099,17 +4337,21 @@ def start_cells(out_dir: Path) -> list:
     out_dir.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
     procs = []
-    for arch, shape in LAUNCH_CELLS:
-        out = open(out_dir / f"{arch}__{shape}.log", "w")
-        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
-               shape, "--mesh", "single", "--out", str(out_dir), "--force"]
+    cells = [(arch, shape, out_dir, ["-m", "repro_torch.launch.dryrun"])
+             for arch, shape in LAUNCH_CELLS]
+    cells.append((*LAUNCH_GATHERED, out_dir / "gathered", ["-c", GATHERED_CELL]))
+    for arch, shape, where, run in cells:
+        where.mkdir(parents=True, exist_ok=True)
+        out = open(where / f"{arch}__{shape}.log", "w")
+        cmd = [sys.executable, *run, "--arch", arch, "--shape", shape, "--mesh", "single",
+               "--out", str(where), "--force"]
         procs.append((arch, shape, subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=out,
-                                                    stderr=subprocess.STDOUT), out))
+                                                    stderr=subprocess.STDOUT), out, where))
     return procs
 
 
 def stop_cells(procs: list) -> None:
-    for _, _, proc, out in procs:
+    for _, _, proc, out, _ in procs:
         if proc.poll() is None:
             proc.kill()
             proc.wait(timeout=60)
@@ -4119,23 +4361,25 @@ def stop_cells(procs: list) -> None:
 def finish_cells(procs: list, out_dir: Path, card: str, t0: float) -> None:
     """Phase 13 (c), finished: each cell's process must exit 0 and its
     record reach "analyzed"; prints each cell's accounting."""
-    failures = []
-    for arch, shape, proc, out in procs:
+    failures, records = [], {}
+    for arch, shape, proc, out, where in procs:
         try:
             rc = proc.wait(timeout=max(1.0, LAUNCH_CELL_TIMEOUT - (time.perf_counter() - t0)))
         except subprocess.TimeoutExpired:
             failures.append(f"{arch} x {shape}: over {LAUNCH_CELL_TIMEOUT} s")
             continue
         out.flush()
-        path = out_dir / f"{arch}__{shape}__single.json"
+        path = where / f"{arch}__{shape}__single.json"
         res = json.loads(path.read_text()) if path.exists() else {"status": f"no record, rc {rc}"}
         if rc != 0 or res["status"] != "analyzed":
-            tail = (out_dir / f"{arch}__{shape}.log").read_text()[-2000:]
+            tail = (where / f"{arch}__{shape}.log").read_text()[-2000:]
             failures.append(f"{arch} x {shape}: rc {rc}, {res['status']} "
                             f"{res.get('error', '')}\n{tail}")
             continue
+        gathered = where != out_dir
+        records[arch, shape, gathered] = res
         ha, rl = res["hlo_analysis"], res["roofline"]
-        log(f"  {arch} x {shape} on {res['chips']} devices (placed in {res['lower_s']:.1f} s, "
+        log(f"  {arch} x {shape}{' (cache gathered for K7)' if gathered else ''} on {res['chips']} devices (placed in {res['lower_s']:.1f} s, "
             f"run in {res['compile_s']:.1f} s): per device {ha['flops']:.6g} FLOPs, "
             f"{ha['hbm_bytes']:.6g} bytes raw, {ha['hbm_bytes_fused']:.6g} fused, wire "
             f"{ha['wire_bytes_by_kind']} ({ha['collective_counts']}), arguments "
@@ -4151,6 +4395,51 @@ def finish_cells(procs: list, out_dir: Path, card: str, t0: float) -> None:
             f"{rl['roofline_fraction']:.4g}")
     if failures:
         raise AssertionError("phase 13: " + "; ".join(failures))
+    decode_gathers(records)
+
+
+def cache_row_gathers(res: dict) -> float:
+    """All-gather wire bytes a device whose result is cache rows: (B, rows,
+    KVH, Dh) of the cell's config, rows neither 1 (a new token's K / V) nor
+    the cross layers' memory length (their K / V, made from the memory)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(res["arch"])
+    return sum(c["bytes"] for c in res["hlo_analysis"]["collective_bytes_by_shape"]
+               if c["kind"] == "all-gather" and any(
+                   len(x) == 4 and x[1] not in (1, cfg.cross_memory_len)
+                   and x[2:] == [cfg.n_kv, cfg.head_dim_] for x in c["shapes"]))
+
+
+def decode_gathers(records: dict) -> None:
+    """The decode cell's all-gather a device before (K7's route before the
+    combine: the cache gathered) and after, the prediction first: the
+    before run's cache-row gathers go; the partials' (B x H x (D + 2)
+    float32 a piece of the sequence, a layer) come, and at most the
+    output's (B x H x D bf16 a layer, where the query comes replicated
+    over the batch's mesh dim); the bound follows the leading term."""
+    from repro_torch.configs import SHAPES, get_config
+    arch, shape = LAUNCH_GATHERED
+    before, after = records[arch, shape, True], records[arch, shape, False]
+    cfg, sh = get_config(arch), SHAPES[shape]
+    layers = cfg.pattern.count("attn") * (cfg.n_layers // len(cfg.pattern))
+    b_local, pieces = sh.global_batch // 16, 16          # batch over "data", sequence over "model"
+    partials = layers * pieces * b_local * cfg.n_heads * (cfg.head_dim_ + 2) * 4
+    output = layers * sh.global_batch * cfg.n_heads * cfg.head_dim_ * 2
+    ag = lambda r: r["hlo_analysis"]["wire_bytes_by_kind"].get("all-gather", 0.0)
+    rows = cache_row_gathers(before)
+    log(f"  {arch} x {shape} all-gather a device, predicted: {ag(before):.6g} B less its "
+        f"cache-row gathers {rows:.6g} B plus the partials' {partials:.6g} B ({layers} "
+        f"attention layers x {pieces} pieces x {b_local} x {cfg.n_heads} x "
+        f"({cfg.head_dim_} + 2) float32) = {ag(before) - rows + partials:.6g} B, plus at "
+        f"most the output's {output:.6g} B")
+    log(f"    measured (accounting): before {ag(before):.6g} B (cache-row all-gathers "
+        f"{rows:.6g} B), after {ag(after):.6g} B (cache-row all-gathers "
+        f"{cache_row_gathers(after):.6g} B); bound before {before['roofline']['step_s']:.6g} s "
+        f"({before['roofline']['bottleneck']}), after {after['roofline']['step_s']:.6g} s "
+        f"({after['roofline']['bottleneck']})")
+    if cache_row_gathers(after) or not rows:
+        raise AssertionError(f"phase 13: cache-row all-gathers before {rows}, after "
+                             f"{cache_row_gathers(after)}")
 
 
 def launch_phase(torch, np, fa, da, dev, card: str) -> tuple[dict, dict]:
@@ -4229,6 +4518,7 @@ def main() -> int:
     check_flash_attention(torch, fa, dev)
     check_flash_non_causal(torch, fa, dev)
     check_decode_cross(torch, da, fa, dev)
+    check_decode_split(torch, da, dev)
     check_wide_aggregate(torch, dev)
     timings = time_kernels(torch, sr, bt, oh, ws, da, ls, fa, dev, pool)
     for rec in timings.values():
@@ -4264,7 +4554,8 @@ def main() -> int:
                 "flash_attention": fa.counter}
     launches = dict.fromkeys(counters, 0)
     # main-path launches by route of the kernels that have two
-    by_route = {"segment_reduce": {"reg": 0, "table": 0}, "decode_attention": {"tc": 0, "fma": 0},
+    by_route = {"segment_reduce": {"reg": 0, "table": 0},
+                "decode_attention": {"tc": 0, "fma": 0, "tc_partials": 0, "fma_partials": 0},
                 "flash_attention": {"tc": 0, "fma": 0}, "linear_scan": {"fwd": 0, "bwd": 0}}
 
     def add_routes(kernel: str, routes: dict) -> None:

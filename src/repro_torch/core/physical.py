@@ -27,9 +27,12 @@ Fusion (paper §5).  ``FUSED_PIPELINE`` runs a chain of row-local operators
 (elementwise MAP, SELECTION, PROJECTION, RENAME) as one per-block program
 (``_run_stages_block``): a run of structured selections is ANDed into one
 predicate and evaluated once; a run of maps runs its UDFs one after another.
-Both run eagerly: there is no compiled map or predicate program, no
-trace-and-compare probe and no fallback, and the reference's
-``REPRO_JIT_UDFS`` has no counterpart here.  The barrier-fused operators run
+Where ``REPRO_JIT_UDFS`` says so (``_jit_udfs_enabled``: by default on a
+CUDA block, not on a CPU block) each such run is ONE compiled program a
+block (``torch.compile`` on inductor of the chain traced on fake tensors),
+adopted only where its first block reproduces the eager result bit for
+bit; a chain that fails to trace or compile, or differs, stays eager
+(``jit_stats`` counts each outcome).  The barrier-fused operators run
 the chain inside the blocking operator's own per-block programs:
 ``FUSED_GROUPBY`` stages each block and reads its key span, then computes
 codes and every partial (``segment_reduce``) against one global dense
@@ -56,7 +59,10 @@ to the device once a block, as ``Frame.filter_rows`` takes it.
 """
 from __future__ import annotations
 
+import contextlib
 import os
+import threading
+import time
 from typing import Any, Callable, Sequence
 
 import numpy as np
@@ -84,32 +90,64 @@ def _is_int(t: torch.Tensor) -> bool:
     return not t.dtype.is_floating_point and t.dtype != torch.bool
 
 
-def _lit_full(shape, value, device) -> torch.Tensor:
-    """Literal arrays: in-range int literals in int32 (identical wrap
+def _lit_dtype(value) -> torch.dtype:
+    """A literal's storage: in-range int literals in int32 (identical wrap
     semantics to int32 columns), float literals in float32; only
     out-of-int32-range literals take int64."""
     if isinstance(value, bool):
-        return torch.full(shape, value, dtype=torch.bool, device=device)
+        return torch.bool
     if isinstance(value, int):
-        dt = torch.int32 if -2 ** 31 <= value < 2 ** 31 else torch.int64
-        return torch.full(shape, value, dtype=dt, device=device)
+        return torch.int32 if -2 ** 31 <= value < 2 ** 31 else torch.int64
     if isinstance(value, float):
-        return torch.full(shape, value, dtype=torch.float32, device=device)
+        return torch.float32
     raise TypeError(f"literal {value!r} cannot meet a numeric column")
 
 
+def _lit_full(shape, value, device) -> torch.Tensor:
+    return torch.full(shape, value, dtype=_lit_dtype(value), device=device)
+
+
+def _has_wide_lit(expr: alg.Expr) -> bool:
+    """True if any int literal in ``expr`` falls outside int32: predicate
+    chains holding one run on the interpreted path, as the reference's do
+    (its jit is 32-bit)."""
+    if isinstance(expr, alg.Lit):
+        v = expr.value
+        return (isinstance(v, int) and not isinstance(v, bool)
+                and not -2 ** 31 <= v < 2 ** 31)
+    if isinstance(expr, alg.BinExpr):
+        return _has_wide_lit(expr.left) or _has_wide_lit(expr.right)
+    if isinstance(expr, alg.UnaryExpr):
+        return _has_wide_lit(expr.operand)
+    return False
+
+
+def _wide_int_column(c: Column) -> bool:
+    """True for an INT column in 64-bit storage (the host int64 key columns
+    of ``_host_column``): the reference keeps such columns out of its
+    compiled programs, which would truncate them to int32."""
+    return c.domain is Domain.INT and c.data.dtype.itemsize > 4
+
+
 def _eval_expr_core(expr: alg.Expr, getcol: Callable, nrows: int, device,
-                    bin_hook: Callable | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-    """The expression interpreter.  ``getcol(name) → (values, mask)``;
-    ``bin_hook(BinExpr) → result | None`` lets the frame path intercept
-    coded-column comparisons (host code-table translation)."""
+                    bin_hook: Callable | None = None,
+                    lit: Callable | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The one expression interpreter, shared by the interpreted per-frame
+    path (``eval_expr``) and the compiled predicate programs
+    (``_eval_expr_env``), so the two cannot diverge.  ``getcol(name) →
+    (values, mask)``; ``bin_hook(BinExpr) → result | None`` lets the frame
+    path intercept coded-column comparisons (host code-table translation);
+    ``lit(value) → (values, mask)`` builds a literal (default: ``nrows``
+    rows on ``device``)."""
     if isinstance(expr, alg.ColRef):
         return getcol(expr.name)
     if isinstance(expr, alg.Lit):
+        if lit is not None:
+            return lit(expr.value)
         return (_lit_full((nrows,), expr.value, device),
                 torch.ones((nrows,), dtype=torch.bool, device=device))
     if isinstance(expr, alg.UnaryExpr):
-        v, mask = _eval_expr_core(expr.operand, getcol, nrows, device, bin_hook)
+        v, mask = _eval_expr_core(expr.operand, getcol, nrows, device, bin_hook, lit)
         if expr.op == "~":
             return ~v.to(torch.bool), mask
         if expr.op == "isna":
@@ -122,8 +160,8 @@ def _eval_expr_core(expr: alg.Expr, getcol: Callable, nrows: int, device,
             hit = bin_hook(expr)
             if hit is not None:
                 return hit
-        lv, lm = _eval_expr_core(expr.left, getcol, nrows, device, bin_hook)
-        rv, rm = _eval_expr_core(expr.right, getcol, nrows, device, bin_hook)
+        lv, lm = _eval_expr_core(expr.left, getcol, nrows, device, bin_hook, lit)
+        rv, rm = _eval_expr_core(expr.right, getcol, nrows, device, bin_hook, lit)
         return _bin_numeric(expr.op, lv, lm, rv, rm)
     raise TypeError(expr)
 
@@ -1677,24 +1715,485 @@ def _column_filter(pf: PartitionedFrame, predicate: alg.Expr) -> PartitionedFram
 # =============================================================================
 # FUSED PIPELINE (paper §5): one per-block program for a row-local chain
 # =============================================================================
+def _eval_expr_env(expr: alg.Expr, env: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """``eval_expr`` over a plain {name: (values, mask)} environment: the
+    entry of compiled predicate programs (no Frame objects, no coded
+    columns; callers gate on that).  Same interpreter core as ``eval_expr``,
+    so fused and unfused predicates cannot diverge.  Literals are made like
+    the first column (``full_like``), so a traced program holds no row
+    count and serves every block size."""
+    ref = next(iter(env.values()))[0]
+
+    def lit(value):
+        return (torch.full_like(ref, value, dtype=_lit_dtype(value)),
+                torch.ones_like(ref, dtype=torch.bool))
+
+    return _eval_expr_core(expr, env.__getitem__, ref.shape[0], ref.device, lit=lit)
+
+
+# Compiled programs.  ``REPRO_JIT_UDFS`` (``_jit_udfs_enabled``) runs a run
+# of structured predicates, or of elementwise MAP stages, as ONE compiled
+# program a block: the chain is traced on fake tensors (``make_fx``: the
+# frame and label plumbing runs as Python, the tensor operations become one
+# graph), and the graph is compiled by ``torch.compile(fullgraph=True)`` on
+# inductor (Triton kernels on the card, C++ on the CPU) with dynamic sizes,
+# so one program serves every block size.  The first block through a chain
+# runs both eagerly and compiled; the program is adopted only if it
+# reproduces the eager result bit for bit, else (or where it fails to
+# trace or compile) the chain's entry is None and the chain stays eager.
+# Both caches are bounded FIFOs keyed by the chain's structure, the
+# columns' storage and the device: predicates with varying literals each
+# get a distinct key.  The locks guard the lookups only; a probe traces and
+# compiles outside them, and the pool's other threads run the chain eagerly
+# while one probes it (its entry is ``_JIT_PROBING`` meanwhile).
+#
+# Tracing (``make_fx``, and inductor's own tracing inside a compile) sets
+# one flag for the whole process, and a compiled program that starts in any
+# thread while it is set raises.  So a probe holds ``_GATE`` alone, and a
+# compiled program runs under it shared where no probe holds it or waits
+# for it; where one does (or the program meets the flag: a recompile in
+# another thread), the block runs eagerly, which the probe made bit-equal.
+# A block never waits for a compile.
+_JIT_MISS = object()
+_JIT_PROBING = object()
+_PRED_JIT: dict[tuple, Callable | None] = {}
+_PRED_JIT_LOCK = threading.Lock()
+_PRED_JIT_MAX = 256
+_MAP_JIT: dict[tuple, tuple | None] = {}
+_MAP_JIT_LOCK = threading.Lock()
+_MAP_JIT_MAX = 128
+_MAP_JIT_MISS = _JIT_MISS
+_JIT_LOG_MAX = 64
+_JIT_STATS_LOCK = threading.Lock()
+_JIT_STATS: dict = {}
+
+
+def reset_jit_stats() -> None:
+    """Zero the counts of ``jit_stats``."""
+    with _JIT_STATS_LOCK:
+        _JIT_STATS.clear()
+        _JIT_STATS.update(adopted={"map": 0, "predicate": 0}, rejected={},
+                          compile_s=0.0, eager_blocks=0, chains=[])
+
+
+reset_jit_stats()
+
+
+def jit_stats() -> dict:
+    """The compiled-program probes since the last reset: chains adopted by
+    kind, chains rejected by reason ("trace error", "traces differ",
+    "compile error", "bits differ", "failed after adoption"), the seconds
+    the probes' compiled first calls took (compiles included), the blocks
+    of adopted chains that ran eagerly because a probe was tracing or
+    compiling, and the last 64 outcomes as (kind, chain, outcome)."""
+    with _JIT_STATS_LOCK:
+        return {"adopted": dict(_JIT_STATS["adopted"]),
+                "rejected": dict(_JIT_STATS["rejected"]),
+                "compile_s": _JIT_STATS["compile_s"],
+                "eager_blocks": _JIT_STATS["eager_blocks"],
+                "chains": list(_JIT_STATS["chains"])}
+
+
+def _jit_note(kind: str, name: str, outcome: str, seconds: float = 0.0) -> None:
+    with _JIT_STATS_LOCK:
+        if outcome == "adopted":
+            _JIT_STATS["adopted"][kind] += 1
+        else:
+            _JIT_STATS["rejected"][outcome] = _JIT_STATS["rejected"].get(outcome, 0) + 1
+        _JIT_STATS["compile_s"] += seconds
+        _JIT_STATS["chains"].append((kind, name, outcome))
+        del _JIT_STATS["chains"][:-_JIT_LOG_MAX]
+
+
+def _fifo_set(cache: dict, cap: int, key, entry) -> None:
+    """``cache[key] = entry``, the oldest entries evicted to keep ``cap``
+    (the caller holds the cache's lock)."""
+    if key not in cache:
+        while len(cache) >= cap:
+            cache.pop(next(iter(cache)))
+    cache[key] = entry
+
+
+def _jit_put(cache: dict, lock, cap: int, key, entry) -> None:
+    with lock:
+        _fifo_set(cache, cap, key, entry)
+
+
+def _jit_lookup(cache: dict, lock, cap: int, key, claim: bool):
+    """``cache``'s entry for ``key``; where it has none and ``claim``, the
+    key is marked as being probed (``_JIT_PROBING``: the caller probes it)
+    and ``_JIT_MISS`` comes back."""
+    with lock:
+        entry = cache.get(key, _JIT_MISS)
+        if entry is _JIT_MISS and claim:
+            _fifo_set(cache, cap, key, _JIT_PROBING)
+        return entry
+
+
+def _jit_release(cache: dict, lock, key) -> None:
+    """Drop a probe's claim on ``key`` (its eager run raised)."""
+    with lock:
+        if cache.get(key) is _JIT_PROBING:
+            del cache[key]
+
+
+class _ProgramGate:
+    """Many holders at once (``shared``: compiled programs running) or one
+    alone (``alone``: a probe tracing and compiling).  ``shared`` never
+    waits: it yields False where a probe holds the gate or waits for it
+    (the caller then runs its block eagerly), so probes are not starved and
+    blocks do not stall behind a compile."""
+
+    def __init__(self) -> None:
+        self._cv = threading.Condition()
+        self._shared = 0
+        self._alone = False
+        self._waiting = 0
+
+    @contextlib.contextmanager
+    def shared(self):
+        with self._cv:
+            held = not (self._alone or self._waiting)
+            self._shared += held
+        try:
+            yield held
+        finally:
+            if held:
+                with self._cv:
+                    self._shared -= 1
+                    self._cv.notify_all()
+
+    @contextlib.contextmanager
+    def alone(self):
+        with self._cv:
+            self._waiting += 1
+            while self._alone or self._shared:
+                self._cv.wait()
+            self._waiting -= 1
+            self._alone = True
+        try:
+            yield
+        finally:
+            with self._cv:
+                self._alone = False
+                self._cv.notify_all()
+
+
+_GATE = _ProgramGate()
+
+
+def _nested_trace(e: BaseException) -> bool:
+    """The error a compiled program raises where it starts while another
+    thread traces (the process-wide FX flag set)."""
+    return isinstance(e, RuntimeError) and "symbolically trace a dynamo-optimized" in str(e)
+
+
+def _compiler_error(e: BaseException) -> bool:
+    """A failure of dynamo or inductor (a recompile refused or over the
+    recompile limit), as against a fault of the device or of memory."""
+    from torch._dynamo import exc
+    kinds = tuple(getattr(exc, k) for k in ("TorchDynamoException", "FailOnRecompileLimitHit")
+                  if hasattr(exc, k))
+    return isinstance(e, kinds)
+
+
+def _run_program(fn: Callable, args: Sequence[torch.Tensor]):
+    """An adopted program's outputs on ``args``, or None where the block is
+    to run eagerly: a probe holds or waits for the gate, or the program met
+    the tracing flag of another thread (counted in ``jit_stats``'s
+    ``eager_blocks``).  Other errors propagate."""
+    with _GATE.shared() as held:
+        if held:
+            try:
+                return fn(*args)
+            except RuntimeError as e:
+                if not _nested_trace(e):
+                    raise
+    with _JIT_STATS_LOCK:
+        _JIT_STATS["eager_blocks"] += 1
+    return None
+
+
+def _jit_udfs_enabled(device=None) -> bool:
+    """``REPRO_JIT_UDFS``: ``0`` runs map and predicate runs eagerly
+    everywhere, any other non-empty value compiles them everywhere; unset,
+    the block's device decides: compiled on a CUDA block, eager on a CPU
+    block (the counterpart of the reference's ``jax.default_backend() !=
+    "cpu"``: on the CPU the eager path is the tuned one, and an inductor
+    compile costs seconds)."""
+    flag = os.environ.get("REPRO_JIT_UDFS", "")
+    if flag == "0":
+        return False
+    if flag:
+        return True
+    return device is not None and torch.device(device).type == "cuda"
+
+
+class _TraceError(Exception):
+    """A chain that cannot become one program (its reason in ``args[0]``)."""
+
+
+def _trace_program(fn: Callable, example: Sequence[torch.Tensor]):
+    """``fn(*tensors)`` as one graph of tensor operations, traced on fake
+    tensors shaped like ``example`` (``make_fx``): the Python around the
+    tensors (frames, labels, the UDFs' own code) runs at trace time.  Traced
+    once more one row longer: a graph that differs is refused, since a
+    program must serve every block size (a UDF that made a tensor of the
+    block's length, or whose Python gives another graph each call)."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+    n = example[0].shape[0]
+    try:
+        gm = make_fx(fn, tracing_mode="fake")(*example)
+        longer = [torch.empty((n + 1,), dtype=t.dtype, device=t.device) for t in example]
+        again = make_fx(fn, tracing_mode="fake")(*longer)
+    except Exception as e:   # data-dependent Python, host numpy, .tolist(), ...
+        raise _TraceError("trace error") from e
+    if gm.code != again.code:
+        raise _TraceError("traces differ")
+    return gm
+
+
+def _eager_numerics() -> dict:
+    """Inductor settings that keep eager's rounding where this torch has
+    them: ``emulate_precision_casts`` (which also turns off Triton's fusion
+    of a multiply and an add into one FMA) and, on the card, denormals kept
+    as eager keeps them."""
+    from torch._inductor import config
+    have = config.get_config_copy()
+    want = {"emulate_precision_casts": True, "eager_numerics.disable_ftz": True}
+    return {k: v for k, v in want.items() if k in have}
+
+
+def _compile_program(gm):
+    """The traced graph compiled: ``torch.compile(fullgraph=True)`` on
+    inductor, sizes dynamic."""
+    return torch.compile(gm, fullgraph=True, dynamic=True, options=_eager_numerics())
+
+
+def _probe(kind: str, name: str, trace: Callable, args: Sequence[torch.Tensor],
+           same: Callable):
+    """Trace and compile a chain's program, run it on ``args`` and hold its
+    outputs to the eager result with ``same(outputs) → bool``.  Returns the
+    compiled program, or None (the outcome is counted in ``jit_stats``);
+    never raises.  The first call (the compile) gets copies of the
+    contiguous arguments at storage offset 0: compiled on a block's view
+    at some offset, the program would be specialized to offsets of 2 or
+    more (or to an offset equal to the length), and recompile, unprobed,
+    for the first block of a frame."""
+    t0 = time.perf_counter()
+    try:
+        with _GATE.alone():
+            t0 = time.perf_counter()
+            fn = _compile_program(_trace_program(trace, args))
+            out = fn(*[a.clone() if a.is_contiguous() else a for a in args])
+        seconds = time.perf_counter() - t0
+    except _TraceError as e:
+        _jit_note(kind, name, e.args[0])
+        return None
+    except Exception:   # inductor / dynamo refused the graph
+        _jit_note(kind, name, "compile error", time.perf_counter() - t0)
+        return None
+    try:
+        equal = same(out)
+    except Exception:    # outputs of another shape or structure
+        equal = False
+    if not equal:
+        _jit_note(kind, name, "bits differ", seconds)
+        return None
+    _jit_note(kind, name, "adopted", seconds)
+    return fn
+
+
+def _compiled_predicate(expr: alg.Expr, refs: tuple, masked: tuple) -> Callable:
+    """The whole predicate chain as one program over the referenced
+    columns' values and the masks that exist (``masked[i]``: column i has
+    one) → the bool keep mask."""
+    def prog(*tensors):
+        datas, rest = tensors[:len(refs)], list(tensors[len(refs):])
+        env = {}
+        for r, d, has in zip(refs, datas, masked):
+            env[r] = (d, rest.pop(0) if has else torch.ones_like(d, dtype=torch.bool))
+        v, mask = _eval_expr_env(expr, env)
+        return v.to(torch.bool) & mask
+    return prog
+
+
 def _fused_selection_mask(preds: Sequence[alg.Expr], frame: Frame) -> torch.Tensor:
     """Keep mask (a bool tensor on the frame's device) for a run of
-    structured predicates: their conjunction, evaluated once, eagerly.
+    structured predicates: their conjunction, as ONE compiled program where
+    ``_jit_udfs_enabled`` and the chain qualifies, else interpreted.
     ANDing before filtering is exact: predicates are row-local, so a row an
     earlier selection removes gives False whatever the later ones give."""
     combined = preds[0]
     for p in preds[1:]:
         combined = alg.BinExpr("&", combined, p)
-    return _predicate_mask(frame, combined)
+    refs = tuple(sorted(combined.refs(), key=repr))
+    if not refs or not _jit_udfs_enabled(frame.device):
+        return _predicate_mask(frame, combined)
+    try:
+        cols = [frame.col(r) for r in refs]
+    except KeyError:
+        return _predicate_mask(frame, combined)
+    if any(c.domain.is_coded for c in cols):
+        # coded columns need host code-table translation → interpreted path
+        return _predicate_mask(frame, combined)
+    if (any(not isinstance(c.data, torch.Tensor) or _wide_int_column(c) for c in cols)
+            or _has_wide_lit(combined)):
+        # wide int64 host columns and out-of-int32 literals stay on the
+        # interpreted path, as the reference keeps them out of its jit
+        return _predicate_mask(frame, combined)
+    masked = tuple(c.mask is not None for c in cols)
+    args = [c.data for c in cols] + [c.mask for c in cols if c.mask is not None]
+    key = (combined.key(), tuple(c.data.dtype for c in cols), masked, str(frame.device))
+    # a block of fewer than two rows runs eagerly (too small to hold a
+    # program to, and a size a dynamic program would recompile for)
+    fn = _jit_lookup(_PRED_JIT, _PRED_JIT_LOCK, _PRED_JIT_MAX, key, frame.nrows >= 2)
+    if frame.nrows < 2 or fn is None or fn is _JIT_PROBING:
+        return _predicate_mask(frame, combined)
+    if fn is not _JIT_MISS:
+        try:
+            keep = _run_program(fn, args)
+        except Exception as e:
+            if not _compiler_error(e):
+                raise
+            _jit_note("predicate", repr(combined), "failed after adoption")
+            _jit_put(_PRED_JIT, _PRED_JIT_LOCK, _PRED_JIT_MAX, key, None)
+            keep = None
+        return _predicate_mask(frame, combined) if keep is None else keep
+    try:
+        eager = _predicate_mask(frame, combined)
+    except BaseException:
+        _jit_release(_PRED_JIT, _PRED_JIT_LOCK, key)
+        raise
+    fn = _probe("predicate", repr(combined), _compiled_predicate(combined, refs, masked),
+                args, lambda keep: torch.equal(keep, eager))
+    _jit_put(_PRED_JIT, _PRED_JIT_LOCK, _PRED_JIT_MAX, key, fn)
+    return eager
 
 
-def _run_map_stages(frame: Frame, udfs: Sequence[alg.Udf]) -> Frame:
-    """A run of consecutive elementwise MAP stages over one block, one UDF
-    after another (eager: the port has no compiled map program)."""
-    cur = frame.induce()
+def _run_map_stages_eager(frame: Frame, udfs: Sequence[alg.Udf]) -> Frame:
+    cur = frame
     for u in udfs:
         cur = _apply_udf_block(cur, u)
     return cur
+
+
+def _map_run_program(udfs: Sequence[alg.Udf], names: tuple, domains: tuple,
+                     masked: tuple):
+    """The whole map chain as one program over the columns' values and the
+    masks that exist.  Output metadata (names, domains, which columns have
+    a mask) is captured at trace time: static for an elementwise chain, or
+    the trace fails and the chain stays eager."""
+    meta: dict = {}
+
+    def prog(*tensors):
+        datas, rest = tensors[:len(names)], list(tensors[len(names):])
+        n = datas[0].shape[0]
+        cols = [Column(d, dom, rest.pop(0) if has else None, None)
+                for d, dom, has in zip(datas, domains, masked)]
+        f = Frame(cols, RangeLabels(n), labels_from_values(list(names)))
+        for u in udfs:
+            f = _apply_udf_block(f, u)
+        meta["labels"] = f.col_labels
+        meta["domains"] = tuple(c.domain for c in f.columns)
+        meta["masked"] = tuple(c.mask is not None for c in f.columns)
+        return (tuple(c.data for c in f.columns)
+                + tuple(c.mask for c in f.columns if c.mask is not None))
+
+    return prog, meta
+
+
+def _program_frame(out: Sequence[torch.Tensor], meta: dict, row_labels) -> Frame:
+    """The frame a map-run program's flat outputs stand for."""
+    k = len(meta["domains"])
+    masks = iter(out[k:])
+    cols = [Column(d, dom, next(masks) if has else None, None)
+            for d, dom, has in zip(out[:k], meta["domains"], meta["masked"])]
+    return Frame(cols, row_labels, meta["labels"])
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A float tensor's bits as the same-size int (NaNs compare by bits)."""
+    if t.dtype.is_floating_point:
+        return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+    return t
+
+
+def _frames_bit_equal(a: Frame, b: Frame) -> bool:
+    """Labels, domains, masks and every valid value's bits equal."""
+    if a.col_labels.to_list() != b.col_labels.to_list():
+        return False
+    if a.row_labels is not b.row_labels and a.row_labels.to_list() != b.row_labels.to_list():
+        return False
+    for ca, cb in zip(a.columns, b.columns):
+        if ca.domain is not cb.domain:
+            return False
+        if not (isinstance(ca.data, torch.Tensor) and isinstance(cb.data, torch.Tensor)):
+            return False
+        va, vb = ca.valid_mask(), cb.valid_mask()
+        if not torch.equal(va, vb) or ca.data.dtype != cb.data.dtype:
+            return False
+        zero = torch.zeros((), dtype=ca.data.dtype, device=ca.data.device)
+        if not torch.equal(_bits(torch.where(va, ca.data, zero)),
+                           _bits(torch.where(vb, cb.data, zero))):
+            return False
+    return True
+
+
+def _run_map_stages(frame: Frame, udfs: Sequence[alg.Udf]) -> Frame:
+    """A run of consecutive elementwise MAP stages over one block: one
+    compiled program where ``_jit_udfs_enabled`` and the chain traces, else
+    one UDF after another (and on blocks of fewer than two rows).  The
+    first block through a chain runs BOTH ways; the program is adopted only
+    if it reproduces the eager result bit for bit, so fused and unfused
+    plans cannot diverge."""
+    f = frame.induce()
+    if not _jit_udfs_enabled(f.device):
+        return _run_map_stages_eager(f, udfs)
+    names = f.col_labels.to_list()
+    domains = tuple(c.domain for c in f.columns)
+    if any(d.is_coded for d in domains) or not f.columns or any(
+            not isinstance(c.data, torch.Tensor) for c in f.columns):
+        return _run_map_stages_eager(f, udfs)
+    masked = tuple(c.mask is not None for c in f.columns)
+    key = (tuple(u.key() for u in udfs), tuple(names), domains, masked,
+           tuple(c.data.dtype for c in f.columns), str(f.device))
+    try:
+        hash(key)
+    except TypeError:   # unhashable labels
+        return _run_map_stages_eager(f, udfs)
+
+    entry = _jit_lookup(_MAP_JIT, _MAP_JIT_LOCK, _MAP_JIT_MAX, key, f.nrows >= 2)
+    if f.nrows < 2 or entry is None or entry is _JIT_PROBING:
+        return _run_map_stages_eager(f, udfs)
+
+    args = [c.data for c in f.columns] + [c.mask for c in f.columns if c.mask is not None]
+    chain = "->".join(u.name for u in udfs)
+    if entry is not _MAP_JIT_MISS:
+        fn, meta = entry
+        try:
+            out = _run_program(fn, args)
+        except Exception as e:
+            if not _compiler_error(e):
+                raise
+            _jit_note("map", chain, "failed after adoption")
+            _jit_put(_MAP_JIT, _MAP_JIT_LOCK, _MAP_JIT_MAX, key, None)
+            out = None
+        if out is None:
+            return _run_map_stages_eager(f, udfs)
+        return _program_frame(out, meta, f.row_labels)
+
+    # probe: trace, compile, run, and hold to the eager path on this block
+    try:
+        eager = _run_map_stages_eager(f, udfs)
+    except BaseException:
+        _jit_release(_MAP_JIT, _MAP_JIT_LOCK, key)
+        raise
+    prog, meta = _map_run_program(udfs, tuple(names), domains, masked)
+    fn = _probe("map", chain, prog, args,
+                lambda out: _frames_bit_equal(eager, _program_frame(out, meta, f.row_labels)))
+    _jit_put(_MAP_JIT, _MAP_JIT_LOCK, _MAP_JIT_MAX, key, None if fn is None else (fn, meta))
+    return eager
 
 
 def _run_stages_block(frame: Frame, stages: Sequence[alg.Stage]) -> Frame:

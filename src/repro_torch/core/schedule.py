@@ -60,9 +60,12 @@ Environment knobs (the one table — referenced from ROADMAP.md)
 ``REPRO_ADAPT_GRID``       ``0`` disables plan-time grid adaptation —
                            blocking operators keep the incoming row grid no
                            matter how far it oversubscribes the pool
-``REPRO_JIT_UDFS``         ``1`` forces jit-traced map-stage runs, ``0``
-                           forces eager; default: eager on CPU, traced on
-                           accelerators (``physical._jit_udfs_enabled``)
+``REPRO_JIT_UDFS``         ``0`` runs map and predicate runs eagerly, any
+                           other value as compiled programs (``torch.compile``
+                           on inductor, probed bit for bit against eager on a
+                           chain's first block); unset: compiled on a CUDA
+                           block, eager on a CPU block
+                           (``physical._jit_udfs_enabled``)
 ``REPRO_BLOCK_DEDUP``      ``0`` routes DIFFERENCE / DROP-DUPLICATES through
                            the serial whole-frame seed path (baseline /
                            equivalence oracle; ``physical``)

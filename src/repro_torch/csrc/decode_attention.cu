@@ -32,7 +32,11 @@
 //           past the length writes an empty partial (max -inf, sum 0).
 //   pass 2  grid (head, slot).  The splits' partials combine in split
 //           order into the output; a row with no valid key is 0, the value
-//           the Pallas kernel's l == 0 guard is written for.
+//           the Pallas kernel's l == 0 guard is written for.  In the
+//           partials mode (part_o given) the combined O stays unnormalised
+//           and is written as float32 with the row's (M, L), M in the log2
+//           domain (the natural-log max times log2(e), rounded once; -inf
+//           and L 0 where no key is valid), for a combine across devices.
 // The split count is a function of S alone, so a slot's result does not
 // depend on the other slots or on the lengths of its neighbours.  No
 // atomics: the result is bit-identical from run to run.  The lengths stay
@@ -53,6 +57,7 @@ constexpr int kTile = 32;         // keys per tile: one per lane
 constexpr int kSplitKeys = 128;   // keys per CTA of pass 1 (the wrapper's SPLIT_KEYS)
 constexpr int kLoads = 8;         // loads in flight per thread per cache tensor
 constexpr unsigned kFull = 0xffffffffu;
+constexpr float kLog2e = 1.4426950408889634f;
 
 // Butterfly reductions: every lane ends with the same bits.
 __device__ __forceinline__ float warp_max(float v) {
@@ -181,8 +186,8 @@ decode_split(const float* __restrict__ q, const float* __restrict__ k,
 
 __global__ void __launch_bounds__(kThreads)
 decode_combine(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-               float* __restrict__ out, int heads, int kvheads, int g_size, int d,
-               int nsplit) {
+               float* __restrict__ out, float* __restrict__ dev_o, float* __restrict__ dev_ml,
+               int heads, int kvheads, int g_size, int d, int nsplit) {
   const int h = blockIdx.x, b = blockIdx.y;
   const int kvh = h / g_size, g = h - kvh * g_size;
   const long long first = ((long long)b * kvheads + kvh) * nsplit;
@@ -196,7 +201,7 @@ decode_combine(const float* __restrict__ part_acc, const float* __restrict__ par
     const float* ml = part_ml + ((first + sp) * g_size + g) * 2;
     if (ml[1] > 0.f) denom += ml[1] * expf(ml[0] - mx);
   }
-  float* orow = out + ((long long)b * heads + h) * d;
+  const long long row = (long long)b * heads + h;
   for (int j = threadIdx.x; j < d; j += kThreads) {
     float o = 0.f;
     for (int sp = 0; sp < nsplit; ++sp) {
@@ -204,7 +209,14 @@ decode_combine(const float* __restrict__ part_acc, const float* __restrict__ par
       if (ml[1] > 0.f)
         o = fmaf(part_acc[((first + sp) * g_size + g) * d + j], expf(ml[0] - mx), o);
     }
-    orow[j] = denom > 0.f ? o / denom : 0.f;
+    if (dev_o != nullptr)
+      dev_o[row * d + j] = o;
+    else
+      out[row * d + j] = denom > 0.f ? o / denom : 0.f;
+  }
+  if (dev_o != nullptr && threadIdx.x == 0) {
+    dev_ml[row * 2] = denom > 0.f ? mx * kLog2e : -CUDART_INF_F;
+    dev_ml[row * 2 + 1] = denom;
   }
 }
 
@@ -214,10 +226,12 @@ decode_combine(const float* __restrict__ part_acc, const float* __restrict__ par
 // float32 through strides (kb, ks, kh) and (vb, vs, vh), the last dimension
 // contiguous; lengths (B,) int32 on the device; out (B, H, D) float32
 // contiguous; part_acc (B, KVH, nsplit, G, D) and part_ml (B, KVH, nsplit, G,
-// 2) float32 scratch.  Returns the cudaError_t of the launches.
+// 2) float32 scratch.  With dev_o non-null (the partials mode) out is not
+// written: dev_o (B, H, D) and dev_ml (B, H, 2) float32 contiguous take each
+// row's unnormalised O and (M, L).  Returns the cudaError_t of the launches.
 extern "C" int repro_decode_attention(
     const void* q, const void* k, const void* v, const void* lengths, void* part_acc,
-    void* part_ml, void* out, int batch, int heads, int kvheads, int d, long long s,
+    void* part_ml, void* out, void* dev_o, void* dev_ml, int batch, int heads, int kvheads, int d, long long s,
     long long qb, long long qh, long long kb, long long ks, long long kh, long long vb,
     long long vs, long long vh, int nsplit, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -237,6 +251,7 @@ extern "C" int repro_decode_attention(
   if (e != cudaSuccess) return (int)e;
   decode_combine<<<dim3(heads, batch), kThreads, 0, st>>>(
       static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
-      static_cast<float*>(out), heads, kvheads, g_size, d, nsplit);
+      static_cast<float*>(out), static_cast<float*>(dev_o), static_cast<float*>(dev_ml), heads,
+      kvheads, g_size, d, nsplit);
   return (int)cudaGetLastError();
 }

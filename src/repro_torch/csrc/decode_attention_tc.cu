@@ -62,7 +62,12 @@
 //            from 0; out = O / L rounded once to bf16, 0 where L is 0 (no
 //            valid key: the value the Pallas kernel's l == 0 guard is
 //            written for).  The output elements are dealt to the cluster's
-//            CTAs in turn, so every rank writes a share.  (3) a second
+//            CTAs in turn, so every rank writes a share.  In the partials
+//            mode (part_o given) the fold's O and, once a row, (M*, L) are
+//            written as float32 instead, O unnormalised and M* in the log2
+//            domain of the scores (-inf, L 0 and O 0 where no key is valid),
+//            for a combine across devices that folds them as (2) does.
+//            (3) a second
 //            cluster.sync(), so that no CTA's shared memory goes while
 //            another rank still reads it.
 // Every CTA reaches both cluster.sync() calls, a split past the length
@@ -172,7 +177,8 @@ template <int DMAX>
 __global__ void __launch_bounds__(kThreads)
 decode_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
           const __nv_bfloat16* __restrict__ v, const int* __restrict__ lengths,
-          __nv_bfloat16* __restrict__ out, int heads, int g_size, int mtiles, int d,
+          __nv_bfloat16* __restrict__ out, float* __restrict__ part_o,
+          float* __restrict__ part_ml, int heads, int g_size, int mtiles, int d,
           long long s, long long qb, long long qh, long long kb, long long ks,
           long long kh, long long vb, long long vs, long long vh, int keys_per_cta,
           float scale_log2) {
@@ -387,7 +393,7 @@ decode_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__
 
   // (2) the cluster's CTAs in rank order, through distributed shared memory
   cluster.sync();
-  __nv_bfloat16* orow = out + ((long long)b * heads + kvh * g_size + g0) * d;
+  const long long row0 = (long long)b * heads + kvh * g_size + g0;   // first output row
   for (int i = rank * kThreads + tid; i < gm * d; i += nsplit * kThreads) {
     const int r = i / d;
     // every rank's (M, L) and O element requested before any is used
@@ -418,7 +424,15 @@ decode_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__
         den = fmaf(rl[c], a, den);
       }
     }
-    orow[i] = __float2bfloat16_rn(den > 0.f ? acc / den : 0.f);
+    if (part_o != nullptr) {
+      part_o[row0 * d + i] = acc;
+      if (i == r * d) {
+        part_ml[(row0 + r) * 2] = mx;
+        part_ml[(row0 + r) * 2 + 1] = den;
+      }
+    } else {
+      out[row0 * d + i] = __float2bfloat16_rn(den > 0.f ? acc / den : 0.f);
+    }
   }
   // (3) every rank's shared memory stays until the last remote read
   cluster.sync();
@@ -426,7 +440,7 @@ decode_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__
 
 template <int DMAX>
 int launch(const void* q, const void* k, const void* v, const void* lengths, void* out,
-           int batch, int heads, int kvheads, int d, long long s, long long qb,
+           void* part_o, void* part_ml, int batch, int heads, int kvheads, int d, long long s, long long qb,
            long long qh, long long kb, long long ks, long long kh, long long vb,
            long long vs, long long vh, int nsplit, int keys_per_cta, float scale_log2,
            cudaStream_t stream) {
@@ -451,7 +465,8 @@ int launch(const void* q, const void* k, const void* v, const void* lengths, voi
   e = cudaLaunchKernelEx(&cfg, decode_tc<DMAX>, static_cast<const __nv_bfloat16*>(q),
                          static_cast<const __nv_bfloat16*>(k),
                          static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(lengths),
-                         static_cast<__nv_bfloat16*>(out), heads, g_size, mtiles, d, s, qb, qh,
+                         static_cast<__nv_bfloat16*>(out), static_cast<float*>(part_o),
+                         static_cast<float*>(part_ml), heads, g_size, mtiles, d, s, qb, qh,
                          kb, ks, kh, vb, vs, vh, keys_per_cta, scale_log2);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
@@ -464,10 +479,13 @@ int launch(const void* q, const void* k, const void* v, const void* lengths, voi
 // contiguous, bases 16-byte aligned and strides multiples of 8; lengths (B,)
 // int32 on the device; out (B, H, D) bf16 contiguous; D a multiple of 16 up
 // to 256; nsplit in [1, 8] CTAs of keys_per_cta keys (a multiple of 64) a
-// cluster, nsplit * keys_per_cta >= S; scale_log2 = scale * log2(e).
-// Returns the cudaError_t of the launch.
+// cluster, nsplit * keys_per_cta >= S; scale_log2 = scale * log2(e).  With
+// part_o non-null (the partials mode) out is not written: part_o (B, H, D)
+// and part_ml (B, H, 2) float32 contiguous take each row's unnormalised O and
+// (M, L).  Returns the cudaError_t of the launch.
 extern "C" int repro_decode_attention_tc(
-    const void* q, const void* k, const void* v, const void* lengths, void* out, int batch,
+    const void* q, const void* k, const void* v, const void* lengths, void* out,
+    void* part_o, void* part_ml, int batch,
     int heads, int kvheads, int d, long long s, long long qb, long long qh, long long kb,
     long long ks, long long kh, long long vb, long long vs, long long vh, int nsplit,
     int keys_per_cta, float scale_log2, void* stream) {
@@ -480,7 +498,8 @@ extern "C" int repro_decode_attention_tc(
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_DECODE_TC_ARGS                                                              \
-  q, k, v, lengths, out, batch, heads, kvheads, d, s, qb, qh, kb, ks, kh, vb, vs, vh, nsplit, \
+  q, k, v, lengths, out, part_o, part_ml, batch, heads, kvheads, d, s, qb, qh, kb, ks, kh, vb, \
+      vs, vh, nsplit,                                                                         \
       keys_per_cta, scale_log2, st
   if (d <= 64) return launch<64>(REPRO_DECODE_TC_ARGS);
   if (d <= 128) return launch<128>(REPRO_DECODE_TC_ARGS);

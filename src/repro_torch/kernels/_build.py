@@ -44,12 +44,12 @@ _SIGNATURES = {
     "repro_block_transpose": (_P, _P, _I64, _I64, _P),
     "repro_onehot_encode": (_P, _P, _I64, _I64, _P),
     "repro_window_scan": (_P, _P, _P, _I64, _I64, _I64, _I64, _I32, _I64, _P),
-    "repro_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32,
+    "repro_decode_attention": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32,
                                _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
                                _I64, _I32, _F32, _P),
-    "repro_decode_attention_tc": (_P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I64, _I64,
-                                  _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I32, _I32,
-                                  _F32, _P),
+    "repro_decode_attention_tc": (_P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I64,
+                                  _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I32,
+                                  _I32, _F32, _P),
     "repro_linear_scan": (_P, _P, _P, _I32, _I64, _I32, _I64, _I64, _I64, _I64, _I32, _P),
     "repro_linear_scan_bwd": (_P, _P, _P, _P, _P, _I32, _I64, _I32, _I64, _I64, _I64, _I64,
                               _I64, _I64, _I32, _P),

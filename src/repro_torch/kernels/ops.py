@@ -11,15 +11,26 @@ on each device's shards through ``torch.distributed.tensor.experimental.
 local_map``, with the output placed as the query (K6, K7) or ``a`` (K5) is.
 A placement that keeps the kernel from running on the shards is
 redistributed first, and an accounting below counts that as a collective:
-a sharded sequence dim (the decode cache's flash-decode SP,
-``launch/sharding.cache_specs_tree``: the cache is gathered over its
-sequence, since a cross-device split-softmax combine is not written), a
-sharded head dim, a Partial.  Heads may stay sharded: where the KV heads
+a sharded head dim, a Partial, a sharded sequence dim of K6's keys.  Heads
+may stay sharded: where the KV heads
 divide as the query heads do, both stay sharded; where they do not (yi-6b's
 4 KV heads over 16 devices), the KV heads are gathered and each device
 takes the ones its query heads read.  Mesh dims of size 1 are left as they
 are, so on a (1, 1) mesh nothing moves and the kernel sees the whole
 tensors.
+
+**The decode cache's sequence** (flash-decode SP,
+``launch/sharding.cache_specs_tree``: the cache's sequence dim over "model",
+or over the DP axes and "model" where the batch cannot be sharded) is never
+gathered by K7: each device runs K7's partials mode on its own rows, with
+the lengths cut to them (clamp(length - offset, 0, rows)), the (O, M, L)
+partials, B x H x (D + 2) float32, are all-gathered over the sequence's
+mesh dims (``funcol``, the innermost dim first, so the pieces come in their
+order along the sequence) and combined in that order
+(``decode_attention.combine_partials``).  Only the query is gathered over
+those dims; over the cache's batch dims it is sliced, never the cache
+gathered.  The einsum decode path and cross attention (unsharded memory)
+keep the route above.
 """
 from __future__ import annotations
 
@@ -27,7 +38,10 @@ import torch
 
 from ._util import narrow_from_kernel, widen_for_kernel
 from .block_transpose import block_transpose as _transpose
+from .decode_attention import combine_partials as _combine_partials
 from .decode_attention import decode_attention as _decode
+from .decode_attention import decode_attention_partials as _decode_partials
+from .decode_attention import piece_lengths as _piece_lengths
 from .flash_attention import flash_attention as _flash
 from .linear_scan import linear_scan as _linscan
 from .onehot_encode import onehot_encode as _onehot
@@ -123,6 +137,9 @@ def flash_attention(q, k, v, *, causal: bool = True, scale=None, window=None):
 
 def decode_attention(q, k_cache, v_cache, length, *, scale=None) -> torch.Tensor:
     if _is_dtensor(q):
+        seq = _sequence_dims(q, k_cache, v_cache)
+        if seq:
+            return _decode_on_sequence_shards(q, k_cache, v_cache, length, seq, scale)
         return attention_on_shards(
             lambda q, k, v, n: _decode(q, k, v, n, scale=scale),
             q, (k_cache, v_cache), q_head=1, kv_head=2, length=length)
@@ -214,6 +231,73 @@ def attention_on_shards(fn, q, kv, *, q_head: int, kv_head: int, length=None):
         args.append(_as_dtensor(length, mesh))
         placements.append(n_pl)
     return _run_local(local, mesh, q_pl, args, placements)
+
+
+def _sequence_dims(q, k, v) -> list:
+    """The mesh dims (of size > 1) over which both caches shard their
+    sequence dim evenly, in mesh order; [] where there are none (or the
+    caches are placed apart, or a batch mesh dim would also shard the
+    sequence)."""
+    from torch.distributed.tensor import Shard
+    if not (_is_dtensor(k) and _is_dtensor(v)) or k.placements != v.placements:
+        return []
+    mesh = q.device_mesh
+    dims = [i for i, p in enumerate(k.placements) if p == Shard(1) and mesh.size(i) > 1]
+    pieces = 1
+    for i in dims:
+        pieces *= mesh.size(i)
+    if not dims or k.shape[1] % pieces or any(q.placements[i] == Shard(0) for i in dims):
+        return []
+    return dims
+
+
+def _decode_on_sequence_shards(q, k, v, length, seq: list, scale):
+    """K7 where the caches shard their sequence over the mesh dims ``seq``:
+    partials on each device's rows, an all-gather of the partials over
+    ``seq``, the combine in sequence order; see the module's docstring.
+    Batch mesh dims stay sharded, the query's too where only the cache's
+    batch is (a slice of the query, not a gather of the cache); on a dim
+    of size 1 nothing moves."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = q.device_mesh
+    q_pl, kv_pl, n_pl = [], [], []
+    for i, (pq, pk) in enumerate(zip(q.placements, k.placements)):
+        if i in seq:
+            q_pl.append(Replicate())
+            kv_pl.append(Shard(1))
+            n_pl.append(Replicate())
+        elif mesh.size(i) == 1:
+            q_pl.append(pq)
+            kv_pl.append(pk)
+            n_pl.append(pq if pq == Shard(0) else Replicate())
+        elif Shard(0) in (pq, pk):    # a batch dim: the query follows the cache's rows
+            q_pl.append(Shard(0))
+            kv_pl.append(Shard(0))
+            n_pl.append(Shard(0))
+        else:
+            q_pl.append(Replicate())
+            kv_pl.append(Replicate())
+            n_pl.append(Replicate())
+    ql = q.redistribute(mesh, q_pl).to_local()
+    kl = k.redistribute(mesh, kv_pl).to_local()
+    vl = v.redistribute(mesh, kv_pl).to_local()
+    nl = _as_dtensor(length, mesh).redistribute(mesh, n_pl).to_local()
+    rows = kl.shape[1]
+    coord = mesh.get_coordinate() or [0] * mesh.ndim
+    piece = 0
+    for i in seq:
+        piece = piece * mesh.size(i) + coord[i]
+    o, m, l = _decode_partials(ql, kl, vl, _piece_lengths(nl, piece * rows, rows), scale=scale)
+    d = o.shape[-1]
+    packed = torch.cat([o, m[..., None], l[..., None]], dim=-1)[None]   # (1, B, H, D + 2)
+    for i in reversed(seq):
+        packed = funcol.all_gather_tensor(packed, 0, (mesh, i))
+    parts = [(p[..., :d], p[..., d], p[..., d + 1]) for p in packed.unbind(0)]
+    out = DTensor.from_local(_combine_partials(parts, ql.dtype), mesh, q_pl, run_check=False)
+    if any(p.is_partial() for p in q.placements):
+        return out
+    return out.redistribute(mesh, q.placements)
 
 
 def _attention_replicated(fn, q, k, v, length, mesh):

@@ -135,6 +135,8 @@ class OpStats:
     # profiling breakdowns: (op, shape) -> accumulated bytes / flops
     bytes_by_key: dict = dataclasses.field(default_factory=dict)
     flops_by_key: dict = dataclasses.field(default_factory=dict)
+    # (kind, result shapes) -> wire bytes of the collectives
+    collective_bytes: dict = dataclasses.field(default_factory=dict)
     output: Any = dataclasses.field(default=None, repr=False)
 
     def top_bytes(self, n: int = 15) -> list[tuple[str, float]]:
@@ -158,6 +160,9 @@ class OpStats:
             "peak_live_bytes": self.peak_live_bytes,
             "top_bytes": self.top_bytes(),
             "top_flops": self.top_flops(),
+            "collective_bytes_by_shape": [
+                {"kind": kind, "shapes": [list(x) for x in shapes], "bytes": v}
+                for (kind, shapes), v in self.collective_bytes.items()],
         }
 
 
@@ -241,6 +246,7 @@ class _Accounting:
         s.hbm_bytes += result + operand
         shape = tuple(t.shape for t in tree_flatten(out)[0] if isinstance(t, torch.Tensor))
         self._add(s.bytes_by_key, f"{kind} {shape}", wire)
+        self._add(s.collective_bytes, (kind, tuple(tuple(x) for x in shape)), wire)
 
 
 def _is_collective(func) -> bool:

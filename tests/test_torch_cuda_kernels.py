@@ -308,6 +308,55 @@ def test_cuda_decode_attention_tc_matches_plain(rng, cuda, b, h, kvh, s, d):
                                rtol=K7_BF16_TOL, atol=K7_BF16_TOL)
 
 
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("b,h,kvh,s,d", [(8, 32, 4, 1024, 128), (3, 16, 4, 333, 64),
+                                         (2, 64, 1, 200, 64), (4, 8, 8, 129, 16)])
+def test_cuda_decode_attention_partials_match_plain(rng, cuda, dtype, b, h, kvh, s, d):
+    """K7's partials mode on both routes against its plain version: M (the
+    log2-domain row max) within 1e-3, L within K7_BF16_TOL relative, O / L
+    within K7_BF16_TOL, and M -inf, L 0, O 0 at length 0; one launch a call,
+    counted on route "tc_partials" / "fma_partials"; reruns bit-identical."""
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    q, k, v = (_t(a).to(cuda, dt) for a in _decode_inputs(rng, b, h, kvh, s, d))
+    lengths = torch.tensor(([0, s, s + 9] + [1 + 137 * i % s for i in range(b)])[:b],
+                           dtype=torch.int32, device=cuda)
+    da_mod.counter.reset()
+    o, m, l = da_mod.decode_attention_partials(q, k, v, lengths)
+    assert da_mod.counter.routes == {da_mod.route(dt) + "_partials": 1}
+    again = da_mod.decode_attention_partials(q, k, v, lengths)
+    assert all(torch.equal(x, y) for x, y in zip((o, m, l), again))
+    po, pm, pl = da_mod.decode_attention_partials_plain(q, k, v, lengths)
+    assert torch.isneginf(m[0]).all() and not l[0].any() and not o[0].any()
+    torch.testing.assert_close(m[1:], pm[1:], rtol=0, atol=1e-3)
+    torch.testing.assert_close(l[1:], pl[1:], rtol=K7_BF16_TOL, atol=0)
+    torch.testing.assert_close(o[1:] / l[1:, :, None], po[1:] / pl[1:, :, None],
+                               rtol=K7_BF16_TOL, atol=K7_BF16_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("pieces", [2, 4, 8])
+def test_cuda_decode_attention_split_matches_whole_cache(rng, cuda, dtype, pieces):
+    """K7 at the serving shape (8 slots, 32 heads over 4, D 128, 1,024 rows)
+    cut into 2, 4 and 8 pieces: the partials of each piece, its lengths cut
+    to its rows, combined in piece order, against the whole-cache route
+    within K7_BF16_TOL (0 at length 0 on both)."""
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    b, h, kvh, s, d = 8, 32, 4, 1024, 128
+    q, k, v = (_t(a).to(cuda, dt) for a in _decode_inputs(rng, b, h, kvh, s, d))
+    lengths = torch.tensor([0, 1, 127, 128, 129, 600, s, s + 7], dtype=torch.int32, device=cuda)
+    rows = s // pieces
+    da_mod.counter.reset()
+    parts = [da_mod.decode_attention_partials(q, k[:, i * rows:(i + 1) * rows],
+                                              v[:, i * rows:(i + 1) * rows],
+                                              da_mod.piece_lengths(lengths, i * rows, rows))
+             for i in range(pieces)]
+    assert da_mod.counter.routes == {da_mod.route(dt) + "_partials": pieces}
+    got = da_mod.combine_partials(parts, dt)
+    want = da_mod.decode_attention(q, k, v, lengths)
+    assert got.dtype == dt and not got[0].any() and not want[0].any()
+    torch.testing.assert_close(got.float(), want.float(), rtol=K7_BF16_TOL, atol=K7_BF16_TOL)
+
+
 @pytest.mark.parametrize("g", [1, 2, 4, 8, 16])
 def test_cuda_decode_attention_tc_groups_and_edge_lengths(rng, cuda, g):
     """Route tc at G 1, 2, 4, 8, 16 (4 KV heads, D 128, S 1024: a cluster of

@@ -12,6 +12,7 @@ import os
 import jax
 import jax.numpy as jnp
 import pytest
+import torch
 
 from repro.configs import get_smoke_config as r_smoke
 from repro.launch import sharding as r_sh
@@ -123,3 +124,76 @@ def test_prefill_dot_flops_match_the_reference_hlo():
     assert res["hlo_analysis"]["kernels"] == {}      # "xla": no K6
 
 
+
+
+def _cache_row_gathers(collectives: list, kvh: int, head_dim: int) -> float:
+    """All-gather wire bytes whose result is cache rows, (B, rows > 1, KVH,
+    Dh), from the accounting's ``collective_bytes_by_shape``."""
+    return sum(c["bytes"] for c in collectives if c["kind"] == "all-gather" and any(
+        len(x) == 4 and x[1] > 1 and x[2:] == [kvh, head_dim] for x in c["shapes"]))
+
+
+def _decode_all_gathers(cfg, batch: int, monkeypatch, today: bool) -> tuple[float, float]:
+    """(all-gather wire bytes of cache rows, all-gather wire bytes in all) a
+    device in one decode step of ``cfg`` at ``batch`` x 16 cache rows on the
+    fake (2, 2) mesh; ``today``: K7 with the sequence-sharded cache gathered
+    (the route before the cross-device combine)."""
+    from repro_torch.kernels import ops as kops
+    with monkeypatch.context() as m:
+        if today:
+            m.setattr(kops, "_sequence_dims", lambda *a: [])
+        with abstract_world(4):
+            res = dryrun.analyze_cell(cfg, ShapeConfig("decode_s", 16, batch, "decode"),
+                                      _mesh((2, 2)))
+    assert res["status"] == "analyzed"
+    ha = res["hlo_analysis"]
+    return (_cache_row_gathers(ha["collective_bytes_by_shape"], cfg.n_kv, cfg.head_dim_),
+            ha["wire_bytes_by_kind"]["all-gather"])
+
+
+@pytest.mark.parametrize("batch", [4, 1])
+def test_decode_cell_gathers_no_cache_rows(batch, monkeypatch):
+    """yi-6b's decode cell at smoke size on the fake (2, 2) mesh, its cache's
+    sequence sharded over "model" (batch 4) or over ("data", "model")
+    (batch 1, which cannot be sharded): K7 runs on each device's rows and
+    combines the partials across devices, so no all-gather moves cache rows
+    and the step's all-gather bytes fall; K7's route before the combine
+    gathered them in every layer."""
+    cfg = get_smoke_config("yi-6b")
+    rows, total = _decode_all_gathers(cfg, batch, monkeypatch, today=False)
+    rows_today, total_today = _decode_all_gathers(cfg, batch, monkeypatch, today=True)
+    assert rows_today > 0
+    assert rows == 0, rows
+    assert total < total_today, (total, total_today)
+
+
+@pytest.mark.parametrize("q_data", ["Shard(0)", "Replicate()"])
+def test_decode_attention_on_sequence_shards_moves_no_cache_rows(q_data):
+    """K7 on DTensors on the fake (2, 2) mesh, the cache's batch over
+    "data" and its sequence over "model", the query's batch sharded as the
+    cache's or replicated over "data" (as a step's projection may leave
+    it): the accounting shows no all-gather of cache rows, only the query's
+    and the partials' (and the output's, for a replicated query)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.hlo_analysis import analyze
+    b, s, h, kvh, d = 4, 16, 8, 2, 16
+    with abstract_world(4):
+        mesh = _mesh((2, 2))
+
+        def meta(shape, placements):
+            local = [n // 2 if any(p == Shard(i) for p in placements) else n
+                     for i, n in enumerate(shape)]
+            return DTensor.from_local(torch.empty(local, dtype=torch.bfloat16, device="meta"),
+                                      mesh, placements, run_check=False, shape=torch.Size(shape),
+                                      stride=torch.empty(shape, device="meta").stride())
+        q = meta((b, h, d), [eval(q_data), Shard(1)])
+        k, v = (meta((b, s, kvh, d), [Shard(0), Shard(1)]) for _ in range(2))
+        n = torch.full((b,), s, dtype=torch.int32, device="meta")
+        stats = analyze(lambda: kops.decode_attention(q, k, v, n))
+    out = stats.output
+    assert tuple(out.shape) == (b, h, d) and list(out.placements) == list(q.placements)
+    collectives = stats.to_dict()["collective_bytes_by_shape"]
+    assert any(c["kind"] == "all-gather" for c in collectives)
+    assert _cache_row_gathers(collectives, kvh, d) == 0, collectives
+    assert stats.kernels["decode_attention"]["calls"] == 1

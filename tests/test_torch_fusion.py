@@ -17,13 +17,19 @@ versions of ``segment_reduce`` (K1) and ``window_scan`` (K4) stand in for
 the kernels.
 
 The reference's two tests of its jit-compiled map runs
-(``test_blocking_fusion.py::test_map_run_jit_*``) have no counterpart: the
-port runs map and predicate runs eagerly and has no compiled map path (and
-no ``REPRO_JIT_UDFS``).  UDFs are written once per package.
+(``test_blocking_fusion.py::test_map_run_jit_*``) have their counterparts at
+the end, with the port's compiled predicate chains, the ``REPRO_JIT_UDFS``
+policy and the program caches' bounds: under ``REPRO_JIT_UDFS=1`` the port
+compiles map and predicate runs on the CPU too (``torch.compile`` on
+inductor, C++ here), and every compiled result must equal the eager one bit
+for bit.  An inductor compile costs seconds here (tens of seconds with a
+cold cache), so the file compiles a handful of programs and no more.  UDFs
+are written once per package.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 import pytest
 
 from repro.core import algebra as ralg
@@ -33,6 +39,7 @@ from repro.core.executor import Executor as RExecutor
 from repro.core.frame import Column as RColumn
 from repro.core.frame import Frame as RFrame
 from repro.core.partition import PartitionedFrame as RPF
+from repro.core import physical as rphysical
 from repro.core.physical import eval_expr as r_eval_expr
 from repro.core.session import EvalMode as REvalMode
 from repro.core.session import Session as RSession
@@ -44,6 +51,7 @@ from repro_torch.core.frame import Column as TColumn
 from repro_torch.core.frame import Frame as TFrame
 from repro_torch.core.frame import host
 from repro_torch.core.partition import PartitionedFrame as TPF
+from repro_torch.core import physical as tphysical
 from repro_torch.core.physical import eval_expr as t_eval_expr
 from repro_torch.core.session import EvalMode as TEvalMode
 from repro_torch.core.session import Session as TSession
@@ -60,7 +68,7 @@ PKG = {
 
 @pytest.fixture(autouse=True)
 def _engine_env(monkeypatch):
-    for knob in ("REPRO_SHUFFLE", "REPRO_BLOCK_DEDUP"):
+    for knob in ("REPRO_SHUFFLE", "REPRO_BLOCK_DEDUP", "REPRO_JIT_UDFS"):
         monkeypatch.delenv(knob, raising=False)
     yield monkeypatch
 
@@ -669,3 +677,335 @@ def test_fused_sort_filter_project_matches_serial(monkeypatch):
         return alg.Projection(alg.Selection(s, alg.col("x") > alg.lit(0.5)), ["k", "p"])
     _shuffle_sweep(plan_of, {"s": lambda pkg: PKG[pkg]["F"].from_pydict(data, **PKG[pkg]["kw"])},
                    monkeypatch)
+
+
+# =============================================================================
+# compiled map and predicate runs (REPRO_JIT_UDFS;
+# tests/test_blocking_fusion.py::test_map_run_jit_*)
+# =============================================================================
+def _jit_udfs(pkg: str) -> tuple:
+    """test_blocking_fusion.py's two map UDFs: a + 1.0, then a * 3.0."""
+    p = PKG[pkg]
+    u1 = p["alg"].Udf(name="jit1", elementwise=True, fn=lambda c, fr: {
+        "a": p["C"](c["a"].data + 1.0, p["Dm"].FLOAT), "b": c["b"]})
+    u2 = p["alg"].Udf(name="jit2", elementwise=True, fn=lambda c, fr: {
+        "a": p["C"](c["a"].data * 3.0, p["Dm"].FLOAT), "b": c["b"]})
+    return u1, u2
+
+
+def _adopted(cache: dict) -> list:
+    return [v for v in cache.values() if v is not None]
+
+
+def test_map_run_jit_adopted_and_bit_identical(monkeypatch):
+    """Map -> filter -> map under REPRO_JIT_UDFS=1 in both packages: the
+    port's map chains and its predicate chain are adopted as compiled
+    programs, fused equals per node bit for bit, and the reference's own
+    jit run agrees at the file's tolerances."""
+    monkeypatch.setenv("REPRO_JIT_UDFS", "1")   # the CPU's default is eager
+    rphysical._MAP_JIT.clear()
+    tphysical._MAP_JIT.clear()
+    tphysical._PRED_JIT.clear()
+    tphysical.reset_jit_stats()
+    data = {"a": [1.5, 2.5, 3.5, 4.5, 5.5, 6.5], "b": [1, 2, 3, 4, 5, 6]}
+
+    def plan_of(pkg, store):
+        alg = PKG[pkg]["alg"]
+        u1, u2 = _jit_udfs(pkg)
+        return alg.Map(alg.Selection(alg.Map(_src(pkg, store=store), u1),
+                                     alg.col("a") > alg.lit(2.0)), u2)
+    _check(plan_of, {"f0": lambda pkg: PKG[pkg]["F"].from_pydict(data, **PKG[pkg]["kw"])},
+           row_parts=3)
+    assert len(_adopted(tphysical._MAP_JIT)) == 2, tphysical._MAP_JIT
+    assert len(_adopted(tphysical._PRED_JIT)) == 1, tphysical._PRED_JIT
+    assert any(v is not None for v in rphysical._MAP_JIT.values())
+    stats = tphysical.jit_stats()
+    assert stats["adopted"] == {"map": 2, "predicate": 1} and stats["rejected"] == {}, stats
+    assert stats["compile_s"] > 0
+
+
+def test_map_run_untraceable_udf_falls_back(monkeypatch):
+    """A UDF whose Python branches on a tensor's value, and one that goes
+    through host numpy (the reference's case), cannot become one program:
+    each chain is marked None with its reason counted, and results equal
+    the per-node plan's (and the reference's)."""
+    monkeypatch.setenv("REPRO_JIT_UDFS", "1")
+    rphysical._MAP_JIT.clear()
+    tphysical._MAP_JIT.clear()
+    tphysical.reset_jit_stats()
+
+    def branchy(pkg):
+        p = PKG[pkg]
+        if pkg == "ref":   # the reference's host-numpy UDF, computing the same
+            import jax.numpy as jnp
+            return p["alg"].Udf(name="hostnp", elementwise=True, fn=lambda c, fr: {
+                "a": p["C"](jnp.asarray(np.asarray(c["a"].data) * np.float32(2.0)),
+                            p["Dm"].FLOAT)})
+
+        def fn(c, fr):
+            a = c["a"].data
+            return {"a": p["C"](a * 2.0 if a.sum() > 0 else a, p["Dm"].FLOAT)}
+        return p["alg"].Udf(name="branchy", elementwise=True, fn=fn)
+
+    def hostnp(pkg):
+        p = PKG[pkg]
+        return p["alg"].Udf(name="hostnp2", elementwise=True, fn=lambda c, fr: {
+            "a": p["C"](c["a"].data.new_tensor(np.asarray(c["a"].data) + 1.0)
+                        if pkg == "port" else c["a"].data + 1.0, p["Dm"].FLOAT)})
+
+    data = {"a": [1.5, 2.5, 3.5, 4.5]}
+
+    def plan_of(pkg, store):
+        alg = PKG[pkg]["alg"]
+        m = alg.Map(alg.Selection(alg.Map(_src(pkg, store=store), branchy(pkg)),
+                                  alg.col("a") > alg.lit(2.0)), hostnp(pkg))
+        return m
+    _check(plan_of, {"f0": lambda pkg: PKG[pkg]["F"].from_pydict(data, **PKG[pkg]["kw"])},
+           row_parts=2)
+    keys = {k[0][0][1]: v for k, v in tphysical._MAP_JIT.items()}
+    assert set(keys) == {"branchy", "hostnp2"} and all(v is None for v in keys.values()), keys
+    assert tphysical.jit_stats()["rejected"] == {"trace error": 2}
+    rkeys = [k for k in rphysical._MAP_JIT if any(u[1] == "hostnp" for u in k[0])]
+    assert rkeys and all(rphysical._MAP_JIT[k] is None for k in rkeys)
+
+
+def test_map_run_whose_program_differs_is_rejected(monkeypatch):
+    """A UDF whose first call adds 1.0 and every later one 2.0 traces to one
+    stable program (+2.0) that differs from the probe block's eager run:
+    the chain is marked None ("bits differ") and every block runs eagerly;
+    one whose every call differs gives two traces that differ."""
+    monkeypatch.setenv("REPRO_JIT_UDFS", "1")
+    tphysical._MAP_JIT.clear()
+    tphysical.reset_jit_stats()
+
+    def udf(name, step):
+        calls = []
+
+        def fn(c, fr):
+            calls.append(1)
+            add = 1.0 + min(len(calls) - 1, 1) * step if step else float(len(calls))
+            return {"a": TColumn(c["a"].data + add, TDomain.FLOAT)}
+        return talg.Udf(name=name, elementwise=True, fn=fn)
+    frame = TFrame.from_pydict({"a": [0.5, 1.5, 2.5]}, device="cpu")
+    once = udf("first_call_differs", 1.0)
+    got = tphysical._run_map_stages(frame, [once])
+    assert host(got.col("a").data).tolist() == [1.5, 2.5, 3.5]   # the eager run
+    assert tphysical.jit_stats()["rejected"] == {"bits differ": 1}
+    got = tphysical._run_map_stages(frame, [once])                # eager again
+    assert host(got.col("a").data).tolist() == [2.5, 3.5, 4.5]
+    tphysical._run_map_stages(frame, [udf("every_call_differs", 0.0)])
+    assert list(tphysical._MAP_JIT.values()) == [None, None]
+    assert tphysical.jit_stats()["rejected"] == {"bits differ": 1, "traces differ": 1}
+
+
+def _pred_frame(n: int = 64):
+    """Ints above 2^24 (a float32 round trip would merge them), floats, and
+    nulls in both."""
+    rng = np.random.default_rng(5)
+    v = (2 ** 24 + rng.integers(-8, 8, n)).astype(object)
+    f = rng.standard_normal(n).astype(np.float32).astype(object)
+    v[::7] = None
+    f[::5] = None
+    return TFrame.from_pydict({"v": v.tolist(), "f": f.tolist(),
+                               "s": [("a", "b")[i % 2] for i in range(n)]}, device="cpu")
+
+
+def test_compiled_predicate_chain_bit_equal_to_eager(monkeypatch):
+    """A chain of structured predicates over ints above 2^24 and floats with
+    nulls: the compiled keep mask equals the interpreted one bit for bit,
+    and the chain's program is adopted."""
+    tphysical._PRED_JIT.clear()
+    tphysical.reset_jit_stats()
+    frame = _pred_frame()
+    preds = [talg.col("v") > talg.lit(2 ** 24 + 1),
+             (talg.col("f") * talg.lit(3.0) + talg.lit(1.0)) < talg.lit(2.5),
+             talg.col("v") % talg.lit(3) != talg.lit(0)]
+    monkeypatch.setenv("REPRO_JIT_UDFS", "0")
+    eager = tphysical._fused_selection_mask(preds, frame)
+    assert not tphysical._PRED_JIT
+    monkeypatch.setenv("REPRO_JIT_UDFS", "1")
+    first = tphysical._fused_selection_mask(preds, frame)      # the probe (eager result)
+    compiled = tphysical._fused_selection_mask(preds, frame)   # the adopted program
+    assert len(_adopted(tphysical._PRED_JIT)) == 1
+    assert first.dtype == compiled.dtype == torch.bool and compiled.device == frame.device
+    assert torch.equal(first, eager) and torch.equal(compiled, eager)
+    assert 0 < int(eager.sum()) < frame.nrows
+    assert tphysical.jit_stats()["adopted"]["predicate"] == 1
+
+
+@pytest.mark.parametrize("case", ["coded", "wide_literal", "int64_host"])
+def test_compiled_predicate_gates_take_the_interpreted_path(case, monkeypatch):
+    """A coded column, an int literal outside int32 and an int64 host
+    column each keep the chain on the interpreted path: no program is
+    made, and the mask equals the interpreted one."""
+    monkeypatch.setenv("REPRO_JIT_UDFS", "1")
+    tphysical._PRED_JIT.clear()
+    frame = _pred_frame()
+    if case == "coded":
+        preds = [talg.col("s") == talg.lit("a"), talg.col("v") > talg.lit(2 ** 24)]
+    elif case == "wide_literal":
+        preds = [talg.col("v") < talg.lit(2 ** 40)]
+    else:
+        wide = np.arange(frame.nrows, dtype=np.int64) * 2 ** 33
+        frame = TFrame([TColumn(wide, TDomain.INT)] + frame.columns[1:], frame.row_labels,
+                       frame.col_labels, device="cpu")
+        preds = [talg.col("v") > talg.lit(2 ** 34)]
+    got = tphysical._fused_selection_mask(preds, frame)
+    combined = preds[0]
+    for p in preds[1:]:
+        combined = talg.BinExpr("&", combined, p)
+    assert not tphysical._PRED_JIT
+    assert torch.equal(got, tphysical._predicate_mask(frame, combined))
+
+
+def test_jit_udfs_policy(monkeypatch):
+    """Unset: compiled on a CUDA block, eager on a CPU block; "0" eager and
+    any other value compiled, on every device.  On the CPU with the knob
+    unset a fused map chain makes no program."""
+    cpu, cuda = torch.device("cpu"), torch.device("cuda", 0)
+    monkeypatch.delenv("REPRO_JIT_UDFS", raising=False)
+    assert not tphysical._jit_udfs_enabled(cpu) and tphysical._jit_udfs_enabled(cuda)
+    monkeypatch.setenv("REPRO_JIT_UDFS", "0")
+    assert not tphysical._jit_udfs_enabled(cpu) and not tphysical._jit_udfs_enabled(cuda)
+    monkeypatch.setenv("REPRO_JIT_UDFS", "1")
+    assert tphysical._jit_udfs_enabled(cpu) and tphysical._jit_udfs_enabled(cuda)
+    monkeypatch.delenv("REPRO_JIT_UDFS")
+    tphysical._MAP_JIT.clear()
+    tphysical._PRED_JIT.clear()
+    _check(lambda pkg, st: _chain(pkg, _src(pkg, store=st)), {"f0": _chain_frame}, 3, 1)
+    assert not tphysical._MAP_JIT and not tphysical._PRED_JIT
+
+
+def test_program_caches_are_bounded_fifos(monkeypatch):
+    """Both caches evict their oldest entry at their caps (256 predicate
+    programs, 128 map programs); filled directly, so nothing compiles."""
+    monkeypatch.setenv("REPRO_JIT_UDFS", "1")
+    assert (tphysical._PRED_JIT_MAX, tphysical._MAP_JIT_MAX) == (256, 128)
+    tphysical._PRED_JIT.clear()
+    for i in range(tphysical._PRED_JIT_MAX):
+        tphysical._PRED_JIT[("dummy", i)] = None
+    tphysical._jit_put(tphysical._PRED_JIT, tphysical._PRED_JIT_LOCK,
+                       tphysical._PRED_JIT_MAX, ("new",), None)
+    assert len(tphysical._PRED_JIT) == 256 and ("dummy", 0) not in tphysical._PRED_JIT
+    assert next(iter(tphysical._PRED_JIT)) == ("dummy", 1) and ("new",) in tphysical._PRED_JIT
+    tphysical._PRED_JIT.clear()
+    # the map cache through the engine's own path: an untraceable chain's
+    # probe stores None without compiling
+    tphysical._MAP_JIT.clear()
+    for i in range(tphysical._MAP_JIT_MAX):
+        tphysical._MAP_JIT[("dummy", i)] = None
+    udf = talg.Udf(name="tolist", elementwise=True, fn=lambda c, fr: {
+        "a": TColumn(torch.tensor(c["a"].data.tolist()) * 2.0, TDomain.FLOAT)})
+    frame = TFrame.from_pydict({"a": [0.5, 1.5, 2.5]}, device="cpu")
+    got = tphysical._run_map_stages(frame, [udf])
+    assert host(got.col("a").data).tolist() == [1.0, 3.0, 5.0]
+    assert len(tphysical._MAP_JIT) == 128 and ("dummy", 0) not in tphysical._MAP_JIT
+    assert list(tphysical._MAP_JIT.values())[-1] is None
+    tphysical._MAP_JIT.clear()
+
+
+def test_concurrent_first_blocks_probe_a_chain_once(monkeypatch):
+    """24 threads (more than the cores) run one chain's first block at once,
+    the interpreter switching threads often: one of them probes the chain
+    (its untraceable UDF is rejected once, nothing compiles), the others run
+    eagerly meanwhile or after, and every result equals the eager one."""
+    import sys
+    import threading
+    monkeypatch.setenv("REPRO_JIT_UDFS", "1")
+    tphysical._MAP_JIT.clear()
+    tphysical.reset_jit_stats()
+    udf = talg.Udf(name="tolist_race", elementwise=True, fn=lambda c, fr: {
+        "a": TColumn(torch.tensor(c["a"].data.tolist()) + 1.0, TDomain.FLOAT)})
+    frame = TFrame.from_pydict({"a": [0.5, 1.5, 2.5, 3.5]}, device="cpu")
+    got, errors = [], []
+
+    def run():
+        try:
+            got.append(host(tphysical._run_map_stages(frame, [udf]).col("a").data).tolist())
+        except Exception as e:    # surfaced by the assertion below
+            errors.append(e)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=run) for _ in range(24)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    assert got == [[1.5, 2.5, 3.5, 4.5]] * 24
+    assert tphysical.jit_stats()["rejected"] == {"trace error": 1}
+    assert list(tphysical._MAP_JIT.values()) == [None]
+    tphysical._MAP_JIT.clear()
+
+
+@pytest.mark.parametrize("case", ["probe holds the gate", "tracing flag", "recompile refused",
+                                  "device fault"])
+def test_adopted_program_never_waits_and_device_faults_propagate(case, monkeypatch):
+    """An adopted map program (a stand-in: nothing compiles) on a block:
+    while a probe holds the gate in another thread, the block runs eagerly
+    at once, without calling the program or waiting for the probe; where
+    the program starts while another thread has the process-wide FX flag
+    set (dynamo's own error), likewise; both count in ``eager_blocks`` and
+    the chain stays adopted.  A dynamo error (a recompile refused) is
+    "failed after adoption": the chain's entry becomes None, the block runs
+    eagerly.  Any other error (a fault of the device or of memory)
+    propagates to the statement."""
+    import threading
+    monkeypatch.setenv("REPRO_JIT_UDFS", "1")
+    tphysical._MAP_JIT.clear()
+    tphysical.reset_jit_stats()
+    calls = []
+
+    def program(*tensors):
+        calls.append(case)
+        if case == "tracing flag":
+            from torch.fx import _symbolic_trace
+            _symbolic_trace._is_fx_tracing_flag = True
+            try:
+                return torch.compile(lambda t: t, backend="eager")(tensors[0])
+            finally:
+                _symbolic_trace._is_fx_tracing_flag = False
+        if case == "recompile refused":
+            raise torch._dynamo.exc.TorchDynamoException("recompile refused")
+        raise torch.OutOfMemoryError("CUDA out of memory")
+    monkeypatch.setattr(tphysical, "_probe", lambda *a: program)
+    udf = talg.Udf(name="gated", elementwise=True, fn=lambda c, fr: {
+        "a": TColumn(c["a"].data * 2.0 + 1.0, TDomain.FLOAT)})
+    frame = TFrame.from_pydict({"a": [0.5, 1.5, 2.5]}, device="cpu")
+    assert host(tphysical._run_map_stages(frame, [udf]).col("a").data).tolist() == [2, 4, 6]
+    assert [v[0] for v in tphysical._MAP_JIT.values()] == [program]   # adopted
+
+    if case == "device fault":
+        with pytest.raises(torch.OutOfMemoryError):
+            tphysical._run_map_stages(frame, [udf])
+    elif case == "probe holds the gate":
+        held, done = threading.Event(), threading.Event()
+
+        def probe():
+            with tphysical._GATE.alone():
+                held.set()
+                done.wait(60)
+        t = threading.Thread(target=probe)
+        t.start()
+        try:
+            assert held.wait(60)
+            got = tphysical._run_map_stages(frame, [udf])
+        finally:
+            done.set()
+            t.join(60)
+        assert not calls
+    else:
+        got = tphysical._run_map_stages(frame, [udf])
+    stats = tphysical.jit_stats()
+    if case != "device fault":
+        assert host(got.col("a").data).tolist() == [2, 4, 6]
+    if case == "recompile refused":
+        assert stats["rejected"] == {"failed after adoption": 1} and stats["eager_blocks"] == 0
+        assert list(tphysical._MAP_JIT.values()) == [None]
+    else:
+        assert stats["rejected"] == {} and stats["eager_blocks"] == (case != "device fault")
+        assert [v[0] for v in tphysical._MAP_JIT.values()] == [program]
+    tphysical._MAP_JIT.clear()

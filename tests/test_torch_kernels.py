@@ -465,6 +465,119 @@ def test_decode_attention_length_past_unaligned_s_follows_ref(rng):
     assert np.abs(got - np.asarray(pallas_decode(*args))).max() > DECODE_TOL["atol"]
 
 
+SPLIT_S = 40          # the cache cut into pieces of unequal rows
+SPLIT_LENGTHS = [0, 1, 5, 6, 13, 17, 23, 34, 39, 40, 41]   # 0, piece ends +- 1, S, S + 1
+
+
+@pytest.mark.parametrize("pieces", [1, 2, 3, 7])
+def test_decode_attention_partials_combine_matches_whole_cache(rng, pieces):
+    """K7's partials mode (plain) on each piece of a cache cut into 1, 2, 3
+    and 7 pieces of unequal rows, each with the lengths cut to its rows, and
+    the combine in piece order: equal to ref.decode_attention over the whole
+    cache in float32 (1e-5) and to the port's whole-cache plain version at
+    every length >= 1; length 0 gives 0 (the kernel's value, ROADMAP known
+    divergences), and every piece with no valid row gives M -inf, L 0, O 0."""
+    h, kvh, d = 8, 2, 32
+    b = len(SPLIT_LENGTHS)
+    q, k, v = _decode_inputs(rng, b, h, kvh, SPLIT_S, d)
+    lengths = torch.tensor(SPLIT_LENGTHS, dtype=torch.int32)
+    cuts = [0] + sorted(rng.choice(np.arange(1, SPLIT_S), pieces - 1, replace=False).tolist()) \
+        + [SPLIT_S]
+    parts = []
+    for a, c in zip(cuts, cuts[1:]):
+        n = da_mod.piece_lengths(lengths, a, c - a)
+        assert torch.equal(n, torch.clamp(lengths - a, 0, c - a).to(torch.int32))
+        o, m, l = da_mod.decode_attention_partials(_t(q), _t(k[:, a:c]), _t(v[:, a:c]), n)
+        assert o.dtype == m.dtype == l.dtype == torch.float32 and o.shape == (b, h, d)
+        empty = n == 0
+        assert torch.isneginf(m[empty]).all() and not l[empty].any() and not o[empty].any()
+        assert torch.isfinite(m[~empty]).all() and (l[~empty] >= 1).all()
+        parts.append((o, m, l))
+    got = da_mod.combine_partials(parts, torch.float32)
+    assert got.dtype == torch.float32 and not got[0].any()
+    whole = tref.decode_attention(_t(q), _t(k), _t(v), lengths)
+    np.testing.assert_allclose(got[1:].numpy(), whole[1:].numpy(), rtol=1e-5, atol=1e-5)
+    for i, n in enumerate(SPLIT_LENGTHS[1:], start=1):
+        exp = rref.decode_attention(jnp.asarray(q[i]), jnp.asarray(k[i]), jnp.asarray(v[i]), n)
+        np.testing.assert_allclose(got[i].numpy(), np.asarray(exp), rtol=1e-5, atol=1e-5)
+
+
+def test_decode_attention_partials_combine_bf16_and_scale(rng):
+    """bf16 operands and a given scale: the combine rounds once to bf16,
+    within one bf16 rounding of the whole-cache plain version."""
+    q, k, v = (_t(a).to(torch.bfloat16) for a in _decode_inputs(rng, 3, 8, 4, 64, 32))
+    lengths = torch.tensor([1, 30, 64], dtype=torch.int32)
+    parts = [da_mod.decode_attention_partials(q, k[:, a:a + 16], v[:, a:a + 16],
+                                              da_mod.piece_lengths(lengths, a, 16), scale=0.3)
+             for a in range(0, 64, 16)]
+    got = da_mod.combine_partials(parts, torch.bfloat16)
+    want = tref.decode_attention(q, k, v, lengths, scale=0.3)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), rtol=2 ** -7, atol=1e-5)
+
+
+def _fmaf(x, y, z) -> np.float32:
+    """fmaf: x * y + z over the rationals, rounded once to float32 (to
+    nearest, ties to even)."""
+    from fractions import Fraction
+    exact = Fraction(float(x)) * Fraction(float(y)) + Fraction(float(z))
+    near = np.float32(float(exact))      # within one float32 step of the answer
+    cands = [np.nextafter(near, np.float32(-np.inf)), near,
+             np.nextafter(near, np.float32(np.inf))]
+    return min(cands, key=lambda c: (abs(Fraction(float(c)) - exact),
+                                     int(np.array(c).view(np.int32)) & 1))
+
+
+def _bits32(a) -> np.ndarray:
+    return np.asarray(a, dtype=np.float32).view(np.int32)
+
+
+def test_fma32_rounds_once_as_fmaf(rng):
+    """The combine's fold step equals fmaf bit for bit: on random products
+    and accumulators of mixed signs and scales, and where rounding the
+    float64 sum to float32 would round twice (1 + 2^-24 + 2^-60: float64
+    drops 2^-60 and leaves a float32 tie that goes to 1, where fmaf gives
+    1 + 2^-23)."""
+    x = (rng.standard_normal(4000) * np.exp2(rng.integers(-30, 30, 4000))).astype(np.float32)
+    y = rng.random(4000).astype(np.float32)
+    z = (rng.standard_normal(4000) * np.exp2(rng.integers(-30, 30, 4000))).astype(np.float32)
+    x[:3] = [np.float32(4097 * 2.0 ** -36), -np.float32(4097 * 2.0 ** -36), 5.0]
+    y[:3] = [np.float32((2 ** 24 - 2 ** 12 + 1) * 2.0 ** -24)] * 2 + [0.0]
+    z[:3] = [1.0, -1.0, 0.0]
+    got = da_mod._fma32(_t(x).double() * _t(y).double(), _t(z).double()).numpy()
+    want = np.array([_fmaf(*t) for t in zip(x, y, z)], dtype=np.float32)
+    assert got[0] == np.float32(1 + 2.0 ** -23) and got[1] == -got[0]
+    assert np.float32(float(np.float64(x[0]) * np.float64(y[0]) + 1.0)) == 1.0
+    np.testing.assert_array_equal(_bits32(got), _bits32(want))
+
+
+def test_decode_attention_partials_combine_folds_as_fmaf(rng):
+    """combine_partials over 5 pieces equals, bit for bit, the tc kernel's
+    fold written out element by element with fmaf over the rationals:
+    acc = fmaf(O_r, a_r, acc), den = fmaf(L_r, a_r, den) in piece order,
+    then acc / den in float32."""
+    q, k, v = _decode_inputs(rng, 4, 4, 2, 50, 8)
+    lengths = torch.tensor([3, 17, 40, 50], dtype=torch.int32)
+    parts = [da_mod.decode_attention_partials(_t(q), _t(k[:, a:a + 10]), _t(v[:, a:a + 10]),
+                                              da_mod.piece_lengths(lengths, a, 10))
+             for a in range(0, 50, 10)]
+    got = da_mod.combine_partials(parts, torch.float32).numpy()
+    o, m, l = (np.stack([p[i].numpy() for p in parts]) for i in range(3))
+    top = np.where(l > 0, m, -np.inf).max(axis=0)
+    a = torch.where(_t(l) > 0, torch.exp2(_t(m) - _t(top)), 0.0).numpy()
+    want = np.empty_like(got)
+    for bi, hi in np.ndindex(*top.shape):
+        den = np.float32(0)
+        for r in range(len(parts)):
+            den = _fmaf(l[r, bi, hi], a[r, bi, hi], den)
+        for j in range(o.shape[-1]):
+            acc = np.float32(0)
+            for r in range(len(parts)):
+                acc = _fmaf(o[r, bi, hi, j], a[r, bi, hi], acc)
+            want[bi, hi, j] = acc / den
+    np.testing.assert_array_equal(_bits32(got), _bits32(want))
+
+
 def test_decode_attention_plain_bf16_keeps_dtype(rng):
     q, k, v = (_t(a).to(torch.bfloat16) for a in _decode_inputs(rng, 2, 8, 2, 50, 32))
     out = tref.decode_attention(q, k, v, torch.tensor([3, 50], dtype=torch.int32))

@@ -237,6 +237,7 @@ def _gloo_rank(rank: int, store_path: str, out_path: str) -> None:
                 got = [t.full_tensor() for t in run(dparams, dbatch, dcache)]
             report[arch] = {"err": [float((a - g).abs().max()) for a, g in zip(plain, got)],
                             "replicated": rec.replicated}
+        report["sp"] = _sp_decode(mesh)
         if rank == 0:
             with open(out_path, "w") as f:
                 json.dump(report, f)
@@ -244,17 +245,118 @@ def _gloo_rank(rank: int, store_path: str, out_path: str) -> None:
         dist.destroy_process_group()
 
 
-def test_sharded_models_match_plain_on_four_gloo_ranks(tmp_path):
+SP_ARCH = "yi-6b"
+SP_STEPS = 11       # cache lengths 1 .. 11 over 16 rows: past the 4- and 8-row pieces' ends
+
+
+def _sp_decode(mesh) -> dict:
+    """yi-6b's smoke config decoding SP_STEPS tokens with its cache placed by
+    cache_specs_tree on the 2 x 2 mesh: batch 4 (the sequence over "model",
+    2 pieces of 8 rows) and batch 1 (the batch cannot be sharded: the
+    sequence over ("data", "model"), 4 pieces of 4 rows); decode logits
+    against the plain run, and the calls of K7's sequence-sharded route."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import sharding as shlib
+    from repro_torch.models import build_model
+    from repro_torch.models.sharding_ctx import activation_sharding
+    cfg = get_smoke_config(SP_ARCH)
+    model = build_model(cfg, "cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    dparams = shlib.distribute(params, shlib.param_specs(cfg, params, mesh), mesh)
+    calls = []
+    route = kops._decode_on_sequence_shards
+
+    def counted(*a, **kw):
+        calls.append(a[4])
+        return route(*a, **kw)
+    kops._decode_on_sequence_shards = counted
+    out = {}
+    try:
+        for b in (4, 1):
+            toks = torch.randint(3, cfg.vocab, (b, SP_STEPS),
+                                 generator=torch.Generator().manual_seed(b)).to(torch.int32)
+            cache = model.cache_init(b, 16)
+            plain = []
+            for i in range(SP_STEPS):
+                logits, cache = model.decode_step(params, toks[:, i], cache)
+                plain.append(logits)
+            cache = model.cache_init(b, 16)
+            dcache = shlib.distribute(cache, shlib.cache_specs_tree(
+                cfg, ShapeConfig("d", 16, b, "decode"), mesh, cache), mesh)
+            got = []
+            del calls[:]
+            with activation_sharding(mesh, shlib.effective_dp(cfg, mesh)), \
+                    implicit_replication():
+                for i in range(SP_STEPS):
+                    logits, dcache = model.decode_step(dparams, toks[:, i], dcache)
+                    got.append(logits.full_tensor())
+            out[str(b)] = {"err": [float((a - g).abs().max()) for a, g in zip(plain, got)],
+                           "calls": len(calls), "seq_dims": sorted(set(map(tuple, calls))),
+                           "layers": cfg.pattern.count("attn") * (cfg.n_layers // len(cfg.pattern))}
+    finally:
+        kops._decode_on_sequence_shards = route
+    out["direct"] = _sp_direct(mesh)
+    return out
+
+
+def _sp_direct(mesh) -> dict:
+    """K7 on DTensors straight: float32 caches with batch over "data" and
+    sequence over "model", lengths 0 and across the 8-row pieces' ends, the
+    query batch-sharded or replicated over "data"; max |diff| to the plain
+    version on the whole tensors (rows of length >= 1), and whether the
+    length-0 row is 0."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops as kops
+    gen = torch.Generator().manual_seed(3)
+    q = torch.randn(4, 8, 16, generator=gen)
+    k, v = (torch.randn(4, 16, 2, 16, generator=gen) for _ in range(2))
+    n = torch.tensor([0, 3, 9, 17], dtype=torch.int32)
+    want = da.decode_attention_plain(q, k, v, n)
+    out = {}
+    for name, qp in (("batch", [Shard(0), Shard(1)]), ("replicated", [Replicate(), Shard(1)])):
+        kv = [distribute_tensor(t, mesh, [Shard(0), Shard(1)]) for t in (k, v)]
+        got = kops.decode_attention(distribute_tensor(q, mesh, qp), *kv, n).full_tensor()
+        out[name] = {"err": float((got[1:] - want[1:]).abs().max()), "zero": not got[0].any()}
+    return out
+
+
+@pytest.fixture(scope="module")
+def gloo_report(tmp_path_factory):
+    """One spawn of the four gloo ranks for the tests below."""
+    import json
+    import torch.multiprocessing as mp
+    tmp = tmp_path_factory.mktemp("gloo")
+    out = tmp / "report.json"
+    mp.spawn(_gloo_rank, args=(str(tmp / "store"), str(out)), nprocs=4, join=True)
+    return json.loads(out.read_text())
+
+
+def test_sharded_models_match_plain_on_four_gloo_ranks(gloo_report):
     """The models' DTensor route with real values: recurrentgemma (K5, a
     local ring, one KV head split mid-head over "model"), granite-moe (MoE
     dispatch and combine on each device's groups) and whisper (the encoder,
     cross-attention) on a 2 x 2 mesh of four gloo processes, forward and
     decode logits against the plain run on one process."""
-    import json
-    import torch.multiprocessing as mp
-    out = tmp_path / "report.json"
-    mp.spawn(_gloo_rank, args=(str(tmp_path / "store"), str(out)), nprocs=4, join=True)
-    report = json.loads(out.read_text())
+    report = gloo_report
     for arch in GLOO_ARCHS:
         assert max(report[arch]["err"]) <= GLOO_LOGIT_TOL, (arch, report[arch])
         assert report[arch]["replicated"] == {}, (arch, report[arch])
+
+
+def test_sequence_sharded_decode_matches_plain_on_four_gloo_ranks(gloo_report):
+    """Decode with the SP cache (its sequence over "model", or over
+    ("data", "model") where the batch cannot be sharded): every attention
+    layer of every step takes K7's partials route and the cross-device
+    combine (no gather of the cache), and the logits equal the plain run's
+    within GLOO_LOGIT_TOL; K7 called on DTensors straight, with the query
+    batch-sharded or replicated over "data", equals its plain version."""
+    for b, want_dims in (("4", [[1]]), ("1", [[0, 1]])):
+        rep = gloo_report["sp"][b]
+        assert max(rep["err"]) <= GLOO_LOGIT_TOL, (b, rep)
+        assert rep["calls"] == SP_STEPS * rep["layers"], (b, rep)
+        assert rep["seq_dims"] == want_dims, (b, rep)
+    for name, rep in gloo_report["sp"]["direct"].items():
+        assert rep["err"] <= 1e-5 and rep["zero"], (name, rep)
