@@ -408,7 +408,7 @@ class Executor:
         # attribute that residency work here so statement execution accounts
         # for EVERY spill/fault/recompute, not just the per-node windows
         self._require_open()
-        tr = _trace.current()
+        tr = _trace.live()
         st = self._stats()
         s0 = get_store().stats.snapshot()
         f0 = _faults.injected_total()
@@ -437,7 +437,7 @@ class Executor:
         dict, which the caller attaches to the window's span — spans carry
         exactly the counters ExecStats was credited with, which is why a
         statement's span-attached deltas sum to its global ExecStats movement
-        (asserted by ``benchmarks/bench_trace.py`` and the CI trace smoke)."""
+        (asserted by ``tests/test_torch_trace.py``)."""
         s1 = get_store().stats.snapshot()
         df = _faults.injected_total() - f0
         cfg = _config.current()
@@ -547,7 +547,7 @@ class Executor:
                 # the contextvar scope can't see them
                 s0 = get_store().stats.snapshot()
                 f0 = _faults.injected_total()
-                tr = _trace.current()
+                tr = _trace.live()
                 tn0 = time.perf_counter_ns()
                 if tr is None:
                     with stats_scope(st), node_scope(node.op):
@@ -646,7 +646,7 @@ class Executor:
         span, and the statement span opened on the background thread all land
         in one per-statement tree."""
         self._require_open()
-        tr = _trace.current()
+        tr = _trace.live()
         st = self._stats()
         tp0 = time.perf_counter_ns()
         if tr is None:

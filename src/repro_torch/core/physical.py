@@ -69,6 +69,7 @@ import numpy as np
 import torch
 
 from . import algebra as alg
+from . import trace as _trace
 from .dtypes import Domain, common_storage, parse_column, to_device, torch_dtype
 from .frame import Column, Frame, as_tensor, host, infer_domain
 from .labels import IntLabels, RangeLabels, labels_from_values
@@ -1975,11 +1976,25 @@ def _probe(kind: str, name: str, trace: Callable, args: Sequence[torch.Tensor],
     """Trace and compile a chain's program, run it on ``args`` and hold its
     outputs to the eager result with ``same(outputs) → bool``.  Returns the
     compiled program, or None (the outcome is counted in ``jit_stats``);
-    never raises.  The first call (the compile) gets copies of the
-    contiguous arguments at storage offset 0: compiled on a block's view
-    at some offset, the program would be specialized to offsets of 2 or
-    more (or to an offset equal to the length), and recompile, unprobed,
-    for the first block of a frame."""
+    never raises.  The probe runs in one ``jit_probe`` span (``args``: the
+    kind, the outcome as ``jit_stats`` names it, the compile seconds),
+    opened outside what ``make_fx`` traces."""
+    with _trace.scope("jit_probe", "jit") as sp:
+        fn, outcome, seconds = _probe_outcome(trace, args, same)
+        _jit_note(kind, name, outcome, seconds)
+        if sp is not None:
+            sp.args = {"kind": kind, "outcome": outcome, "compile_s": seconds}
+    return fn if outcome == "adopted" else None
+
+
+def _probe_outcome(trace: Callable, args: Sequence[torch.Tensor],
+                   same: Callable) -> tuple:
+    """(the compiled program or None, the outcome, the compile seconds) of
+    one probe.  The first call (the compile) gets copies of the contiguous
+    arguments at storage offset 0: compiled on a block's view at some
+    offset, the program would be specialized to offsets of 2 or more (or to
+    an offset equal to the length), and recompile, unprobed, for the first
+    block of a frame."""
     t0 = time.perf_counter()
     try:
         with _GATE.alone():
@@ -1988,20 +2003,14 @@ def _probe(kind: str, name: str, trace: Callable, args: Sequence[torch.Tensor],
             out = fn(*[a.clone() if a.is_contiguous() else a for a in args])
         seconds = time.perf_counter() - t0
     except _TraceError as e:
-        _jit_note(kind, name, e.args[0])
-        return None
+        return None, e.args[0], 0.0
     except Exception:   # inductor / dynamo refused the graph
-        _jit_note(kind, name, "compile error", time.perf_counter() - t0)
-        return None
+        return None, "compile error", time.perf_counter() - t0
     try:
         equal = same(out)
     except Exception:    # outputs of another shape or structure
         equal = False
-    if not equal:
-        _jit_note(kind, name, "bits differ", seconds)
-        return None
-    _jit_note(kind, name, "adopted", seconds)
-    return fn
+    return fn, "adopted" if equal else "bits differ", seconds
 
 
 def _compiled_predicate(expr: alg.Expr, refs: tuple, masked: tuple) -> Callable:

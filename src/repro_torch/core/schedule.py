@@ -130,8 +130,8 @@ Environment knobs (the one table — referenced from ROADMAP.md)
                            a bounded process-wide ring; a *path* value also
                            exports Chrome trace-event JSON there at process
                            exit (open in Perfetto).  Default off — the
-                           disabled path allocates no spans and costs ≤1%
-                           (``BENCH_trace.json``)
+                           disabled path allocates no spans (its cost a
+                           site is in ``PERF.md``)
 ``REPRO_TRACE_RING``       finished-span ring capacity per tracer (default
                            65536; the oldest spans fall off the back)
 =========================  ==================================================
@@ -436,7 +436,7 @@ def _run_one(fn: Callable, x, bi: int, retries: int, backoff_ms: int,
             _bump(st, "retries")
             if backoff_ms > 0:
                 delay = backoff_ms * (1 << attempt) / 1000.0
-                tr = _trace.current()
+                tr = _trace.live()
                 if tr is not None:
                     # the backoff sleep is attributable stall time: record it
                     # as a span so profile() can say how long retries idled
@@ -544,10 +544,11 @@ def dispatch_blocks(fn: Callable, blocks: Sequence, stats=None, *,
     # span is begun here on the caller thread and travels to the pool workers
     # via config.propagate, so every chunk span parents to it even though the
     # two run on different threads.
-    tr = _trace.current(cfg)
+    tr = _trace.live(cfg)
     dsp = None
     if tr is not None:
-        dsp = tr.begin(f"dispatch:{label}", "dispatch")
+        # begun and ended on this thread: its profiler range mirrors it
+        dsp = tr.begin(f"dispatch:{label}", "dispatch", mirror=True)
         dsp.args = {"blocks": n, "chunks": len(chunks)}
 
     def chunk_body(chunk, cidx) -> list:

@@ -229,7 +229,7 @@ def _bucket_frame(bid: int, key_handles: Sequence, select: Callable) -> Frame:
 def _phase(name: str):
     """Trace span for one shuffle phase (bucketize / exchange / local /
     gather) — a null context when tracing is off."""
-    tr = _trace.current()
+    tr = _trace.live()
     if tr is None:
         return contextlib.nullcontext()
     return tr.span(name, "phase")

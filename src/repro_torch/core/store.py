@@ -435,7 +435,7 @@ class BlockStore:
                             "ingesting data)")
                     self._reserve(h.nbytes)
                     charged = True
-                    tr = _trace.current()
+                    tr = _trace.live()
                     if tr is None:
                         f = self._load_block(h, path)
                     else:
@@ -553,7 +553,7 @@ class BlockStore:
                         return True  # raced with a fault/pin: nothing to do
                 path = h._rec.path
                 if path is None:
-                    tr = _trace.current()
+                    tr = _trace.live()
                     if tr is None:
                         path = self._write_spill(h, f)
                     else:

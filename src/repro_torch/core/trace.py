@@ -20,19 +20,44 @@ into a bounded per-session ring buffer, exported as Chrome trace-event JSON
 parent→child edges as flow arrows) and summarized by
 ``Session.explain_stats()`` / ``StatementHandle.profile()``.
 
+The LM path opens spans too, through :func:`scope` (no session needed):
+``prefill`` → ``embed``, ``block`` (``args``: layer index and kind) →
+``norm``, ``attention`` → ``qkv`` → ``rope``, ``kernel:<entry>``
+(``kernels.ops``), ``wo``; ``mlp``; ``unembed``; the serve engine's
+``serve.admit`` / ``serve.step`` / ``serve.sync``; the compiled-UDF probes'
+``jit_probe``.
+
+**On the profiler's timeline.**  While a torch profiler records
+(``torch.autograd.profiler._is_profiler_enabled``), every ``with``-shaped
+span also opens ``record_function("repro:<name>")`` on its thread and closes
+it with the span, so the span lies on the device trace's own clock and the
+profiler's correlation ids tie each kernel launch to the innermost range
+open at it.  With the profiler on and no tracer, span sites get
+:data:`RANGES`, a tracer that opens the ranges and records nothing (no ring,
+``recorded_total()`` unmoved).  Manual ``begin``/``end`` pairs mirror only
+where asked (``mirror=True``: ``dispatch:<label>``, which begins and ends on
+one thread); the service's backdated ``queue_wait`` / ``slot_hold`` and the
+instants stay ring-only.  No range opens under a dispatch mode (``make_fx``,
+fake tensors, ``launch.hlo_analysis``) or inside a ``torch.compile`` trace,
+where a range would be an operator of the traced program.  The profiler's
+callbacks are per thread: a pool thread's ranges are recorded only by a
+profiler started with ``profile_all_threads``.
+
 Design constraints (the reason this file is small and boring):
 
-* **Disabled is a no-op.**  Every instrumentation site is guarded by
-  ``current()`` returning ``None`` — one contextvar read plus an attribute
-  check, no span allocation, no lock.  The ≤1% gate lives in
-  ``benchmarks/bench_trace.py`` (``BENCH_trace.json``) and the conftest
-  autouse guard asserts zero spans recorded in every non-``@pytest.mark.trace``
-  test, so tracing can never leak into the default path silently.
+* **Disabled is a no-op.**  With the tracer and the profiler both off, a
+  site costs one :func:`current` resolution and one bool read and allocates
+  nothing (no span, no dict, no lock); ``tests/test_torch_spans.py``
+  checks that, and ``PERF.md`` keeps the off cost of one site (a CPU
+  microbenchmark) and the on cost measured on the card (yi-6b's prefill
+  with ``REPRO_TRACE=1`` against unset).  The conftest autouse guards
+  assert zero spans recorded in every non-``@pytest.mark.trace`` test, so
+  tracing can never leak into the default path silently.
 * **ExecStats stays the counter source of truth.**  Spans carry counter
   *deltas* computed by the executor's existing snapshot-delta mechanism
   (``Executor._attribute_store_delta``), so the span-attached deltas of one
   statement sum exactly to that statement's global ``ExecStats`` movement —
-  asserted by the bench and the CI trace smoke.
+  asserted by ``tests/test_torch_trace.py``.
 * **Bounded.**  The ring holds ``REPRO_TRACE_RING`` finished spans (default
   65536); old spans fall off the back.  Open spans are only tracked as a
   count (leak detection) — an exception unwinding a ``with`` scope closes
@@ -44,6 +69,11 @@ Enabling: ``REPRO_TRACE=1`` turns on a process-wide tracer; a path value
 exit.  ``Session(trace=True)`` gives one session its own tracer (bounded
 ring, independent of the process one), resolved through the session's
 ``config.SessionConfig`` exactly like the store / fault / retry knobs.
+The export's ``otherData.clock`` states its clock: ``ts`` is
+``perf_counter_ns`` in µs, and ``anchor`` pairs one ``perf_counter_ns``
+reading with the ``time_ns`` taken beside it, so a span's wall time is
+``ts·1000 − anchor.perf_counter_ns + anchor.time_ns`` — the profiler's
+Chrome trace keeps wall time less its ``baseTimeNanoseconds``.
 
 The metrics half: :class:`Metrics` is the one named-counter/gauge registry
 shape shared by the serve tier (``serve.engine.ServeEngine.metrics``) and the
@@ -54,6 +84,7 @@ from __future__ import annotations
 
 import atexit
 import collections
+import contextlib
 import itertools
 import json
 import os
@@ -61,16 +92,40 @@ import threading
 import time
 from typing import Any, Iterator
 
+import torch
+from torch.autograd import profiler as _profiler
+
 from . import config as _config
 from .faults import env_int
 
 __all__ = [
-    "Span", "Tracer", "Metrics", "current", "configure", "reset",
-    "recorded_total", "ring_size", "stats_metrics", "export",
-    "chrome_trace_events", "validate_chrome_trace",
+    "Span", "Tracer", "Metrics", "current", "live", "scope", "RANGES",
+    "RANGE_PREFIX", "configure", "reset", "recorded_total", "ring_size", "stats_metrics",
+    "export", "chrome_trace_events", "validate_chrome_trace",
 ]
 
 _now = time.perf_counter_ns
+# the ring's clock against wall time, read once (``Tracer.chrome_trace``)
+_ANCHOR = {"perf_counter_ns": _now(), "time_ns": time.time_ns()}
+RANGE_PREFIX = "repro:"
+
+
+def _range_open(name: str):
+    """A profiler range ``repro:<name>`` opened on this thread, or None
+    where none may open: under a dispatch mode (``make_fx``, fake tensors,
+    ``hlo_analysis``) or inside a ``torch.compile`` trace, where the range
+    would be an operator of the traced program."""
+    if torch._C._len_torch_dispatch_stack() or torch.compiler.is_compiling():
+        return None
+    rf = _profiler.record_function(RANGE_PREFIX + name)
+    rf.__enter__()
+    return rf
+
+
+def _range_close(sp: "Span") -> None:
+    if sp.range is not None:
+        sp.range.__exit__(None, None, None)
+        sp.range = None
 
 
 def ring_size() -> int:
@@ -94,7 +149,7 @@ class Span:
     dict here, which is what makes span deltas sum to ``ExecStats``."""
 
     __slots__ = ("id", "parent", "stmt", "name", "cat", "tid", "t0", "dur",
-                 "args")
+                 "args", "range")
 
     def __init__(self, sid: int, parent: int | None, stmt: int, name: str,
                  cat: str):
@@ -107,6 +162,7 @@ class Span:
         self.t0 = _now()
         self.dur = 0
         self.args: dict | None = None
+        self.range = None       # its open profiler range, if it mirrors one
 
 
 class _SpanScope:
@@ -166,13 +222,19 @@ class Tracer:
     # -- low-level begin/end (manual pairing; no contextvar mutation) ---
     def begin(self, name: str, cat: str = "span", *,
               parent: Span | None | object = _config._TRACE_UNSET,
-              stmt: int | None = None) -> Span:
+              stmt: int | None = None, mirror: bool = False) -> Span:
+        """A span begun now; ``end`` records it.  ``mirror``: while a
+        profiler records, the span also opens its ``repro:`` range, which
+        ``end`` closes — only for a pair that begins and ends on one
+        thread."""
         if parent is _config._TRACE_UNSET:
             parent = _config.current_trace_ctx()
         pid = parent.id if isinstance(parent, Span) else None
         if stmt is None:
             stmt = parent.stmt if isinstance(parent, Span) else self.next_stmt()
         sp = Span(next(self._ids), pid, stmt, name, cat)
+        if mirror and _profiler._is_profiler_enabled:
+            sp.range = _range_open(name)
         with self._lock:
             self._open += 1
         return sp
@@ -180,6 +242,7 @@ class Tracer:
     def end(self, sp: Span) -> None:
         global _TOTAL
         sp.dur = _now() - sp.t0
+        _range_close(sp)
         with self._lock:
             self._open -= 1
             self.events.append(sp)
@@ -190,7 +253,7 @@ class Tracer:
     def span(self, name: str, cat: str = "span", *, args: dict | None = None,
              parent: Span | None | object = _config._TRACE_UNSET,
              stmt: int | None = None) -> _SpanScope:
-        sp = self.begin(name, cat, parent=parent, stmt=stmt)
+        sp = self.begin(name, cat, parent=parent, stmt=stmt, mirror=True)
         sp.args = args
         return _SpanScope(self, sp)
 
@@ -301,7 +364,9 @@ class Tracer:
     def chrome_trace(self) -> dict:
         return {"traceEvents": chrome_trace_events(self.snapshot()),
                 "displayTimeUnit": "ms",
-                "otherData": {"session": self.session_id}}
+                "otherData": {"session": self.session_id,
+                              "clock": {"ts": "perf_counter_ns / 1000",
+                                        "anchor": dict(_ANCHOR)}}}
 
     def export(self, path: str) -> str:
         """Write the ring as Chrome trace-event JSON (open in Perfetto /
@@ -317,6 +382,25 @@ class Tracer:
     def clear(self) -> None:
         with self._lock:
             self.events.clear()
+
+
+class _Ranges(Tracer):
+    """The tracer a span site gets while a torch profiler records and no
+    tracer is on: its spans open and close their ``repro:`` ranges and are
+    kept nowhere (``recorded_total()`` does not move)."""
+
+    def end(self, sp: Span) -> None:
+        _range_close(sp)
+        with self._lock:
+            self._open -= 1
+
+    def instant(self, name: str, cat: str = "instant", *,
+                args: dict | None = None) -> None:
+        pass
+
+
+RANGES = _Ranges(ring=16, session_id="ranges")
+_OFF = contextlib.nullcontext()
 
 
 # =============================================================================
@@ -401,12 +485,26 @@ _OVERRIDE: Tracer | None | object = _UNSET
 _PROC_LOCK = threading.Lock()
 
 
+_TRACE_KEY = os.environ.encodekey("REPRO_TRACE")
+
+
+def _trace_env() -> str:
+    """``REPRO_TRACE`` ("" unset), looked up in ``os.environ``'s encoded
+    store with the key encoded once, so the disabled path allocates nothing
+    (``os.environ.get`` encodes the key anew each call)."""
+    data = getattr(os.environ, "_data", None)
+    if data is None:
+        return os.environ.get("REPRO_TRACE", "")
+    raw = data.get(_TRACE_KEY)
+    return "" if raw is None else os.environ.decodevalue(raw)
+
+
 def _process_tracer() -> Tracer | None:
     """The process-wide tracer per ``REPRO_TRACE`` (lazy; rebuilt when the
     env value changes — tests flip it).  A path-shaped value also registers
     an atexit export to that path."""
     global _PROC, _PROC_KEY
-    raw = os.environ.get("REPRO_TRACE", "")
+    raw = _trace_env()
     if raw in ("", "0"):
         return None
     key = (raw, ring_size())
@@ -442,6 +540,29 @@ def current(cfg: Any = _UNSET) -> Tracer | None:
     if _OVERRIDE is not _UNSET:
         return _OVERRIDE
     return _process_tracer()
+
+
+def live(cfg: Any = _UNSET) -> Tracer | None:
+    """The tracer a span site records through: :func:`current`, else
+    :data:`RANGES` while a torch profiler records, else None (one bool read
+    past ``current``)."""
+    tr = current(cfg)
+    if tr is None and _profiler._is_profiler_enabled:
+        return RANGES
+    return tr
+
+
+def scope(name: str, cat: str = "span"):
+    """A ``with`` span for code outside a session (the model, kernel and
+    serve sites): the span of :func:`live`'s tracer, entered as the Span
+    (set its ``args`` there), or a shared null context entered as None when
+    neither the tracer nor the profiler is on — nothing is allocated."""
+    tr = current()
+    if tr is not None:
+        return tr.span(name, cat)
+    if _profiler._is_profiler_enabled:
+        return RANGES.span(name, cat)
+    return _OFF
 
 
 def configure(tracer: Tracer | None) -> None:

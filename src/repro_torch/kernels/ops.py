@@ -31,11 +31,18 @@ order along the sequence) and combined in that order
 those dims; over the cache's batch dims it is sliced, never the cache
 gathered.  The einsum decode path and cross attention (unsharded memory)
 keep the route above.
+
+**Spans.**  Each public entry runs in a ``core.trace.scope`` span
+``kernel:<entry>`` (a profiler range ``repro:kernel:<entry>`` while one
+records) that holds the call as the program makes it, casts included, so a
+kernel's device time is read by the entry it serves, whatever the kernel
+is named.
 """
 from __future__ import annotations
 
 import torch
 
+from ..core import trace
 from ._util import narrow_from_kernel, widen_for_kernel
 from .block_transpose import block_transpose as _transpose
 from .decode_attention import combine_partials as _combine_partials
@@ -56,13 +63,15 @@ _FLT_MAX = torch.finfo(torch.float32).max
 
 
 def transpose(x: torch.Tensor) -> torch.Tensor:
-    w, orig = widen_for_kernel(x)
-    return narrow_from_kernel(_transpose(w), orig)
+    with trace.scope("kernel:transpose", "kernel"):
+        w, orig = widen_for_kernel(x)
+        return narrow_from_kernel(_transpose(w), orig)
 
 
 def segment_reduce(values, codes, num_segments: int, op: str = "sum"):
-    return _segred(values.to(torch.float32), codes.to(torch.int32),
-                   num_segments, op)
+    with trace.scope("kernel:segment_reduce", "kernel"):
+        return _segred(values.to(torch.float32), codes.to(torch.int32),
+                       num_segments, op)
 
 
 def segment_reduce_multi(vals, valids, codes: torch.Tensor, *, bases,
@@ -74,76 +83,82 @@ def segment_reduce_multi(vals, valids, codes: torch.Tensor, *, bases,
     valids[i])``; ``valids[i]`` may be None (all valid).  Returns one
     (G,)-vector per base, plus a trailing presence vector when ``presence``.
     Runs eagerly, one launch per reduce op."""
-    codes = codes.to(torch.int32)
-    m = codes.shape[0]
-    by_op: dict[str, list] = {}
+    with trace.scope("kernel:segment_reduce_multi", "kernel"):
+        codes = codes.to(torch.int32)
+        m = codes.shape[0]
+        by_op: dict[str, list] = {}
 
-    def put(op: str, pos: int, vec) -> None:
-        by_op.setdefault(op, []).append((pos, vec))
+        def put(op: str, pos: int, vec) -> None:
+            by_op.setdefault(op, []).append((pos, vec))
 
-    for i, base in enumerate(bases):
-        v = vals[i].to(torch.float32)
-        valid = valids[i]
-        if base == "count":
-            put("sum", i, torch.ones(m, dtype=torch.float32, device=codes.device)
-                if valid is None else valid.to(torch.float32))
-        elif base == "sum":
-            put("sum", i, v if valid is None else torch.where(valid, v, 0.0))
-        elif base == "sumsq":
-            put("sum", i, v * v if valid is None else torch.where(valid, v * v, 0.0))
-        elif base == "min":
-            put("min", i, v if valid is None else torch.where(valid, v, _FLT_MAX))
-        else:   # max
-            put("max", i, v if valid is None else torch.where(valid, v, -_FLT_MAX))
-    if presence:
-        # segment presence = #rows with a valid (non-negative) code,
-        # independent of value nulls
-        put("sum", len(bases), torch.ones(m, dtype=torch.float32,
-                                          device=codes.device))
+        for i, base in enumerate(bases):
+            v = vals[i].to(torch.float32)
+            valid = valids[i]
+            if base == "count":
+                put("sum", i, torch.ones(m, dtype=torch.float32, device=codes.device)
+                    if valid is None else valid.to(torch.float32))
+            elif base == "sum":
+                put("sum", i, v if valid is None else torch.where(valid, v, 0.0))
+            elif base == "sumsq":
+                put("sum", i, v * v if valid is None else torch.where(valid, v * v, 0.0))
+            elif base == "min":
+                put("min", i, v if valid is None else torch.where(valid, v, _FLT_MAX))
+            else:   # max
+                put("max", i, v if valid is None else torch.where(valid, v, -_FLT_MAX))
+        if presence:
+            # segment presence = #rows with a valid (non-negative) code,
+            # independent of value nulls
+            put("sum", len(bases), torch.ones(m, dtype=torch.float32,
+                                              device=codes.device))
 
-    out: list = [None] * (len(bases) + (1 if presence else 0))
-    for op, items in by_op.items():
-        if len(items) == 1:
-            out[items[0][0]] = _segred(items[0][1], codes, num_segments, op)
-        else:
-            mat = torch.stack([vec for _, vec in items], dim=1)
-            res = _segred(mat, codes, num_segments, op)
-            for j, (pos, _) in enumerate(items):
-                out[pos] = res[:, j]
-    return tuple(out)
+        out: list = [None] * (len(bases) + (1 if presence else 0))
+        for op, items in by_op.items():
+            if len(items) == 1:
+                out[items[0][0]] = _segred(items[0][1], codes, num_segments, op)
+            else:
+                mat = torch.stack([vec for _, vec in items], dim=1)
+                res = _segred(mat, codes, num_segments, op)
+                for j, (pos, _) in enumerate(items):
+                    out[pos] = res[:, j]
+        return tuple(out)
 
 
 def window_scan(x, op: str = "cumsum") -> torch.Tensor:
-    return _winscan(x.to(torch.float32), op)
+    with trace.scope("kernel:window_scan", "kernel"):
+        return _winscan(x.to(torch.float32), op)
 
 
 def linear_scan(a, b) -> torch.Tensor:
-    if _is_dtensor(a):
-        return _sharded_scan(a.to(torch.float32), b.to(torch.float32))
-    return _linscan(a.to(torch.float32), b.to(torch.float32))
+    with trace.scope("kernel:linear_scan", "kernel"):
+        if _is_dtensor(a):
+            return _sharded_scan(a.to(torch.float32), b.to(torch.float32))
+        return _linscan(a.to(torch.float32), b.to(torch.float32))
 
 
 def onehot_encode(codes, num_classes: int) -> torch.Tensor:
-    return _onehot(codes.to(torch.int32), num_classes)
+    with trace.scope("kernel:onehot_encode", "kernel"):
+        return _onehot(codes.to(torch.int32), num_classes)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, scale=None, window=None):
-    if _is_dtensor(q):
-        return attention_on_shards(
-            lambda q, k, v: _flash(q, k, v, causal=causal, scale=scale, window=window),
-            q, (k, v), q_head=2, kv_head=2)
-    return _flash(q, k, v, causal=causal, scale=scale, window=window)
+    with trace.scope("kernel:flash_attention", "kernel"):
+        if _is_dtensor(q):
+            return attention_on_shards(
+                lambda q, k, v: _flash(q, k, v, causal=causal, scale=scale, window=window),
+                q, (k, v), q_head=2, kv_head=2)
+        return _flash(q, k, v, causal=causal, scale=scale, window=window)
 
 
 def decode_attention(q, k_cache, v_cache, length, *, scale=None) -> torch.Tensor:
-    if _is_dtensor(q):
-        seq = _sequence_dims(q, k_cache, v_cache)
-        if seq:
-            return _decode_on_sequence_shards(q, k_cache, v_cache, length, seq, scale)
-        return attention_on_shards(
-            lambda q, k, v, n: _decode(q, k, v, n, scale=scale),
-            q, (k_cache, v_cache), q_head=1, kv_head=2, length=length)
-    return _decode(q, k_cache, v_cache, length, scale=scale)
+    with trace.scope("kernel:decode_attention", "kernel"):
+        if _is_dtensor(q):
+            seq = _sequence_dims(q, k_cache, v_cache)
+            if seq:
+                return _decode_on_sequence_shards(q, k_cache, v_cache, length, seq, scale)
+            return attention_on_shards(
+                lambda q, k, v, n: _decode(q, k, v, n, scale=scale),
+                q, (k_cache, v_cache), q_head=1, kv_head=2, length=length)
+        return _decode(q, k_cache, v_cache, length, scale=scale)
 
 
 # =============================================================================

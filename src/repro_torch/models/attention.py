@@ -15,6 +15,11 @@ Execution paths, selected by ``impl`` as in the reference
 
 Shapes: x (B, S, d); params store the q/k/v projections (d, H·Dh).  KV
 caches are (B, S_max, K, Dh) with a per-slot length (B,).
+
+Spans (``core.trace.scope``): ``attention`` around each entry point,
+``qkv`` around the projections (RoPE's ``rope`` inside), ``wo`` around the
+output projection; the kernels' own ``kernel:<entry>`` come from
+``kernels.ops``.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import math
 import torch
 
 from . import layers
+from ..core import trace
 from .sharding_ctx import constrain_heads
 from ..kernels import ops as kops
 
@@ -44,16 +50,23 @@ def attn_init(gen: torch.Generator, d_model: int, n_heads: int, n_kv: int,
 
 def _project_qkv(params, x, n_heads, n_kv, head_dim, positions, use_rope=True):
     b, s, _ = x.shape
-    q, k, v = x @ params["wq"], x @ params["wk"], x @ params["wv"]
-    if "bq" in params:
-        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    q = constrain_heads(q.reshape(b, s, n_heads, head_dim))
-    k = constrain_heads(k.reshape(b, s, n_kv, head_dim))
-    v = constrain_heads(v.reshape(b, s, n_kv, head_dim))
-    if use_rope:
-        q = layers.rope(q, positions)
-        k = layers.rope(k, positions)
-    return q, k, v
+    with trace.scope("qkv", "model"):
+        q, k, v = x @ params["wq"], x @ params["wk"], x @ params["wv"]
+        if "bq" in params:
+            q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+        q = constrain_heads(q.reshape(b, s, n_heads, head_dim))
+        k = constrain_heads(k.reshape(b, s, n_kv, head_dim))
+        v = constrain_heads(v.reshape(b, s, n_kv, head_dim))
+        if use_rope:
+            q = layers.rope(q, positions)
+            k = layers.rope(k, positions)
+        return q, k, v
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor, b: int, s: int) -> torch.Tensor:
+    """Attention's heads (B, S, H, Dh) through the output projection."""
+    with trace.scope("wo", "model"):
+        return out.reshape(b, s, -1) @ wo
 
 
 def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
@@ -151,11 +164,12 @@ def self_attention(params: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
                    impl: str = "xla", positions: torch.Tensor | None = None,
                    use_rope: bool = True) -> torch.Tensor:
     b, s, _ = x.shape
-    if positions is None:
-        positions = torch.arange(s, device=x.device).expand(b, s)
-    q, k, v = _project_qkv(params, x, n_heads, n_kv, head_dim, positions, use_rope)
-    out = multihead_attention(q, k, v, causal=causal, window=window, impl=impl)
-    return out.reshape(b, s, n_heads * head_dim) @ params["wo"]
+    with trace.scope("attention", "model"):
+        if positions is None:
+            positions = torch.arange(s, device=x.device).expand(b, s)
+        q, k, v = _project_qkv(params, x, n_heads, n_kv, head_dim, positions, use_rope)
+        out = multihead_attention(q, k, v, causal=causal, window=window, impl=impl)
+        return _out_proj(out, params["wo"], b, s)
 
 
 def _project_memory(params, x, memory, n_heads, n_kv, head_dim):
@@ -163,10 +177,11 @@ def _project_memory(params, x, memory, n_heads, n_kv, head_dim):
     projections (the reference's take no bias)."""
     b, s, _ = x.shape
     m = memory.shape[1]
-    q = constrain_heads((x @ params["wq"]).reshape(b, s, n_heads, head_dim))
-    k = constrain_heads((memory @ params["wk"]).reshape(b, m, n_kv, head_dim))
-    v = constrain_heads((memory @ params["wv"]).reshape(b, m, n_kv, head_dim))
-    return q, k, v
+    with trace.scope("qkv", "model"):
+        q = constrain_heads((x @ params["wq"]).reshape(b, s, n_heads, head_dim))
+        k = constrain_heads((memory @ params["wk"]).reshape(b, m, n_kv, head_dim))
+        v = constrain_heads((memory @ params["wv"]).reshape(b, m, n_kv, head_dim))
+        return q, k, v
 
 
 def cross_attention(params: dict, x: torch.Tensor, memory: torch.Tensor, *,
@@ -174,9 +189,10 @@ def cross_attention(params: dict, x: torch.Tensor, memory: torch.Tensor, *,
     """x (B,S,d) attends to memory (B,M,d), non-causal — VLM image layers /
     enc-dec.  "pallas" runs K6 over the un-repeated KV heads."""
     b, s, _ = x.shape
-    q, k, v = _project_memory(params, x, memory, n_heads, n_kv, head_dim)
-    out = multihead_attention(q, k, v, causal=False, impl=impl)
-    return out.reshape(b, s, n_heads * head_dim) @ params["wo"]
+    with trace.scope("attention", "model"):
+        q, k, v = _project_memory(params, x, memory, n_heads, n_kv, head_dim)
+        out = multihead_attention(q, k, v, causal=False, impl=impl)
+        return _out_proj(out, params["wo"], b, s)
 
 
 def decode_cross_attention(params: dict, x: torch.Tensor, memory: torch.Tensor, *,
@@ -190,10 +206,11 @@ def decode_cross_attention(params: dict, x: torch.Tensor, memory: torch.Tensor, 
         return cross_attention(params, x, memory, n_heads=n_heads, n_kv=n_kv,
                                head_dim=head_dim, impl="xla")
     b, m = x.shape[0], memory.shape[1]
-    q, k, v = _project_memory(params, x, memory, n_heads, n_kv, head_dim)
-    full = torch.full((b,), m, dtype=torch.int32, device=x.device)
-    out = kops.decode_attention(q.reshape(b, n_heads, head_dim), k, v, full)
-    return out.reshape(b, 1, n_heads * head_dim) @ params["wo"]
+    with trace.scope("attention", "model"):
+        q, k, v = _project_memory(params, x, memory, n_heads, n_kv, head_dim)
+        full = torch.full((b,), m, dtype=torch.int32, device=x.device)
+        out = kops.decode_attention(q.reshape(b, n_heads, head_dim), k, v, full)
+        return _out_proj(out, params["wo"], b, 1)
 
 
 # -----------------------------------------------------------------------------
@@ -268,19 +285,19 @@ def decode_self_attention(params: dict, x: torch.Tensor, cache: dict,
     reference, the cache is written in place (the same dict comes back): a
     functional copy would move the whole cache every layer of every step."""
     b = x.shape[0]
-    positions = length[:, None]                                   # (B,1)
-    q, k, v = _project_qkv(params, x, n_heads, n_kv, head_dim, positions, use_rope)
-    _write_slot(cache["k"], k[:, 0], length)
-    _write_slot(cache["v"], v[:, 0], length)
-    kv_len = length + 1
-    if impl == "pallas":
-        # K7 takes one element type; the serving path's q and cache are both
-        # bf16, so the cast copies nothing there
-        out = kops.decode_attention(q.reshape(b, n_heads, head_dim), cache["k"].to(q.dtype),
-                                    cache["v"].to(q.dtype), kv_len)
-    else:
-        out = multihead_attention(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
-                                  causal=False, window=window, impl="xla",
-                                  kv_len=kv_len)
-    proj = out.reshape(b, 1, n_heads * head_dim) @ params["wo"]
-    return proj, cache
+    with trace.scope("attention", "model"):
+        positions = length[:, None]                               # (B,1)
+        q, k, v = _project_qkv(params, x, n_heads, n_kv, head_dim, positions, use_rope)
+        _write_slot(cache["k"], k[:, 0], length)
+        _write_slot(cache["v"], v[:, 0], length)
+        kv_len = length + 1
+        if impl == "pallas":
+            # K7 takes one element type; the serving path's q and cache are
+            # both bf16, so the cast copies nothing there
+            out = kops.decode_attention(q.reshape(b, n_heads, head_dim),
+                                        cache["k"].to(q.dtype), cache["v"].to(q.dtype), kv_len)
+        else:
+            out = multihead_attention(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
+                                      causal=False, window=window, impl="xla",
+                                      kv_len=kv_len)
+        return _out_proj(out, params["wo"], b, 1), cache

@@ -6,6 +6,8 @@ Conventions, as in the reference (``repro/models/layers.py``):
   * compute dtype is bf16 by default with f32 norms/softmax/logits
   * weight matrices are stored (in_dim, out_dim), so the reference's
     arrays convert with no transpose
+  * the norms, RoPE and the MLPs each run in a ``core.trace.scope`` span
+    (``norm``, ``rope``, ``mlp``), a profiler range while one records
 """
 from __future__ import annotations
 
@@ -13,6 +15,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from ..core import trace
 
 DEFAULT_PARAM_DTYPE = torch.bfloat16
 
@@ -43,10 +47,11 @@ def rmsnorm_init(dim: int, device, dtype=torch.float32) -> dict:
 
 
 def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    out = xf * torch.rsqrt(var + eps) * params["scale"]
-    return out.to(x.dtype)
+    with trace.scope("norm", "model"):
+        xf = x.float()
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        out = xf * torch.rsqrt(var + eps) * params["scale"]
+        return out.to(x.dtype)
 
 
 def layernorm_init(dim: int, device, dtype=torch.float32) -> dict:
@@ -55,11 +60,12 @@ def layernorm_init(dim: int, device, dtype=torch.float32) -> dict:
 
 
 def layernorm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    xf = x.float()
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
-    out = (xf - mu) * torch.rsqrt(var + eps) * params["scale"] + params["bias"]
-    return out.to(x.dtype)
+    with trace.scope("norm", "model"):
+        xf = x.float()
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+        out = (xf - mu) * torch.rsqrt(var + eps) * params["scale"] + params["bias"]
+        return out.to(x.dtype)
 
 
 # -----------------------------------------------------------------------------
@@ -67,15 +73,16 @@ def layernorm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 # -----------------------------------------------------------------------------
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
     """x: (..., S, H, D) with D even; positions: (..., S)."""
-    d = x.shape[-1]
-    half = d // 2
-    freq = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
-    angles = positions[..., :, None].float() * freq                  # (..., S, half)
-    cos = torch.cos(angles)[..., :, None, :]                         # (..., S, 1, half)
-    sin = torch.sin(angles)[..., :, None, :]
-    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
-    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
-    return out.to(x.dtype)
+    with trace.scope("rope", "model"):
+        d = x.shape[-1]
+        half = d // 2
+        freq = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+        angles = positions[..., :, None].float() * freq              # (..., S, half)
+        cos = torch.cos(angles)[..., :, None, :]                     # (..., S, 1, half)
+        sin = torch.sin(angles)[..., :, None, :]
+        xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+        out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
+        return out.to(x.dtype)
 
 
 # -----------------------------------------------------------------------------
@@ -89,10 +96,11 @@ def swiglu_init(gen: torch.Generator, d_model: int, d_ff: int,
 
 
 def swiglu(params: dict, x: torch.Tensor) -> torch.Tensor:
-    g = x @ params["w_gate"]
-    u = x @ params["w_up"]
-    h = F.silu(g.float()).to(x.dtype) * u
-    return h @ params["w_down"]
+    with trace.scope("mlp", "model"):
+        g = x @ params["w_gate"]
+        u = x @ params["w_up"]
+        h = F.silu(g.float()).to(x.dtype) * u
+        return h @ params["w_down"]
 
 
 def gelu_mlp_init(gen: torch.Generator, d_model: int, d_ff: int,
@@ -104,9 +112,10 @@ def gelu_mlp_init(gen: torch.Generator, d_model: int, d_ff: int,
 
 
 def gelu_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
-    h = x @ params["w_up"] + params["b_up"]
-    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)   # jax.nn.gelu's default
-    return h @ params["w_down"] + params["b_down"]
+    with trace.scope("mlp", "model"):
+        h = x @ params["w_up"] + params["b_up"]
+        h = F.gelu(h.float(), approximate="tanh").to(x.dtype)   # jax.nn.gelu's default
+        return h @ params["w_down"] + params["b_down"]
 
 
 # -----------------------------------------------------------------------------

@@ -45,6 +45,12 @@ alone, as the reference's ``nothing_saveable``; "dots" also saves the
 outputs of its matmuls without batch dimensions (``aten.mm``: the
 projections and MLPs, not attention's or the experts' batched products),
 as the reference's ``dots_with_no_batch_dims_saveable``.
+
+Spans (``core.trace.scope``; profiler ranges ``repro:<name>`` while one
+records): ``prefill`` around a prefill, ``embed``, ``block`` around each
+layer (``args``: its index and kind; the names carry no index),
+``unembed`` around the final norm and the unembedding; the layers' own
+``norm``, ``attention``, ``mlp`` ... nest inside.
 """
 from __future__ import annotations
 
@@ -59,6 +65,7 @@ from torch.utils.checkpoint import checkpoint
 from . import attention, layers, moe, recurrent
 from .sharding_ctx import constrain_hidden
 from ..configs.base import ArchConfig
+from ..core import trace
 
 KINDS = ("attn", "global", "local", "cross", "dec", "rglru", "rwkv")
 MLPS = ("swiglu", "gelu", "moe", "rwkv_cmix")
@@ -167,27 +174,30 @@ def _cross(cfg: ArchConfig, p, h, memory, impl):
 
 
 def _block_apply(kind: str, p: dict, x: torch.Tensor, cfg: ArchConfig, memory, impl: str,
-                 causal: bool = True) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """(x, the MoE aux loss or None)."""
-    h = _norm_apply(cfg, p["ln1"], x)
-    if kind == "rglru":
-        y = recurrent.rglru_block(p["rglru"], h)
-    elif kind == "rwkv":
-        y = (recurrent.rwkv6_chunked if cfg.rwkv_chunked else recurrent.rwkv6_block)(
-            p["rwkv"], h, head_dim=cfg.rwkv_head_dim)
-    elif kind == "cross":
-        y = _cross(cfg, p["cross"], h, memory, impl)
-    else:
-        y = attention.self_attention(p["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
-                                     head_dim=cfg.head_dim_, causal=causal or kind == "dec",
-                                     window=cfg.window if kind == "local" else None,
-                                     impl=impl, use_rope=cfg.use_rope)
-        if kind == "dec":
-            x = x + y
-            y = _cross(cfg, p["cross"], _norm_apply(cfg, p["lnx"], x), memory, impl)
-    x = x + y
-    m, aux = _mlp_apply(cfg, p["mlp"], _norm_apply(cfg, p["ln2"], x))
-    return x + m, aux
+                 causal: bool = True, index: int = 0) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """(x, the MoE aux loss or None) of layer ``index``."""
+    with trace.scope("block", "model") as sp:
+        if sp is not None:
+            sp.args = {"index": index, "kind": kind}
+        h = _norm_apply(cfg, p["ln1"], x)
+        if kind == "rglru":
+            y = recurrent.rglru_block(p["rglru"], h)
+        elif kind == "rwkv":
+            y = (recurrent.rwkv6_chunked if cfg.rwkv_chunked else recurrent.rwkv6_block)(
+                p["rwkv"], h, head_dim=cfg.rwkv_head_dim)
+        elif kind == "cross":
+            y = _cross(cfg, p["cross"], h, memory, impl)
+        else:
+            y = attention.self_attention(p["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
+                                         head_dim=cfg.head_dim_, causal=causal or kind == "dec",
+                                         window=cfg.window if kind == "local" else None,
+                                         impl=impl, use_rope=cfg.use_rope)
+            if kind == "dec":
+                x = x + y
+                y = _cross(cfg, p["cross"], _norm_apply(cfg, p["lnx"], x), memory, impl)
+        x = x + y
+        m, aux = _mlp_apply(cfg, p["mlp"], _norm_apply(cfg, p["ln2"], x))
+        return x + m, aux
 
 
 @functools.lru_cache(maxsize=8)
@@ -233,8 +243,8 @@ def encode(enc_params: dict, frames: torch.Tensor, cfg: ArchConfig,
     impl = _pick_impl(cfg) if impl is None else impl
     x = frames.to(torch.bfloat16) + _sinusoid(frames.shape[1], cfg.d_model,
                                               frames.device).to(torch.bfloat16)
-    for p in enc_params["enc_layers"]:
-        x, _ = _block_apply("attn", p, x, cfg, None, impl, causal=False)
+    for i, p in enumerate(enc_params["enc_layers"]):
+        x, _ = _block_apply("attn", p, x, cfg, None, impl, causal=False, index=i)
     return _norm_apply(cfg, enc_params["final_norm"], x)
 
 
@@ -252,8 +262,9 @@ def _add_aux(total: torch.Tensor, aux) -> torch.Tensor:
 
 def logits(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """The final norm and the unembedding of hidden states (..., d) → f32."""
-    x = _norm_apply(cfg, params["final_norm"], x)
-    return layers.unembed(params.get("unembed", params["embed"]), x)
+    with trace.scope("unembed", "model"):
+        x = _norm_apply(cfg, params["final_norm"], x)
+        return layers.unembed(params.get("unembed", params["embed"]), x)
 
 
 def _blocks(params: dict, x: torch.Tensor, cfg: ArchConfig, memory, impl: str,
@@ -267,10 +278,10 @@ def _blocks(params: dict, x: torch.Tensor, cfg: ArchConfig, memory, impl: str,
     period = len(cfg.pattern)
     repeats, _ = cfg.repeats_and_tail()
 
-    def superblock(x, memory, *block_params):
+    def superblock(first, x, memory, *block_params):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for kind, p in zip(cfg.pattern, block_params):
-            x, a = _block_apply(kind, p, x, cfg, memory, impl)
+        for j, (kind, p) in enumerate(zip(cfg.pattern, block_params)):
+            x, a = _block_apply(kind, p, x, cfg, memory, impl, index=first + j)
             x = constrain_hidden(x)
             aux = _add_aux(aux, a)
         return x, aux
@@ -279,10 +290,11 @@ def _blocks(params: dict, x: torch.Tensor, cfg: ArchConfig, memory, impl: str,
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for r in range(repeats):
         group = params["layers"][r * period:(r + 1) * period]
-        x, aux = (wrap or (lambda fn, *a: fn(*a)))(superblock, x, memory, *group)
+        x, aux = (wrap or (lambda fn, *a: fn(*a)))(superblock, r * period, x, memory, *group)
         total = total + aux
     for i, p in enumerate(params["layers"][repeats * period:]):
-        x, aux = _block_apply(cfg.pattern[i], p, x, cfg, memory, impl)
+        x, aux = _block_apply(cfg.pattern[i], p, x, cfg, memory, impl,
+                              index=repeats * period + i)
         total = _add_aux(total, aux)
     return x, total
 
@@ -291,7 +303,8 @@ def _stack(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
            memory=None) -> tuple[torch.Tensor, torch.Tensor]:
     """(the last block's output (B,S,d), the MoE aux loss)."""
     impl = _pick_impl(cfg)
-    x = _embed_seq(params, tokens, cfg)
+    with trace.scope("embed", "model"):
+        x = _embed_seq(params, tokens, cfg)
     return _blocks(params, x, cfg, _encoded(params, memory, cfg, impl), impl)
 
 
@@ -315,7 +328,8 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     """Prefill = the forward pass's last-position logits (B,V).  Only that
     position is unembedded: the same row as ``forward``'s, without the
     (B,S,V) float32 logits (8.4 GB for recurrentgemma-9b at B 2, S 4096)."""
-    return logits(params, hidden(params, tokens, cfg, memory)[:, -1], cfg)
+    with trace.scope("prefill", "model"):
+        return logits(params, hidden(params, tokens, cfg, memory)[:, -1], cfg)
 
 
 # =============================================================================
@@ -358,7 +372,8 @@ def train_forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig,
     kw = dict(use_reentrant=False)
     if cfg.remat_policy == "dots":
         kw["context_fn"] = _dots_context
-    x = _embed_seq(params, tokens, cfg)
+    with trace.scope("embed", "model"):
+        x = _embed_seq(params, tokens, cfg)
     if cfg.encoder_layers and memory is not None:
         memory = encode(params["encoder"], memory, cfg, _train_impl(cfg, memory.shape[1]))
     wrap = (lambda fn, *args: checkpoint(fn, *args, **kw)) if cfg.remat else None
@@ -412,34 +427,38 @@ def _decode_local(p: dict, h, cache: dict, length, cfg: ArchConfig):
     return out.reshape(b, 1, cfg.n_heads * cfg.head_dim_) @ p["wo"], cache
 
 
-def _decode_block(kind: str, p: dict, x, cache: dict, length, cfg: ArchConfig, memory):
-    impl = _pick_impl(cfg)
-    dims = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim_)
-    h = _norm_apply(cfg, p["ln1"], x)
-    if kind == "rglru":
-        y, cache = recurrent.rglru_decode(p["rglru"], h, cache)
-    elif kind == "rwkv":
-        y, cache = recurrent.rwkv6_decode(p["rwkv"], h, cache, head_dim=cfg.rwkv_head_dim)
-    elif kind == "local":
-        y, cache = _decode_local(p["attn"], h, cache, length, cfg)
-    elif kind == "cross":
-        y = attention.decode_cross_attention(p["cross"], h, memory, impl=impl, **dims)
-    else:
-        y, cache = attention.decode_self_attention(p["attn"], h, cache, length, impl=impl,
-                                                   use_rope=cfg.use_rope, **dims)
-        if kind == "dec":
-            x = x + y
-            y = attention.decode_cross_attention(p["cross"], _norm_apply(cfg, p["lnx"], x),
-                                                 memory, impl=impl, **dims)
-    x = x + y
-    h2 = _norm_apply(cfg, p["ln2"], x)
-    x_prev = None
-    if cfg.mlp == "rwkv_cmix" and kind == "rwkv":
-        x_prev = cache["cmix_prev"][:, None].to(h2.dtype)
-    m, _ = _mlp_apply(cfg, p["mlp"], h2, x_prev)
-    if kind == "rwkv":
-        cache["cmix_prev"].copy_(h2[:, 0])
-    return x + m, cache
+def _decode_block(kind: str, p: dict, x, cache: dict, length, cfg: ArchConfig, memory,
+                  index: int = 0):
+    with trace.scope("block", "model") as sp:
+        if sp is not None:
+            sp.args = {"index": index, "kind": kind}
+        impl = _pick_impl(cfg)
+        dims = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim_)
+        h = _norm_apply(cfg, p["ln1"], x)
+        if kind == "rglru":
+            y, cache = recurrent.rglru_decode(p["rglru"], h, cache)
+        elif kind == "rwkv":
+            y, cache = recurrent.rwkv6_decode(p["rwkv"], h, cache, head_dim=cfg.rwkv_head_dim)
+        elif kind == "local":
+            y, cache = _decode_local(p["attn"], h, cache, length, cfg)
+        elif kind == "cross":
+            y = attention.decode_cross_attention(p["cross"], h, memory, impl=impl, **dims)
+        else:
+            y, cache = attention.decode_self_attention(p["attn"], h, cache, length, impl=impl,
+                                                       use_rope=cfg.use_rope, **dims)
+            if kind == "dec":
+                x = x + y
+                y = attention.decode_cross_attention(p["cross"], _norm_apply(cfg, p["lnx"], x),
+                                                     memory, impl=impl, **dims)
+        x = x + y
+        h2 = _norm_apply(cfg, p["ln2"], x)
+        x_prev = None
+        if cfg.mlp == "rwkv_cmix" and kind == "rwkv":
+            x_prev = cache["cmix_prev"][:, None].to(h2.dtype)
+        m, _ = _mlp_apply(cfg, p["mlp"], h2, x_prev)
+        if kind == "rwkv":
+            cache["cmix_prev"].copy_(h2[:, 0])
+        return x + m, cache
 
 
 def decode_step(params: dict, token: torch.Tensor, cache: dict, cfg: ArchConfig,
@@ -453,14 +472,15 @@ def decode_step(params: dict, token: torch.Tensor, cache: dict, cfg: ArchConfig,
     decode pins it: after the embedding and after each layer of the
     repeats."""
     length = cache["length"]
-    x = _embed(params, token[:, None], cfg)
-    if not cfg.use_rope:
-        x = x + _sinusoid_at(length, cfg.d_model)[:, None].to(x.dtype)
+    with trace.scope("embed", "model"):
+        x = _embed(params, token[:, None], cfg)
+        if not cfg.use_rope:
+            x = x + _sinusoid_at(length, cfg.d_model)[:, None].to(x.dtype)
     x = constrain_hidden(x)
     scanned = cfg.repeats_and_tail()[0] * len(cfg.pattern)
     new_layers = []
     for i, (kind, p, c) in enumerate(zip(layer_kinds(cfg), params["layers"], cache["layers"])):
-        x, c = _decode_block(kind, p, x, c, length, cfg, memory)
+        x, c = _decode_block(kind, p, x, c, length, cfg, memory, index=i)
         if i < scanned:
             x = constrain_hidden(x)
         new_layers.append(c)

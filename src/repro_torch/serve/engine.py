@@ -13,6 +13,10 @@ as the reference's one-hot write and length mask make it.
 One host sync per step: the greedy tokens come back to the host (the
 reference's ``np.asarray(argmax)``).  Steps run under
 ``torch.inference_mode()``.
+
+Spans (``core.trace.scope``): ``serve.admit`` around admission,
+``serve.step`` around the step's device work (the model's spans nest in
+it), ``serve.sync`` around the step's one sync.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..core import trace
 from ..core.trace import Metrics
 from ..data.tokenizer import EOS
 from ..models.model import Model, _needs_memory
@@ -88,15 +93,17 @@ class ServeEngine:
     # ------------------------------------------------------------------
     def step(self) -> int:
         """One lockstep decode over all slots; returns #active."""
-        self._admit()
+        with trace.scope("serve.admit", "serve"):
+            self._admit()
         active = [i for i, r in enumerate(self.slots) if r is not None]
         if not active:
             return 0
-        with torch.inference_mode():
+        with trace.scope("serve.step", "serve"), torch.inference_mode():
             feed = torch.from_numpy(self._next_feed.copy()).to(self.model.device)
             logits, self.cache = self.model.decode_step(self.params, feed, self.cache,
                                                         self._memory)
-            next_tok = logits.argmax(dim=-1).cpu().numpy()        # the step's sync
+            with trace.scope("serve.sync", "serve"):
+                next_tok = logits.argmax(dim=-1).cpu().numpy()    # the step's sync
         self.metrics.inc("steps")
 
         for i in active:
