@@ -5,13 +5,14 @@ plain PyTorch versions, CUDA tensors the hand-written kernels (or the wrapper
 raises).  There is no environment override and no capability fallback.
 Inputs are widened to the kernels' storage types here (``_util``).
 
-**DTensors.**  K5, K6 and K7 also take DTensors (a model whose parameters
-``launch.sharding.distribute`` placed on a ``DeviceMesh``): the kernel runs
-on each device's shards through ``torch.distributed.tensor.experimental.
-local_map``, with the output placed as the query (K6, K7) or ``a`` (K5) is.
-A placement that keeps the kernel from running on the shards is
-redistributed first, and an accounting below counts that as a collective:
-a sharded head dim, a Partial, a sharded sequence dim of K6's keys.  Heads
+**DTensors.**  K5, K6, K7 and the norm also take DTensors (a model whose
+parameters ``launch.sharding.distribute`` placed on a ``DeviceMesh``): the
+kernel runs on each device's shards through ``torch.distributed.tensor.
+experimental.local_map``, with the output placed as the query (K6, K7),
+``a`` (K5) or x (the norm) is.  A placement that keeps the kernel from
+running on the shards is redistributed first, and an accounting below
+counts that as a collective: a sharded head dim, a Partial, a sharded
+sequence dim of K6's keys, the norm's sharded last dim.  Heads
 may stay sharded: where the KV heads
 divide as the query heads do, both stay sharded; where they do not (yi-6b's
 4 KV heads over 16 devices), the KV heads are gathered and each device
@@ -36,7 +37,11 @@ keep the route above.
 ``kernel:<entry>`` (a profiler range ``repro:kernel:<entry>`` while one
 records) that holds the call as the program makes it, casts included, so a
 kernel's device time is read by the entry it serves, whatever the kernel
-is named.
+is named.  The exception is ``rmsnorm``, which opens no span of its own: it
+runs inside its caller's ``norm`` span (``models/layers.rmsnorm``), and the
+benchmark gives each launch to the innermost range open at it, so a
+``kernel:rmsnorm`` range would take the kernel's device time out of
+``norm``'s self time, which ``norm_roofline.prefill`` reads.
 """
 from __future__ import annotations
 
@@ -52,12 +57,14 @@ from .decode_attention import piece_lengths as _piece_lengths
 from .flash_attention import flash_attention as _flash
 from .linear_scan import linear_scan as _linscan
 from .onehot_encode import onehot_encode as _onehot
+from .rms_norm import rmsnorm as _rmsnorm
+from .rms_norm import rmsnorm_plain as _rmsnorm_plain
 from .segment_reduce import segment_reduce as _segred
 from .window_scan import window_scan as _winscan
 
 __all__ = ["transpose", "segment_reduce", "segment_reduce_multi",
            "window_scan", "linear_scan", "onehot_encode", "flash_attention",
-           "decode_attention", "attention_on_shards"]
+           "decode_attention", "rmsnorm", "attention_on_shards"]
 
 _FLT_MAX = torch.finfo(torch.float32).max
 
@@ -159,6 +166,18 @@ def decode_attention(q, k_cache, v_cache, length, *, scale=None) -> torch.Tensor
                 lambda q, k, v, n: _decode(q, k, v, n, scale=scale),
                 q, (k_cache, v_cache), q_head=1, kv_head=2, length=length)
         return _decode(q, k_cache, v_cache, length, scale=scale)
+
+
+def rmsnorm(x, scale, eps: float = 1e-6) -> torch.Tensor:
+    """x's RMSNorm over its last axis by ``scale`` (d,), in x's dtype; no
+    span of its own (see Spans).  Meta tensors take the plain version, and
+    so do DTensors whose shards are meta (the dry-run), on the DTensors as
+    they are."""
+    if not _is_dtensor(x):
+        return _rmsnorm(x, scale, eps)
+    if x._local_tensor.is_meta:
+        return _rmsnorm_plain(x, scale, eps)
+    return _sharded_norm(x, scale, eps)
 
 
 # =============================================================================
@@ -334,3 +353,19 @@ def _sharded_scan(a, b):
     pl = [p if mesh.size(i) == 1 or p in (Shard(0), Shard(a.ndim - 1)) else Replicate()
           for i, p in enumerate(a.placements)]
     return _run_local(_linscan, mesh, pl, [a, b], [pl, pl])
+
+
+def _sharded_norm(x, scale, eps: float):
+    """The norm on DTensors (..., d): batch and sequence shards stay as
+    ``x``'s are; a sharded or Partial last dim is gathered, and the scale is
+    whole on every device."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = x.device_mesh
+    scale = _as_dtensor(scale, mesh)
+    last = x.ndim - 1
+    x_pl = [p if (isinstance(p, Shard) and p.dim % x.ndim < last)
+            or (mesh.size(i) == 1 and not p.is_partial()) else Replicate()
+            for i, p in enumerate(x.placements)]
+    s_pl = [p if mesh.size(i) == 1 and not p.is_partial() else Replicate()
+            for i, p in enumerate(scale.placements)]
+    return _run_local(lambda x, s: _rmsnorm(x, s, eps), mesh, x_pl, [x, scale], [x_pl, s_pl])

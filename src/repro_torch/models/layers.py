@@ -7,7 +7,8 @@ Conventions, as in the reference (``repro/models/layers.py``):
   * weight matrices are stored (in_dim, out_dim), so the reference's
     arrays convert with no transpose
   * the norms, RoPE and the MLPs each run in a ``core.trace.scope`` span
-    (``norm``, ``rope``, ``mlp``), a profiler range while one records
+    (``norm``, ``rope``, ``mlp``), a profiler range while one records; the
+    rmsnorm kernel launches in ``norm`` itself, under no span of its own
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core import trace
+from ..kernels import ops as kops
 
 DEFAULT_PARAM_DTYPE = torch.bfloat16
 
@@ -47,11 +49,10 @@ def rmsnorm_init(dim: int, device, dtype=torch.float32) -> dict:
 
 
 def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """The float32 chain on CPU and meta tensors, the one-pass kernel on the
+    card (``kernels/rms_norm.py``), run directly inside this ``norm`` span."""
     with trace.scope("norm", "model"):
-        xf = x.float()
-        var = torch.mean(xf * xf, dim=-1, keepdim=True)
-        out = xf * torch.rsqrt(var + eps) * params["scale"]
-        return out.to(x.dtype)
+        return kops.rmsnorm(x, params["scale"], eps)
 
 
 def layernorm_init(dim: int, device, dtype=torch.float32) -> dict:

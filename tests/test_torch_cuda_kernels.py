@@ -13,7 +13,9 @@ linear_scan and its backward bit-equal (the backward: to autograd through
 linear_scan_plain, ``torch.equal``); float sums and cumsum rtol=atol=1e-4, as
 tests/test_kernels.py has them; decode_attention (K7) float32 2e-3, bf16
 4e-3; flash_attention (K6) float32 2e-3, bf16 one bf16 ulp (2^-7 |x|) plus
-1e-5.
+1e-5; rmsnorm bf16 one bf16 ulp, float32 1e-6 relative (its sum of squares
+runs in another order than torch.mean's), its backward equal to autograd
+through rmsnorm_plain (``torch.equal``).
 """
 import numpy as np
 import pytest
@@ -24,6 +26,7 @@ from repro_torch.kernels import decode_attention as da_mod
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import linear_scan as ls_mod
 from repro_torch.kernels import onehot_encode as oh_mod
+from repro_torch.kernels import rms_norm as rn_mod
 from repro_torch.kernels import segment_reduce as sr_mod
 from repro_torch.kernels import window_scan as ws_mod
 
@@ -599,3 +602,143 @@ def test_cuda_decode_attention_cross_every_length_m(rng, cuda, b, h, kvh, m, d):
                                rtol=K7_BF16_TOL, atol=K7_BF16_TOL)
     flash = fa_mod.flash_attention(q[:, None], k, v, causal=False)[:, 0]
     torch.testing.assert_close(out.float(), flash.float(), rtol=K7_BF16_TOL, atol=K7_BF16_TOL)
+
+
+# ---- rmsnorm: the one-pass norm (no TPU counterpart) ---------------------------------
+RMSNORM_F32_TOL = dict(rtol=1e-6, atol=0.0)
+
+
+def _norm_inputs(cuda, shape, dtype, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = (3 * torch.randn(shape, generator=g, device=cuda)).to(dtype)
+    scale = 1 + 0.1 * torch.randn(shape[-1], generator=g, device=cuda)
+    return x, scale
+
+
+def _norm_checked(x, scale):
+    """One launch, rerun bit-identical, within one bf16 ulp (float32: 1e-6
+    relative) of rmsnorm_plain."""
+    rn_mod.counter.reset()
+    out = rn_mod.rmsnorm(x, scale)
+    assert rn_mod.counter.launches == 1 and out.dtype == x.dtype and out.shape == x.shape
+    assert torch.equal(out, rn_mod.rmsnorm(x, scale))
+    want = rn_mod.rmsnorm_plain(x, scale, 1e-6)
+    tol = BF16_TOL if x.dtype == torch.bfloat16 else RMSNORM_F32_TOL
+    torch.testing.assert_close(out.float(), want.float(), **tol)
+    return out
+
+
+@pytest.mark.parametrize("d", [48, 1000, 1536, 2560, 3840, 4096, 8192])
+@pytest.mark.parametrize("rows", [1, 4, 4097, 16384])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_rmsnorm_matches_plain(cuda, dtype, rows, d):
+    _norm_checked(*_norm_inputs(cuda, (rows, d), dtype))
+
+
+@pytest.mark.parametrize("b,s,d", [(4, 4096, 4096), (3, 17, 1000), (2, 5, 1001), (1, 3, 1)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_rmsnorm_reads_strided_and_unaligned_rows(cuda, dtype, b, s, d):
+    """The final norm's x[:, -1] (row stride S·d) read in place, equal to
+    the kernel on a contiguous copy; rows from a base one element off 16
+    bytes take element loads, within the tolerance of the plain version (a
+    thread then sums other elements than with 16-byte loads, so the two
+    widths can differ by a rounding)."""
+    x, scale = _norm_inputs(cuda, (b, s, d), dtype)
+    last = x[:, -1]
+    assert torch.equal(_norm_checked(last, scale), rn_mod.rmsnorm(last.contiguous(), scale))
+    shifted = torch.empty(b * s * d + 1, dtype=dtype, device=cuda)[1:].view(b, s, d)
+    shifted.copy_(x)
+    assert torch.equal(_norm_checked(shifted, scale), rn_mod.rmsnorm(shifted, scale))
+
+
+def test_cuda_rmsnorm_50_reruns_bit_identical(cuda):
+    x, scale = _norm_inputs(cuda, (4, 4096, 4096), torch.bfloat16)
+    out = rn_mod.rmsnorm(x, scale)
+    for _ in range(50):
+        assert torch.equal(out, rn_mod.rmsnorm(x, scale))
+
+
+@pytest.mark.parametrize("need", ["x", "scale", "both"])
+@pytest.mark.parametrize("shape", [(4, 7, 48), (2, 33, 4096), (5, 1001)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_rmsnorm_backward_is_autograd_through_plain(cuda, dtype, shape, need):
+    """The Function's backward: autograd through rmsnorm_plain recomputed
+    from the saved x and scale, equal (``torch.equal``) to autograd through
+    rmsnorm_plain itself; one launch, the forward's."""
+    x, scale = _norm_inputs(cuda, shape, dtype)
+    w = torch.randn(shape, generator=torch.Generator(device=cuda).manual_seed(1),
+                    device=cuda).to(dtype)
+    flags = (need in ("x", "both"), need in ("scale", "both"))
+
+    def grads(fn):
+        xs, ss = x.clone().requires_grad_(flags[0]), scale.clone().requires_grad_(flags[1])
+        return torch.autograd.grad((fn(xs, ss) * w).sum(), [t for t, f in zip((xs, ss), flags)
+                                                             if f])
+
+    rn_mod.counter.reset()
+    got = grads(rn_mod.rmsnorm)
+    assert rn_mod.counter.launches == 1
+    want = grads(lambda a, b: rn_mod.rmsnorm_plain(a, b, 1e-6))
+    assert all(torch.equal(g, h) for g, h in zip(got, want))
+
+
+def test_cuda_rmsnorm_launches_on_the_prefill(cuda):
+    """The main path goes through the kernel: 2 x layers + 1 launches a
+    prefill of yi-6b's smoke config (two a layer and the final norm)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import build_model
+    cfg = get_smoke_config("yi-6b")
+    model = build_model(cfg, cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    tokens = torch.randint(3, cfg.vocab, (2, 16), device=cuda, dtype=torch.int32)
+    rn_mod.counter.reset()
+    model.prefill(params, tokens)
+    assert rn_mod.counter.launches == 2 * cfg.n_layers + 1
+
+
+@pytest.mark.parametrize("policy", ["nothing", "dots"])
+def test_cuda_rmsnorm_in_training(cuda, monkeypatch, policy):
+    """yi-6b's smoke loss on the card, its norms through the Function: remat
+    (the "nothing" and "dots" policies) re-runs each layer's two launches in
+    the recompute, and the gradients equal those without remat bit for bit;
+    against rmsnorm_plain in the kernel's place each gradient is within 0.06
+    relative norm (tests/test_torch_train.py's GRAD_REL: the kernel's output
+    may differ from the chain's by a bf16 ulp)."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import build_model
+    from repro_torch.train.tree import leaves
+    cfg = dataclasses.replace(get_smoke_config("yi-6b"), remat_policy=policy)
+    tokens = torch.randint(3, cfg.vocab, (2, 16), device=cuda, dtype=torch.int32,
+                           generator=torch.Generator(device=cuda).manual_seed(2))
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+
+    def grads(remat: bool):
+        m = build_model(dataclasses.replace(cfg, remat=remat), cuda)
+        p = m.init(torch.Generator(device=cuda).manual_seed(1))
+        for t in leaves(p):
+            t.requires_grad_(True)
+        loss, _ = m.loss_fn(p, batch)
+        return torch.autograd.grad(loss, leaves(p))
+
+    n = cfg.n_layers
+    rn_mod.counter.reset()
+    remat = grads(True)
+    assert rn_mod.counter.launches == (2 * n + 1) + 2 * n
+    rn_mod.counter.reset()
+    whole = grads(False)
+    assert rn_mod.counter.launches == 2 * n + 1
+    assert all(torch.equal(a, b) for a, b in zip(remat, whole))
+    monkeypatch.setattr(rn_mod, "_launch", lambda x, s, eps: rn_mod.rmsnorm_plain(x, s, eps))
+    plain = grads(False)
+    worst = max(float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+                for a, b in zip(whole, plain))
+    print(f"rmsnorm in training ({policy}): worst gradient {worst:.4g} relative norm")
+    assert worst < 0.06
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64, torch.int32])
+def test_cuda_rmsnorm_refuses_other_dtypes(cuda, dtype):
+    x = torch.ones((4, 64), device=cuda).to(dtype)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        rn_mod.rmsnorm(x, torch.ones(64, device=cuda))

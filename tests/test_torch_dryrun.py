@@ -21,8 +21,10 @@ from repro.models import build_model as r_build
 from repro.models import model as r_model
 from repro.train import optimizer as r_opt
 from repro_torch.configs import ShapeConfig, get_smoke_config
+from repro_torch.core import trace
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import abstract_world
+from repro_torch.models import layers
 
 
 def _reference(name: str):
@@ -122,6 +124,40 @@ def test_prefill_dot_flops_match_the_reference_hlo():
     got = res["hlo_analysis"]["flops"] + 2 * b * (s - 1) * cfg.d_model * cfg.vocab
     assert got == pytest.approx(want, rel=1e-2)
     assert res["hlo_analysis"]["kernels"] == {}      # "xla": no K6
+
+
+
+
+def _chain_rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """``layers.rmsnorm`` before the norm had a kernel: the float32 chain in
+    its span."""
+    with trace.scope("norm", "model"):
+        xf = x.float()
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        out = xf * torch.rsqrt(var + eps) * params["scale"]
+        return out.to(x.dtype)
+
+
+@pytest.mark.parametrize("kind", sorted(CELL_SHAPES))
+@pytest.mark.parametrize("mesh_shape", [(1, 1), (2, 2)])
+def test_dryrun_accounting_of_the_norm_is_unchanged(mesh_shape, kind, monkeypatch):
+    """yi-6b's smoke cells on meta shards: every ``hlo_analysis`` number
+    with the norm's dispatch equals the one with ``layers.rmsnorm`` put back
+    to the chain it ran before (meta tensors, DTensors on meta among them,
+    take the plain version; no kernel is charged for the norm).  A
+    process's first analysis counts a few more bytes than the next (a
+    first-call allocation), so both sides are taken after one warm-up."""
+    cfg, shape = get_smoke_config("yi-6b"), CELL_SHAPES[kind]
+
+    def analyzed():
+        with abstract_world(mesh_shape[0] * mesh_shape[1]):
+            return dryrun.analyze_cell(cfg, shape, _mesh(mesh_shape))["hlo_analysis"]
+
+    analyzed()
+    got = analyzed()
+    monkeypatch.setattr(layers, "rmsnorm", _chain_rmsnorm)
+    assert got == analyzed()
+    assert "rmsnorm" not in got["kernels"]
 
 
 

@@ -972,3 +972,127 @@ def test_flash_tma_operand_copies_only_what_tma_cannot_read():
     assert shifted.data_ptr() % 16 != 0
     got = fa_mod.tma_operand(shifted)
     assert got.data_ptr() % 16 == 0 and got.shape == shifted.shape and torch.equal(got, shifted)
+
+
+# ---- rmsnorm ----------------------------------------------------------------------
+# The JAX package has no norm kernel (XLA fuses its chain); ``rmsnorm_plain`` is
+# held to the JAX package through ``layers.rmsnorm`` in tests/test_torch_models.py,
+# and here to the chain ``layers.rmsnorm`` ran before the kernel, bit for bit.
+from repro_torch.kernels import rms_norm as rn_mod  # noqa: E402
+from repro_torch.models import layers as tlayers  # noqa: E402
+
+
+def _chain_rmsnorm(x, scale, eps):
+    """``layers.rmsnorm``'s body before the norm had a kernel."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * scale
+    return out.to(x.dtype)
+
+
+def _norm_input(rng, shape, dtype, view):
+    x = _t((rng.standard_normal(shape) * 3).astype(np.float32)).to(dtype)
+    return x[:, -1] if view == "last" else x
+
+
+@pytest.mark.parametrize("view", ["whole", "last"])
+@pytest.mark.parametrize("shape", [(2, 16, 64), (3, 5, 48), (1, 7, 1000), (4, 1, 1)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rmsnorm_plain_is_the_chain_it_replaces(rng, dtype, shape, view):
+    """Bit for bit, on whole tensors and on the final norm's x[:, -1] view,
+    through the layer (CPU: the plain version) and through the wrapper."""
+    x = _norm_input(rng, shape, dtype, view)
+    scale = _t((1 + 0.1 * rng.standard_normal(shape[-1])).astype(np.float32))
+    want = _chain_rmsnorm(x, scale, 1e-6)
+    rn_mod.counter.reset()
+    for got in (rn_mod.rmsnorm_plain(x, scale, 1e-6), rn_mod.rmsnorm(x, scale),
+                tops.rmsnorm(x, scale), tlayers.rmsnorm({"scale": scale}, x)):
+        assert got.dtype == dtype and torch.equal(got, want)
+    assert rn_mod.counter.launches == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rmsnorm_plain_gradient_is_the_chains(rng, dtype):
+    x = _norm_input(rng, (2, 9, 48), dtype, "whole").requires_grad_(True)
+    scale = _t(rng.random(48).astype(np.float32)).requires_grad_(True)
+    w = _t(rng.standard_normal((2, 9, 48)).astype(np.float32)).to(dtype)
+    got = torch.autograd.grad((tops.rmsnorm(x, scale) * w).sum(), (x, scale))
+    want = torch.autograd.grad((_chain_rmsnorm(x, scale, 1e-6) * w).sum(), (x, scale))
+    assert all(torch.equal(g, h) for g, h in zip(got, want))
+
+
+def test_rmsnorm_meta_takes_the_plain_path():
+    """Meta tensors (the dry-run) run the plain chain: a meta result of x's
+    shape and dtype, nothing launched, nothing charged as a kernel."""
+    from repro_torch.kernels._util import charging
+    charged = []
+    rn_mod.counter.reset()
+    x = torch.empty((2, 8, 64), dtype=torch.bfloat16, device="meta")
+    with charging(lambda *a: charged.append(a)):
+        out = tops.rmsnorm(x, torch.empty(64, device="meta"))
+    assert out.is_meta and out.shape == x.shape and out.dtype == x.dtype
+    assert rn_mod.counter.launches == 0 and charged == []
+
+
+@pytest.mark.parametrize("x_dev,s_dev", [("cpu", "meta"), ("meta", "cpu")])
+def test_rmsnorm_mixed_devices_raise(x_dev, s_dev):
+    x = torch.zeros((2, 64), device=x_dev)
+    with pytest.raises(ValueError, match="all be on the CPU or all on one CUDA"):
+        rn_mod.rmsnorm(x, torch.ones(64, device=s_dev))
+
+
+RMSNORM_SHAPES = [
+    ((16384, 4096, 8), (2, 256)),     # yi-6b's prefill at 4 x 4096, bf16
+    ((8, 4096, 8), (1, 512)),         # a decode step's 8 rows: few rows, one chunk a thread
+    ((16384, 8192, 8), (4, 256)),     # llama-3.2-vision-90b's d
+    ((16384, 8192, 4), (8, 256)),     # float32
+    ((16384, 1536, 8), (1, 192)),
+    ((300, 48, 8), (1, 32)),          # a smoke config's d: one warp
+    ((4097, 1001, 1), (4, 256)),      # d with no 16-byte chunk: one element a chunk
+    ((1, 1, 1), (1, 32)),
+    ((16384, 32768, 8), (4, 1024)),   # MAX_D
+]
+
+
+@pytest.mark.parametrize("args,want", RMSNORM_SHAPES)
+def test_rmsnorm_launch_shape(args, want):
+    """K chunks a thread and the threads a CTA, from rows, d and the chunk's
+    elements alone; every chunk of the row covered."""
+    rows, d, vec = args
+    k, threads = rn_mod.launch_shape(rows, d, vec)
+    assert (k, threads) == want
+    assert k * threads * vec >= d and threads % 32 == 0 and k * vec <= rn_mod.MAX_HELD
+
+
+def test_rmsnorm_launch_shape_refuses_past_max_d():
+    with pytest.raises(ValueError, match="past the kernel's"):
+        rn_mod.launch_shape(4, rn_mod.MAX_D + 8, 8)
+
+
+@pytest.mark.parametrize("dtype,d,stride,addresses,want", [
+    (torch.bfloat16, 4096, 4096, (0, 256, 512), 8),
+    (torch.bfloat16, 4096, 4096 * 1024, (4096 * 1023 * 2, 0, 0), 8),   # x[:, -1]
+    (torch.float32, 4096, 4096, (0, 0, 0), 4),
+    (torch.bfloat16, 1001, 1001, (0, 0, 0), 1),       # d not a multiple of 8
+    (torch.bfloat16, 4096, 4100, (0, 0, 0), 1),       # a row stride that is not
+    (torch.float32, 48, 48, (8, 0, 0), 1),            # a base off 16 bytes
+])
+def test_rmsnorm_chunk_elems(dtype, d, stride, addresses, want):
+    assert rn_mod.chunk_elems(dtype, d, stride, addresses) == want
+
+
+@pytest.mark.parametrize("shape,strides,want", [
+    ((4, 16, 64), (1024, 64, 1), (64, 64)),
+    ((4, 64), (1024, 1), (4, 1024)),            # x[:, -1] of a (4, 16, 64) tensor
+    ((4, 1, 64), (1024, 1024, 1), (4, 1024)),   # a size-1 axis folds in
+    ((64,), (1,), (1, 64)),
+    ((1, 1, 64), (64, 64, 1), (1, 64)),
+])
+def test_rmsnorm_rows_and_stride(shape, strides, want):
+    assert rn_mod.rows_and_stride(shape, strides) == want
+
+
+def test_rmsnorm_rows_that_do_not_fold_raise():
+    x = torch.zeros(4, 16, 64)[:, 3:7]
+    with pytest.raises(ValueError, match="do not fold"):
+        rn_mod.rows_and_stride(tuple(x.shape), tuple(x.stride()))

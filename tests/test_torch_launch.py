@@ -10,6 +10,7 @@ import os
 import numpy as np
 import pytest
 import torch
+from torch.distributed.tensor import Replicate, Shard
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import get_smoke_config
@@ -145,6 +146,36 @@ def test_pipeline_cell_values_match_numpy():
     np.testing.assert_allclose(gb_n, onehot.T @ clean, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(gb_1, clean.sum(0, keepdims=True), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(window, np.cumsum(clean, 0), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("pl", [Replicate(), Shard(0), Shard(1), Shard(2)], ids=str)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rmsnorm_dtensor_route_matches_plain(pl, dtype):
+    """On a real one-rank gloo mesh: ``kernels.ops.rmsnorm`` on DTensors
+    (the norm on each device's rows, through ``local_map``) equals the plain
+    version on the whole tensors, with x's placement kept, and so do its
+    gradients."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.rms_norm import rmsnorm_plain
+    from repro_torch.launch.mesh import close_local_group, make_local_mesh
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((2, 6, 48)).astype(np.float32)).to(dtype)
+    scale = torch.from_numpy((1 + 0.1 * rng.standard_normal(48)).astype(np.float32))
+    try:
+        mesh = make_local_mesh("cpu")
+        dx = distribute_tensor(x, mesh, [pl, Replicate()]).requires_grad_(True)
+        ds = distribute_tensor(scale, mesh, [Replicate(), Replicate()]).requires_grad_(True)
+        out = kops.rmsnorm(dx, ds)
+        assert list(out.placements) == [pl, Replicate()]
+        got = out.full_tensor()
+        grads = [g.full_tensor() for g in torch.autograd.grad(out.sum(), (dx, ds))]
+    finally:
+        close_local_group()
+    xs, ss = x.clone().requires_grad_(True), scale.clone().requires_grad_(True)
+    want = rmsnorm_plain(xs, ss, 1e-6)
+    assert torch.equal(got, want)
+    assert all(torch.equal(g, w) for g, w in zip(grads, torch.autograd.grad(want.sum(), (xs, ss))))
 
 
 def test_pipeline_cell_collectives_on_a_fake_mesh():

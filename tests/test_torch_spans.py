@@ -137,6 +137,29 @@ def test_ring_holds_the_same_tree_with_layer_index(yi):
 
 
 @pytest.mark.trace
+@pytest.mark.parametrize("entry", ["prefill", "forward", "decode_step"])
+def test_norm_spans_have_no_child_in_the_ring(yi, entry):
+    """The rmsnorm kernel launches in ``norm`` itself (``kernels/ops.py``
+    opens no ``kernel:rmsnorm`` for it): in the ring, each of the 2 x layers
+    + 1 ``norm`` spans of a prefill, a forward and a decode step is a
+    leaf."""
+    cfg, model, params, tokens = yi
+    tr = trace.Tracer(session_id="norm")
+    trace.configure(tr)
+    try:
+        if entry == "decode_step":
+            model.decode_step(params, tokens[:, 0], model.cache_init(tokens.shape[0], 8))
+        else:
+            getattr(model, entry)(params, tokens)
+    finally:
+        trace.reset()
+    spans = tr.snapshot()
+    norms = {s.id for s in spans if s.name == "norm"}
+    assert len(norms) == 2 * cfg.n_layers + 1
+    assert [s.name for s in spans if s.parent in norms] == []
+
+
+@pytest.mark.trace
 def test_ring_and_ranges_together(yi, tmp_path):
     """Tracer and profiler both on: the ring keeps the spans and the
     profiler shows the same ranges."""
