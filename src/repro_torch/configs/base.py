@@ -60,6 +60,21 @@ class ArchConfig:
     sub_quadratic: bool = False      # eligible for long_500k
     param_dtype: str = "bfloat16"
 
+    # Settings that only ``AfmoeConfig`` (``trinity_mini.py``) makes fields
+    # of, read by the model on every config.  As plain class attributes they
+    # stay out of ``dataclasses.asdict``, so the ten configs still equal the
+    # JAX package's; these are the values those configs run with.
+    n_dense_layers = 0               # leading layers with a SwiGLU of d_ff_dense
+    d_ff_dense = 0
+    n_shared_experts = 0
+    route_scale = 1.0
+    moe_dispatch = "capacity"        # capacity (softmax) | dropless (sigmoid, moe_dropless)
+    qk_norm = False
+    attn_gate = False
+    sandwich_norm = False
+    rope_global = True               # False: RoPE on local layers only
+    norm_eps = 1e-6                  # RMSNorm's
+
     @property
     def head_dim_(self) -> int:
         return self.head_dim or (self.d_model // self.n_heads)

@@ -1,4 +1,5 @@
-"""``--arch <id>`` registry: all 10 assigned architectures."""
+"""``--arch <id>`` registry: all 10 assigned architectures (``ARCH_IDS``,
+the JAX package's), and beside them the port's own (``EXTRA_IDS``)."""
 from __future__ import annotations
 
 import importlib
@@ -18,14 +19,23 @@ _MODULES = {
     "whisper-base": "whisper_base",
 }
 
+# configs the JAX package does not have
+_EXTRA = {
+    "trinity-mini": "trinity_mini",
+}
+
 ARCH_IDS = tuple(_MODULES)
+EXTRA_IDS = tuple(_EXTRA)
+
+
+def _module(arch_id: str):
+    return importlib.import_module(f".{_MODULES.get(arch_id) or _EXTRA[arch_id]}",
+                                   __package__)
 
 
 def get_config(arch_id: str) -> ArchConfig:
-    mod = importlib.import_module(f".{_MODULES[arch_id]}", __package__)
-    return mod.CONFIG
+    return _module(arch_id).CONFIG
 
 
 def get_smoke_config(arch_id: str) -> ArchConfig:
-    mod = importlib.import_module(f".{_MODULES[arch_id]}", __package__)
-    return mod.smoke_config()
+    return _module(arch_id).smoke_config()

@@ -16,10 +16,17 @@ Execution paths, selected by ``impl`` as in the reference
 Shapes: x (B, S, d); params store the q/k/v projections (d, H·Dh).  KV
 caches are (B, S_max, K, Dh) with a per-slot length (B,).
 
+AFMoE's additions (``configs/trinity_mini.py``) follow the parameters a
+layer holds, as the QKV bias does: ``q_norm`` / ``k_norm`` (each (Dh,)
+float32) RMS-normalise every q and k head before RoPE; ``wg`` (d, H·Dh)
+gates the heads, out · σ(x Wg), before the output projection.  RoPE is the
+caller's choice (``use_rope``): AFMoE's full layers take none.
+
 Spans (``core.trace.scope``): ``attention`` around each entry point,
-``qkv`` around the projections (RoPE's ``rope`` inside), ``wo`` around the
-output projection; the kernels' own ``kernel:<entry>`` come from
-``kernels.ops``.
+``qkv`` around the projections (RoPE's ``rope`` and QK-norm's ``norm``
+inside; the gate's product too), ``attn_gate`` around the gate's sigmoid
+and multiply, ``wo`` around the output projection; the kernels' own
+``kernel:<entry>`` come from ``kernels.ops``.
 """
 from __future__ import annotations
 
@@ -48,7 +55,8 @@ def attn_init(gen: torch.Generator, d_model: int, n_heads: int, n_kv: int,
     return p
 
 
-def _project_qkv(params, x, n_heads, n_kv, head_dim, positions, use_rope=True):
+def _project_qkv(params, x, n_heads, n_kv, head_dim, positions, use_rope=True,
+                 norm_eps=1e-6):
     b, s, _ = x.shape
     with trace.scope("qkv", "model"):
         q, k, v = x @ params["wq"], x @ params["wk"], x @ params["wv"]
@@ -57,16 +65,27 @@ def _project_qkv(params, x, n_heads, n_kv, head_dim, positions, use_rope=True):
         q = constrain_heads(q.reshape(b, s, n_heads, head_dim))
         k = constrain_heads(k.reshape(b, s, n_kv, head_dim))
         v = constrain_heads(v.reshape(b, s, n_kv, head_dim))
+        if "q_norm" in params:
+            q = layers.rmsnorm(params["q_norm"], q, norm_eps)
+            k = layers.rmsnorm(params["k_norm"], k, norm_eps)
         if use_rope:
             q = layers.rope(q, positions)
             k = layers.rope(k, positions)
         return q, k, v
 
 
-def _out_proj(out: torch.Tensor, wo: torch.Tensor, b: int, s: int) -> torch.Tensor:
-    """Attention's heads (B, S, H, Dh) through the output projection."""
+def _out_proj(out: torch.Tensor, params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Attention's heads (B, S, H, Dh) of the layer input x (B, S, d),
+    gated where the layer has a gate, through the output projection."""
+    b, s, _ = x.shape
+    out = out.reshape(b, s, -1)
+    if "wg" in params:
+        with trace.scope("qkv", "model"):
+            g = x @ params["wg"]
+        with trace.scope("attn_gate", "model"):
+            out = out * torch.sigmoid(g)
     with trace.scope("wo", "model"):
-        return out.reshape(b, s, -1) @ wo
+        return out @ params["wo"]
 
 
 def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
@@ -162,14 +181,15 @@ def _einsum_attention(q, k, v, *, causal, window, impl, kv_len):
 def self_attention(params: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
                    head_dim: int, causal: bool = True, window: int | None = None,
                    impl: str = "xla", positions: torch.Tensor | None = None,
-                   use_rope: bool = True) -> torch.Tensor:
+                   use_rope: bool = True, norm_eps: float = 1e-6) -> torch.Tensor:
     b, s, _ = x.shape
     with trace.scope("attention", "model"):
         if positions is None:
             positions = torch.arange(s, device=x.device).expand(b, s)
-        q, k, v = _project_qkv(params, x, n_heads, n_kv, head_dim, positions, use_rope)
+        q, k, v = _project_qkv(params, x, n_heads, n_kv, head_dim, positions, use_rope,
+                               norm_eps)
         out = multihead_attention(q, k, v, causal=causal, window=window, impl=impl)
-        return _out_proj(out, params["wo"], b, s)
+        return _out_proj(out, params, x)
 
 
 def _project_memory(params, x, memory, n_heads, n_kv, head_dim):
@@ -188,11 +208,10 @@ def cross_attention(params: dict, x: torch.Tensor, memory: torch.Tensor, *,
                     n_heads: int, n_kv: int, head_dim: int, impl: str = "xla") -> torch.Tensor:
     """x (B,S,d) attends to memory (B,M,d), non-causal — VLM image layers /
     enc-dec.  "pallas" runs K6 over the un-repeated KV heads."""
-    b, s, _ = x.shape
     with trace.scope("attention", "model"):
         q, k, v = _project_memory(params, x, memory, n_heads, n_kv, head_dim)
         out = multihead_attention(q, k, v, causal=False, impl=impl)
-        return _out_proj(out, params["wo"], b, s)
+        return _out_proj(out, params, x)
 
 
 def decode_cross_attention(params: dict, x: torch.Tensor, memory: torch.Tensor, *,
@@ -210,7 +229,7 @@ def decode_cross_attention(params: dict, x: torch.Tensor, memory: torch.Tensor, 
         q, k, v = _project_memory(params, x, memory, n_heads, n_kv, head_dim)
         full = torch.full((b,), m, dtype=torch.int32, device=x.device)
         out = kops.decode_attention(q.reshape(b, n_heads, head_dim), k, v, full)
-        return _out_proj(out, params["wo"], b, 1)
+        return _out_proj(out, params, x)
 
 
 # -----------------------------------------------------------------------------
@@ -279,7 +298,7 @@ def put_slot(cache: torch.Tensor, new: torch.Tensor, slot: torch.Tensor) -> None
 def decode_self_attention(params: dict, x: torch.Tensor, cache: dict,
                           length: torch.Tensor, *, n_heads: int, n_kv: int,
                           head_dim: int, window: int | None = None,
-                          impl: str = "xla", use_rope: bool = True):
+                          impl: str = "xla", use_rope: bool = True, norm_eps: float = 1e-6):
     """One-token decode step.  x (B,1,d); cache k/v (B,Smax,K,Dh); ``length``
     (B,) valid-slot counts.  Returns (out (B,1,d), cache).  Unlike the
     reference, the cache is written in place (the same dict comes back): a
@@ -287,7 +306,8 @@ def decode_self_attention(params: dict, x: torch.Tensor, cache: dict,
     b = x.shape[0]
     with trace.scope("attention", "model"):
         positions = length[:, None]                               # (B,1)
-        q, k, v = _project_qkv(params, x, n_heads, n_kv, head_dim, positions, use_rope)
+        q, k, v = _project_qkv(params, x, n_heads, n_kv, head_dim, positions, use_rope,
+                               norm_eps)
         _write_slot(cache["k"], k[:, 0], length)
         _write_slot(cache["v"], v[:, 0], length)
         kv_len = length + 1
@@ -300,4 +320,4 @@ def decode_self_attention(params: dict, x: torch.Tensor, cache: dict,
             out = multihead_attention(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
                                       causal=False, window=window, impl="xla",
                                       kv_len=kv_len)
-        return _out_proj(out, params["wo"], b, 1), cache
+        return _out_proj(out, params, x), cache

@@ -96,12 +96,17 @@ def swiglu_init(gen: torch.Generator, d_model: int, d_ff: int,
             "w_down": dense_init(gen, d_ff, d_model, dtype)}
 
 
+def swiglu_ffn(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """The SwiGLU itself, in its caller's span (an MoE's shared experts)."""
+    g = x @ params["w_gate"]
+    u = x @ params["w_up"]
+    h = F.silu(g.float()).to(x.dtype) * u
+    return h @ params["w_down"]
+
+
 def swiglu(params: dict, x: torch.Tensor) -> torch.Tensor:
     with trace.scope("mlp", "model"):
-        g = x @ params["w_gate"]
-        u = x @ params["w_up"]
-        h = F.silu(g.float()).to(x.dtype) * u
-        return h @ params["w_down"]
+        return swiglu_ffn(params, x)
 
 
 def gelu_mlp_init(gen: torch.Generator, d_model: int, d_ff: int,

@@ -17,19 +17,44 @@ Where the port differs from the reference, and why the result does not:
   atomics, and sends every dropped route to one spare row past the buffers
   that nothing reads.  The buffers are laid out (E, G·C, d), so the
   expert matmuls are one batched product over the experts.
+
+The dropless path (``moe_dropless``, a config's ``moe_dispatch =
+"dropless"``: AFMoE, ``configs/trinity_mini.py``) has no counterpart in the
+reference.  Tokens choose by sigmoid scores with an expert bias (``route``).
+Every route is computed: the T·k routes are sorted by expert
+(a stable sort, so each expert's rows keep token order), the tokens
+gathered in that order, and each projection is one grouped product
+(``torch._grouped_mm``) over the experts' row ranges, whose ends stay on
+the device: nothing waits on the host.  The combine gathers each token's k
+rows back and sums them in one reduction, with no float atomics, so two
+runs are bit-equal.  A token's output depends on its own routes alone, so
+decode agrees with the forward (the capacity path's slots depend on the
+other tokens of the group).  Spans: ``moe`` (args: layer index, tokens,
+routes, experts; with the tracer on, not under the profiler alone, also
+the most and fewest rows an expert took and how many took none, which
+reads the device) holds ``route``, ``experts`` (the routed experts' three
+grouped products and their SwiGLU), ``combine`` and ``shared`` (the
+shared experts).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
 
 from . import layers
+from ..core import trace
 
 
 def moe_init(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int,
-             dtype=layers.DEFAULT_PARAM_DTYPE) -> dict:
+             dtype=layers.DEFAULT_PARAM_DTYPE, n_shared: int = 0,
+             expert_bias: bool = False) -> dict:
+    """The router (d, E) float32 and the experts' (E, d, ff) / (E, ff, d)
+    matrices; with ``expert_bias`` a zero (E,) float32 bias of the
+    selection, with ``n_shared`` a SwiGLU of n_shared · ff beside them
+    (``shared``: n shared experts of width ff are one of that width)."""
     dev = gen.device
 
     def experts(shape, scale):
@@ -37,12 +62,17 @@ def moe_init(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int,
         return (w * scale).to(dtype)
 
     scale_in, scale_out = 1.0 / math.sqrt(d_model), 1.0 / math.sqrt(d_ff)
-    return {
+    p = {
         "router": layers.dense_init(gen, d_model, n_experts, torch.float32),
         "w_gate": experts((n_experts, d_model, d_ff), scale_in),
         "w_up": experts((n_experts, d_model, d_ff), scale_in),
         "w_down": experts((n_experts, d_ff, d_model), scale_out),
     }
+    if expert_bias:
+        p["expert_bias"] = torch.zeros((n_experts,), dtype=torch.float32, device=dev)
+    if n_shared:
+        p["shared"] = layers.swiglu_init(gen, d_model, n_shared * d_ff, dtype)
+    return p
 
 
 def _gcd_groups(t: int, want: int) -> int:
@@ -172,3 +202,74 @@ def moe_apply(params: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
     router_z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
     aux = {"load_balance_loss": load_balance, "router_z_loss": router_z}
     return out.reshape(b, s, d).to(x.dtype), aux
+
+
+# =============================================================================
+# dropless token choice (AFMoE)
+# =============================================================================
+_TAPE: list | None = None
+
+
+@contextlib.contextmanager
+def record_routes():
+    """Collects each ``moe_dropless`` call's chosen experts, (T, k) int64 in
+    choice order, in call order, into the list it yields."""
+    global _TAPE
+    outer, _TAPE = _TAPE, []
+    try:
+        yield _TAPE
+    finally:
+        _TAPE = outer
+
+
+def route(params: dict, xt: torch.Tensor, top_k: int,
+          route_scale: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """(chosen (T, k) expert ids, their weights (T, k) float32) of the
+    tokens xt (T, d).  Scores σ(x Wr) in float32; the top k of the scores
+    plus ``expert_bias`` are chosen (ties to the lower index), the bias
+    selecting but not weighing; the chosen scores are normalised to sum 1
+    and scaled by ``route_scale``."""
+    scores = torch.sigmoid(xt.float() @ params["router"].float())
+    _, chosen = _top_k(scores + params["expert_bias"], top_k)
+    w = scores.gather(1, chosen)
+    return chosen, w * (route_scale / w.sum(-1, keepdim=True))
+
+
+def moe_dropless(params: dict, x: torch.Tensor, *, top_k: int, route_scale: float = 1.0,
+                 index: int = 0) -> torch.Tensor:
+    """x (B, S, d) → (B, S, d) in x's dtype: each token's k routed experts,
+    weighted as ``route`` weighs them, plus the shared experts, every
+    route computed (see the module's note)."""
+    b, s, d = x.shape
+    xt = x.reshape(-1, d)
+    t = xt.shape[0]
+    n_experts = params["w_gate"].shape[0]
+    with trace.scope("moe", "model") as sp:
+        with trace.scope("route", "model"):
+            chosen, w = route(params, xt, top_k, route_scale)
+            if _TAPE is not None:
+                _TAPE.append(chosen)
+            sorted_e, order = torch.sort(chosen.reshape(-1), stable=True)
+            ends = torch.searchsorted(
+                sorted_e, torch.arange(n_experts, device=x.device), right=True).to(torch.int32)
+            rows = xt.index_select(0, order // top_k)              # (T·k, d), by expert
+            w_rows = w.reshape(-1).index_select(0, order)
+        if sp is not None:
+            sp.args = {"index": index, "tokens": t, "routes": t * top_k, "experts": n_experts}
+            if trace.current() is not None:
+                counts = torch.diff(ends, prepend=ends.new_zeros(1))
+                sp.args.update(rows_max=int(counts.max()), rows_min=int(counts.min()),
+                               empty_experts=int((counts == 0).sum()))
+        with trace.scope("experts", "model"):
+            # each expert's row range [ends[e-1], ends[e]) times its matrices
+            h = F.silu(torch._grouped_mm(rows, params["w_gate"], offs=ends))
+            h.mul_(torch._grouped_mm(rows, params["w_up"], offs=ends))
+            h.mul_(w_rows[:, None])
+            y = torch._grouped_mm(h, params["w_down"], offs=ends)   # (T·k, d), by expert
+        with trace.scope("combine", "model"):
+            back = torch.empty_like(order).scatter_(
+                0, order, torch.arange(order.numel(), device=x.device))
+            routed = y.index_select(0, back).view(t, top_k, d).sum(1, dtype=torch.float32)
+        with trace.scope("shared", "model"):
+            out = routed + layers.swiglu_ffn(params["shared"], xt).float()
+            return out.to(x.dtype).reshape(b, s, d)

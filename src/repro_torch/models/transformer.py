@@ -46,6 +46,17 @@ outputs of its matmuls without batch dimensions (``aten.mm``: the
 projections and MLPs, not attention's or the experts' batched products),
 as the reference's ``dots_with_no_batch_dims_saveable``.
 
+AFMoE (``configs/trinity_mini.py``) takes settings the other configs
+hold at their defaults (``ArchConfig``'s class attributes): the first
+``n_dense_layers`` layers have a SwiGLU of ``d_ff_dense`` in place of the
+MoE, which ``moe_dispatch = "dropless"`` sends down ``moe.moe_dropless``
+(sigmoid routing with an expert bias, ``route_scale``, shared experts);
+``qk_norm`` and ``attn_gate`` give each attention its QK-norm scales and
+output gate; ``sandwich_norm`` norms each sublayer's output before the
+residual add (``ln1_post``, ``ln2_post``); ``rope_global`` False leaves
+RoPE to the ``local`` layers; ``norm_eps`` is RMSNorm's eps.  The dropless
+path returns no auxiliary loss.
+
 Spans (``core.trace.scope``; profiler ranges ``repro:<name>`` while one
 records): ``prefill`` around a prefill, ``embed``, ``block`` around each
 layer (``args``: its index and kind; the names carry no index),
@@ -93,16 +104,36 @@ def _norm_init(cfg: ArchConfig, device):
 
 
 def _norm_apply(cfg: ArchConfig, p, x):
-    return layers.rmsnorm(p, x) if cfg.norm == "rmsnorm" else layers.layernorm(p, x)
+    return layers.rmsnorm(p, x, cfg.norm_eps) if cfg.norm == "rmsnorm" \
+        else layers.layernorm(p, x)
 
 
 def _attn_init(gen: torch.Generator, cfg: ArchConfig) -> dict:
-    return attention.attn_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim_,
-                               cfg.qkv_bias)
+    p = attention.attn_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim_,
+                            cfg.qkv_bias)
+    if cfg.qk_norm:
+        p["q_norm"] = layers.rmsnorm_init(cfg.head_dim_, gen.device)
+        p["k_norm"] = layers.rmsnorm_init(cfg.head_dim_, gen.device)
+    if cfg.attn_gate:
+        p["wg"] = layers.dense_init(gen, cfg.d_model, cfg.n_heads * cfg.head_dim_)
+    return p
 
 
-def _block_init(gen: torch.Generator, kind: str, cfg: ArchConfig) -> dict:
+def layer_mlp(cfg: ArchConfig, index: int) -> str:
+    """Layer ``index``'s MLP: a SwiGLU in the leading dense layers, else
+    ``cfg.mlp``."""
+    return "swiglu" if index < cfg.n_dense_layers else cfg.mlp
+
+
+def _rope_on(cfg: ArchConfig, kind: str) -> bool:
+    return cfg.use_rope and (cfg.rope_global or kind == "local")
+
+
+def _block_init(gen: torch.Generator, kind: str, cfg: ArchConfig, index: int = 0) -> dict:
     p: dict[str, Any] = {"ln1": _norm_init(cfg, gen.device), "ln2": _norm_init(cfg, gen.device)}
+    if cfg.sandwich_norm:
+        p["ln1_post"] = _norm_init(cfg, gen.device)
+        p["ln2_post"] = _norm_init(cfg, gen.device)
     if kind == "cross":
         p["cross"] = _attn_init(gen, cfg)
     elif kind == "dec":
@@ -115,14 +146,18 @@ def _block_init(gen: torch.Generator, kind: str, cfg: ArchConfig) -> dict:
         p["rwkv"] = recurrent.rwkv6_block_init(gen, cfg.d_model, cfg.rwkv_head_dim)
     else:
         p["attn"] = _attn_init(gen, cfg)
-    if cfg.mlp == "moe":
-        p["mlp"] = moe.moe_init(gen, cfg.d_model, cfg.d_ff, cfg.n_experts)
-    elif cfg.mlp == "gelu":
+    mlp = layer_mlp(cfg, index)
+    if mlp == "moe":
+        p["mlp"] = moe.moe_init(gen, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                                n_shared=cfg.n_shared_experts,
+                                expert_bias=cfg.moe_dispatch == "dropless")
+    elif mlp == "gelu":
         p["mlp"] = layers.gelu_mlp_init(gen, cfg.d_model, cfg.d_ff)
-    elif cfg.mlp == "rwkv_cmix":
+    elif mlp == "rwkv_cmix":
         p["mlp"] = recurrent.rwkv_cmix_init(gen, cfg.d_model, cfg.d_ff)
     else:
-        p["mlp"] = layers.swiglu_init(gen, cfg.d_model, cfg.d_ff)
+        ff = cfg.d_ff_dense if index < cfg.n_dense_layers else cfg.d_ff
+        p["mlp"] = layers.swiglu_init(gen, cfg.d_model, ff)
     return p
 
 
@@ -137,7 +172,8 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         params["unembed"] = layers.embed_init(gen, cfg.vocab, cfg.d_model)
-    params["layers"] = [_block_init(gen, kind, cfg) for kind in layer_kinds(cfg)]
+    params["layers"] = [_block_init(gen, kind, cfg, i)
+                        for i, kind in enumerate(layer_kinds(cfg))]
     if cfg.encoder_layers:
         params["encoder"] = {
             "enc_layers": [_block_init(gen, "attn", cfg) for _ in range(cfg.encoder_layers)],
@@ -155,15 +191,20 @@ def _pick_impl(cfg: ArchConfig) -> str:
     return "pallas" if cfg.attn_impl in ("auto", "pallas") else cfg.attn_impl
 
 
-def _mlp_apply(cfg: ArchConfig, p, h, x_prev=None) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """(the MLP's output, the MoE aux loss or None)."""
-    if cfg.mlp == "moe":
+def _mlp_apply(cfg: ArchConfig, p, h, x_prev=None,
+               index: int = 0) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """(layer ``index``'s MLP output, the MoE aux loss or None)."""
+    mlp = layer_mlp(cfg, index)
+    if mlp == "moe" and cfg.moe_dispatch == "dropless":
+        return moe.moe_dropless(p, h, top_k=cfg.top_k, route_scale=cfg.route_scale,
+                                index=index), None
+    if mlp == "moe":
         m, aux = moe.moe_apply(p, h, n_experts=cfg.n_experts, top_k=cfg.top_k,
                                capacity_factor=cfg.capacity_factor, n_groups=cfg.moe_groups)
         return m, aux["load_balance_loss"] * 0.01 + aux["router_z_loss"] * 1e-3
-    if cfg.mlp == "gelu":
+    if mlp == "gelu":
         return layers.gelu_mlp(p, h), None
-    if cfg.mlp == "rwkv_cmix":
+    if mlp == "rwkv_cmix":
         return recurrent.rwkv_cmix(p, h, x_prev=x_prev), None
     return layers.swiglu(p, h), None
 
@@ -191,12 +232,17 @@ def _block_apply(kind: str, p: dict, x: torch.Tensor, cfg: ArchConfig, memory, i
             y = attention.self_attention(p["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
                                          head_dim=cfg.head_dim_, causal=causal or kind == "dec",
                                          window=cfg.window if kind == "local" else None,
-                                         impl=impl, use_rope=cfg.use_rope)
+                                         impl=impl, use_rope=_rope_on(cfg, kind),
+                                         norm_eps=cfg.norm_eps)
             if kind == "dec":
                 x = x + y
                 y = _cross(cfg, p["cross"], _norm_apply(cfg, p["lnx"], x), memory, impl)
+        if "ln1_post" in p:
+            y = _norm_apply(cfg, p["ln1_post"], y)
         x = x + y
-        m, aux = _mlp_apply(cfg, p["mlp"], _norm_apply(cfg, p["ln2"], x))
+        m, aux = _mlp_apply(cfg, p["mlp"], _norm_apply(cfg, p["ln2"], x), index=index)
+        if "ln2_post" in p:
+            m = _norm_apply(cfg, p["ln2_post"], m)
         return x + m, aux
 
 
@@ -414,17 +460,16 @@ def _decode_local(p: dict, h, cache: dict, length, cfg: ArchConfig):
     slots (the reference's ``_decode_local``): the new K/V go to slot
     length % w, written in place, and attention runs on the einsum path over
     the min(length + 1, w) filled slots, whose order does not matter."""
-    b = h.shape[0]
     w = cache["k"].shape[1]
     q, k, v = attention._project_qkv(p, h, cfg.n_heads, cfg.n_kv, cfg.head_dim_,
-                                     length[:, None], cfg.use_rope)
+                                     length[:, None], _rope_on(cfg, "local"), cfg.norm_eps)
     slot = torch.remainder(length, w)
     attention.put_slot(cache["k"], k[:, 0], slot)
     attention.put_slot(cache["v"], v[:, 0], slot)
     out = attention.multihead_attention(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
                                         causal=False, impl="xla",
                                         kv_len=torch.clamp(length + 1, max=w))
-    return out.reshape(b, 1, cfg.n_heads * cfg.head_dim_) @ p["wo"], cache
+    return attention._out_proj(out, p, h), cache
 
 
 def _decode_block(kind: str, p: dict, x, cache: dict, length, cfg: ArchConfig, memory,
@@ -445,17 +490,22 @@ def _decode_block(kind: str, p: dict, x, cache: dict, length, cfg: ArchConfig, m
             y = attention.decode_cross_attention(p["cross"], h, memory, impl=impl, **dims)
         else:
             y, cache = attention.decode_self_attention(p["attn"], h, cache, length, impl=impl,
-                                                       use_rope=cfg.use_rope, **dims)
+                                                       use_rope=_rope_on(cfg, kind),
+                                                       norm_eps=cfg.norm_eps, **dims)
             if kind == "dec":
                 x = x + y
                 y = attention.decode_cross_attention(p["cross"], _norm_apply(cfg, p["lnx"], x),
                                                      memory, impl=impl, **dims)
+        if "ln1_post" in p:
+            y = _norm_apply(cfg, p["ln1_post"], y)
         x = x + y
         h2 = _norm_apply(cfg, p["ln2"], x)
         x_prev = None
         if cfg.mlp == "rwkv_cmix" and kind == "rwkv":
             x_prev = cache["cmix_prev"][:, None].to(h2.dtype)
-        m, _ = _mlp_apply(cfg, p["mlp"], h2, x_prev)
+        m, _ = _mlp_apply(cfg, p["mlp"], h2, x_prev, index)
+        if "ln2_post" in p:
+            m = _norm_apply(cfg, p["ln2_post"], m)
         if kind == "rwkv":
             cache["cmix_prev"].copy_(h2[:, 0])
         return x + m, cache
