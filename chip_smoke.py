@@ -66,7 +66,14 @@ Phases (any failure raises and the script exits non-zero):
                  partials mode on each piece of the serving cache, cut
                  into 2, 4 and 8 pieces, combined in order) against the
                  whole cache in bf16 and f32 within K7_BF16_TOL, the
-                 partials mode timed at the serving shape; then the CUDA-only
+                 partials mode timed at the serving shape; the model
+                 layers' kernels at a 4 x 4,096 prefill of yi-6b: RN
+                 (rmsnorm) within one bf16 ulp of rmsnorm_plain at 16,384
+                 rows of d 4,096, RP (rope) equal to rope_plain bit for bit
+                 (torch.equal) at q (4, 4096, 32, 128) and k (4, 4096, 4,
+                 128), each ten reruns bit-identical, one launch a call
+                 under the profiler, timed against its byte bound; then the
+                 CUDA-only
                  pytest cases, ``python -m pytest --noconftest
                  tests/test_torch_cuda_kernels.py`` in a child process
                  (every case must pass; none may skip)
@@ -230,6 +237,10 @@ Phases (any failure raises and the script exits non-zero):
                  sequence-sharded cache gathered), its all-gather a device
                  before and after, with the prediction printed first (no
                  all-gather of cache rows may remain)
+
+RN's and RP's launches are counted from a reset before each of phases 7,
+8, 11, 12 and 13, and each of those phases must launch both (phase 11 also
+RP's backward).
 
 Run from the root of a checkout:  python3 chip_smoke.py
 The last two lines of standard output are the kernels' JSON record and
@@ -427,7 +438,14 @@ KERNEL_ROUTES = {
                                          "decode_split, decode_combine (partials mode)"},
     "flash_attention": {"tc": "src/repro_torch/csrc/flash_attention_tc.cu: flash_tc",
                         "fma": "src/repro_torch/csrc/flash_attention.cu: flash_fwd"},
+    "rope": {"fwd": "src/repro_torch/csrc/rope.cu: rope_rows",
+             "bwd": "src/repro_torch/csrc/rope.cu: rope_rows (inverse: the rotation by "
+                    "-angle)"},
 }
+# yi-6b's largest prefill, 4 x 4,096 tokens: the norms' rows (d 4,096) and
+# RoPE's q (32 heads) and k (4 heads) of D 128, bf16
+MODEL_ROWS, MODEL_D = 4 * 4096, 4096
+ROPE_MAIN_SHAPES = ((4, 4096, 32, 128), (4, 4096, 4, 128))
 
 
 def host_ms(fn, iters: int = EVENT_CALLS) -> float:
@@ -457,7 +475,8 @@ def one_launch_case(torch, case: str, dev):
     """(fn, kernel names) of phase 3's one-launch checks: K1's route reg at
     one Fig. 6 block, K4 at (2,000,000,), K5 at one RG-LRU layer of phase
     8's prefill and its backward at one of phase 11's training step, K7's
-    route tc at the serving shape."""
+    route tc at the serving shape, RN and RP at yi-6b's 4 x 4,096 prefill
+    (RP at its q)."""
     if case == "seg_reg":
         from repro_torch.kernels import segment_reduce as sr
         v = torch.rand((2_000_000, 8), device=dev)
@@ -479,6 +498,14 @@ def one_launch_case(torch, case: str, dev):
         g = torch.randn(a.shape, generator=gen, device=dev)
         h = ls.linear_scan(a, b)
         return (lambda: ls.linear_scan_backward(a, g, h)), ("lin_walk",)
+    if case == "rms_rows":
+        from repro_torch.kernels import rms_norm as rn
+        x, scale = norm_main_inputs(torch, dev)
+        return (lambda: rn.rmsnorm(x, scale)), ("rms_rows",)
+    if case == "rope_rows":
+        from repro_torch.kernels import rope as rp
+        x, pos = rope_main_inputs(torch, dev, ROPE_MAIN_SHAPES[0])
+        return (lambda: rp.rope(x, pos)), ("rope_rows",)
     from repro_torch.kernels import decode_attention as da
     q, k, v, lengths = decode_main_inputs(torch, dev)
     return (lambda: da.decode_attention(q, k, v, lengths)), ("decode_tc",)
@@ -1293,7 +1320,60 @@ def check_wide_aggregate(torch, dev) -> None:
     log("  wide aggregate: .T.count() / .sum() / .max() over 3,000 columns match the CPU")
 
 
-def time_kernels(torch, sr, bt, oh, ws, da, ls, fa, dev, pool: int) -> dict:
+def norm_main_inputs(torch, dev):
+    """x (16,384 x 4,096) bf16 and a float32 scale: one norm of yi-6b's
+    4 x 4,096 prefill."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    x = (3 * torch.randn((MODEL_ROWS, MODEL_D), generator=gen, device=dev)).bfloat16()
+    return x, 1 + 0.05 * torch.randn(MODEL_D, generator=gen, device=dev)
+
+
+def rope_main_inputs(torch, dev, shape):
+    """q or k of yi-6b's 4 x 4,096 prefill in bf16, with the prefill's
+    positions arange(S) for every row."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = (3 * torch.randn(shape, generator=gen, device=dev)).bfloat16()
+    return x, torch.arange(shape[1], device=dev).expand(shape[0], shape[1])
+
+
+def check_rms_norm(torch, rn, dev) -> None:
+    """RN at yi-6b's 4 x 4,096 prefill rows: within one bf16 ulp of
+    rmsnorm_plain (the float32 chain), ten reruns bit-identical; one launch
+    a call under the profiler."""
+    x, scale = norm_main_inputs(torch, dev)
+    got = rn.rmsnorm(x, scale)
+    for _ in range(10):
+        if not torch.equal(got, rn.rmsnorm(x, scale)):
+            raise AssertionError("rmsnorm main shape: reruns differ")
+    want = rn.rmsnorm_plain(x, scale, 1e-6)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7, atol=1e-5)
+    records = one_launch(torch, "rms_rows", dev)
+    log(f"  rmsnorm {list(x.shape)} bf16: within one bf16 ulp of the plain version "
+        f"({int((got != want).sum())} of {got.numel()} elements differ), 10 reruns "
+        f"bit-identical; 5 calls gave the profiler {records}: one launch a call")
+
+
+def check_rope(torch, rp, dev) -> None:
+    """RP at yi-6b's (and trinity-mini's) 4 x 4,096 prefill q and k:
+    equal to rope_plain bit for bit, ten reruns bit-identical; one launch a
+    call under the profiler."""
+    for shape in ROPE_MAIN_SHAPES:
+        x, pos = rope_main_inputs(torch, dev, shape)
+        got = rp.rope(x, pos)
+        for _ in range(10):
+            if not torch.equal(got, rp.rope(x, pos)):
+                raise AssertionError(f"rope {shape}: reruns differ")
+        want = rp.rope_plain(x, pos)
+        if not torch.equal(got, want):
+            raise AssertionError(f"rope {shape}: not bit-equal to the plain version "
+                                 f"({int((got != want).sum())} elements differ)")
+    records = one_launch(torch, "rope_rows", dev)
+    log(f"  rope {' and '.join(str(list(sh)) for sh in ROPE_MAIN_SHAPES)} bf16: bit-equal to "
+        f"the plain version, 10 reruns bit-identical; 5 calls gave the profiler {records}: "
+        f"one launch a call")
+
+
+def time_kernels(torch, sr, bt, oh, ws, da, ls, fa, rn, rp, dev, pool: int) -> dict:
     """Kernel, plain and library times at the main path's shapes; each
     kernel's error against its plain version is asserted, not only shown."""
     import torch.nn.functional as F
@@ -1591,6 +1671,38 @@ def time_kernels(torch, sr, bt, oh, ws, da, ls, fa, dev, pool: int) -> dict:
     log(f"  flash_attention f32 (route fma) {rec['shape']}: {pairs} visible pairs at "
         f"{tflops_text(4 * d * pairs, rec['device_ms'], share=False)}")
     out["flash_attention_f32"] = rec
+    # the model layers' kernels at yi-6b's 4 x 4,096 prefill: x read once
+    # and written once in bf16 (the scale, positions and frequencies are
+    # small beside it); RN's library call is F.rms_norm (bf16 scale), RP has
+    # none: no one PyTorch call computes RoPE
+    x, scale = norm_main_inputs(torch, dev)
+    scale_bf16 = scale.bfloat16()
+    norm = lambda: rn.rmsnorm(x, scale)
+    lib = lambda: F.rms_norm(x, (MODEL_D,), scale_bf16, 1e-6)
+    b_bound, by = bound_ms(4 * x.numel(), 4 * x.numel())
+    out["rms_norm"] = dict(
+        name="rms_norm", route="cuda", source="src/repro_torch/csrc/rms_norm.cu",
+        replaces=None, shape=list(x.shape),
+        max_abs_err=float((norm().float() - rn.rmsnorm_plain(x, scale, 1e-6).float()).abs().max()),
+        ms=cuda_ms(norm, iters=EVENT_CALLS), device_ms=device_ms(norm, ("rms_rows",)),
+        host_ms=host_ms(norm),
+        plain_ms=cuda_ms(lambda: rn.rmsnorm_plain(x, scale, 1e-6)),
+        library_ms=cuda_ms(lib, iters=EVENT_CALLS), library_device_ms=device_ms(lib, None),
+        library_host_ms=host_ms(lib), bound_ms=b_bound, bound_by=by)
+    del x, scale, scale_bf16
+    for shape in ROPE_MAIN_SHAPES:
+        x, pos = rope_main_inputs(torch, dev, shape)
+        rot = lambda: rp.rope(x, pos)
+        b_bound, by = bound_ms(4 * x.numel(), 3 * x.numel())
+        rec = dict(
+            name="rope", route="cuda", source="src/repro_torch/csrc/rope.cu", replaces=None,
+            shape=list(shape), timed_route="fwd",
+            max_abs_err=float((rot().float() - rp.rope_plain(x, pos).float()).abs().max()),
+            ms=cuda_ms(rot, iters=EVENT_CALLS), device_ms=device_ms(rot, ("rope_rows",)),
+            host_ms=host_ms(rot), plain_ms=cuda_ms(lambda: rp.rope_plain(x, pos)),
+            library_ms=None, bound_ms=b_bound, bound_by=by)
+        out["rope" if shape == ROPE_MAIN_SHAPES[0] else "rope_k"] = rec
+        del x, pos
     return out
 
 
@@ -4490,6 +4602,8 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import linear_scan as ls
     from repro_torch.kernels import onehot_encode as oh
+    from repro_torch.kernels import rms_norm as rn
+    from repro_torch.kernels import rope as rp
     from repro_torch.kernels import segment_reduce as sr
     from repro_torch.kernels import window_scan as ws
     dev = torch.device("cuda", 0)
@@ -4520,7 +4634,9 @@ def main() -> int:
     check_decode_cross(torch, da, fa, dev)
     check_decode_split(torch, da, dev)
     check_wide_aggregate(torch, dev)
-    timings = time_kernels(torch, sr, bt, oh, ws, da, ls, fa, dev, pool)
+    check_rms_norm(torch, rn, dev)
+    check_rope(torch, rp, dev)
+    timings = time_kernels(torch, sr, bt, oh, ws, da, ls, fa, rn, rp, dev, pool)
     for rec in timings.values():
         lib = "none" if rec["library_ms"] is None else f"{rec['library_ms']:.4f} ms"
         if "host_ms" in rec:
@@ -4561,6 +4677,27 @@ def main() -> int:
     def add_routes(kernel: str, routes: dict) -> None:
         for route, n in routes.items():
             by_route[kernel][route] += n
+
+    # the model layers' kernels: counted from a reset before each model
+    # phase, which must launch both
+    model_counters = {"rms_norm": rn.counter, "rope": rp.counter}
+    launches.update(dict.fromkeys(model_counters, 0))
+    by_route["rope"] = {"fwd": 0, "bwd": 0}
+
+    def reset_model_counters() -> None:
+        for c in model_counters.values():
+            c.reset()
+
+    def add_model_launches(phase: str, need: tuple = ("fwd",)) -> None:
+        got = {k: c.launches for k, c in model_counters.items()}
+        for k, n in got.items():
+            launches[k] += n
+        add_routes("rope", rp.counter.routes)
+        log(f"[{phase}] RMSNorm launches {got['rms_norm']}, RoPE by route "
+            f"{dict(rp.counter.routes)}")
+        if not got["rms_norm"] or any(not rp.counter.routes.get(r) for r in need):
+            raise AssertionError(f"phase {phase} launched RMSNorm {got['rms_norm']} times, "
+                                 f"RoPE {dict(rp.counter.routes)}; needs both, RoPE's {need}")
 
     t0 = time.perf_counter()
     log(f"[fig6] EAGER sessions on {dev}, {TAXI_ROWS} rows")
@@ -4618,22 +4755,26 @@ def main() -> int:
     log(f"[serve] {SERVE_ARCH} at full width through ServeEngine on {dev}")
     for c in counters.values():
         c.reset()
+    reset_model_counters()
     k7_routes, k6_routes = serving_phase(torch, np, da, dev, card)
     launches["decode_attention"] += sum(k7_routes.values())
     launches["flash_attention"] += sum(k6_routes.values())
     add_routes("decode_attention", k7_routes)
     add_routes("flash_attention", k6_routes)
+    add_model_launches("serve")
     log(f"[serve] {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     log(f"[prefill] {PREFILL_ARCH} at full width through Model.prefill on {dev}")
     for c in counters.values():
         c.reset()
+    reset_model_counters()
     phase8, k6_routes = prefill_phase(torch, np, fa, ls, dev, card)
     for k, n in phase8.items():
         launches[k] += n
     by_route["linear_scan"]["fwd"] += phase8["linear_scan"]
     add_routes("flash_attention", k6_routes)
+    add_model_launches("prefill")
     log(f"[prefill] {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
@@ -4672,20 +4813,24 @@ def main() -> int:
         f"on {dev}")
     for c in counters.values():
         c.reset()
+    reset_model_counters()
     k5_routes = train_phase(torch, np, ls, fa, da, dev, card)
     launches["linear_scan"] += sum(k5_routes.values())
     by_route["linear_scan"]["fwd"] += k5_routes["fwd"]
     by_route["linear_scan"]["bwd"] += k5_routes["bwd"]
+    add_model_launches("train", ("fwd", "bwd"))
     log(f"[train] {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     log(f"[zoo] {', '.join(a for a, _ in ZOO)} through Model.prefill and ServeEngine on {dev}")
+    reset_model_counters()
     k6_routes, k7_routes = zoo_phase(torch, np, fa, da, dev, card)
     launches["flash_attention"] += sum(k6_routes.values())
     launches["decode_attention"] += sum(k7_routes.values())
     add_routes("flash_attention", k6_routes)
     add_routes("decode_attention", k7_routes)
+    add_model_launches("zoo")
     log(f"[zoo] {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.empty_cache()
@@ -4694,16 +4839,18 @@ def main() -> int:
         f"abstract dry-run of {len(LAUNCH_CELLS)} cells")
     for c in counters.values():
         c.reset()
+    reset_model_counters()
     k6_routes, k7_routes = launch_phase(torch, np, fa, da, dev, card)
     launches["flash_attention"] += sum(k6_routes.values())
     launches["decode_attention"] += sum(k7_routes.values())
     add_routes("flash_attention", k6_routes)
     add_routes("decode_attention", k7_routes)
+    add_model_launches("launch")
     log(f"[launch] {time.perf_counter() - t0:.1f} s")
 
     record = []
     for k in ("segment_reduce", "block_transpose", "onehot_encode", "window_scan",
-              "linear_scan", "flash_attention", "decode_attention"):
+              "linear_scan", "flash_attention", "decode_attention", "rms_norm", "rope"):
         rec = dict(timings[k])
         rec["launches"] = launches[k]
         if k == "onehot_encode":
@@ -4714,6 +4861,8 @@ def main() -> int:
             rec["at_non_causal"] = timings["flash_attention_non_causal"]
         if k == "decode_attention":
             rec["at_cross"] = timings["decode_attention_cross"]
+        if k == "rope":
+            rec["at_k"] = timings["rope_k"]
         rec["routes"] = KERNEL_ROUTES.get(k, {"cuda": rec["source"]})
         if k in by_route:
             rec["launches_by_route"] = by_route[k]

@@ -17,50 +17,11 @@ device kernels launched inside ``repro:norm`` ranges.  Prints one line,
 """
 import argparse
 import json
-import subprocess
 import sys
-from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT / "src"))
+from probe_util import HBM_BYTES_PER_S, ROOT, card_line, ptxas_report, timed, with_shares, yi_prefill
 
-HBM_BYTES_PER_S = 3.35e12
 ROWS, D = 4 * 4096, 4096
-
-
-def ptxas_report(out: Path) -> str:
-    from repro_torch.kernels import _build
-    out.mkdir(parents=True, exist_ok=True)
-    run = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
-                          str(_build.CSRC / "rms_norm.cu"), "-o", str(out / "rms_norm.o")],
-                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if run.returncode != 0:
-        raise RuntimeError(run.stdout)
-    return run.stdout
-
-
-def timed(torch, fn, calls: int = 100) -> dict:
-    """ms a call: CUDA events over ``calls`` calls after 10 warm-ups, and
-    the device time of the kernels one call launches (profiler, 20 calls)."""
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(10):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(calls):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(20):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_us = sum(e.time_range.elapsed_us() for e in kernels)
-    return {"events_ms": start.elapsed_time(end) / calls, "device_ms": device_us / 20 / 1e3,
-            "kernels_a_call": len(kernels) / 20,
-            "names": sorted({e.name[:60] for e in kernels})}
 
 
 def kernel_table(torch) -> dict:
@@ -78,58 +39,9 @@ def kernel_table(torch) -> dict:
             "F.rms_norm": timed(torch, lambda: torch.nn.functional.rms_norm(
                 x, (D,), scale_bf16, 1e-6))}
     bound_ms = 4 * ROWS * D / HBM_BYTES_PER_S * 1e3
-    for r in rows.values():
-        r["share_of_bound"] = bound_ms / r["device_ms"]
-    return {"shape": [ROWS, D], "bound_ms": bound_ms, "rows": rows,
+    return {"shape": [ROWS, D], "bound_ms": bound_ms, "rows": with_shares(rows, bound_ms),
             "max_err_in_bf16_ulps": float(ulps),
             "differs": int((out != want).sum()), "elements": ROWS * D}
-
-
-def prefill(torch, trace_path: Path) -> dict:
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import rms_norm as rn
-    from repro_torch.models.model import build_model
-    cfg = get_config("yi-6b")
-    model = build_model(cfg, "cuda")
-    params = model.init(torch.Generator(device="cuda").manual_seed(0))
-    tokens = torch.randint(3, cfg.vocab, (4, 1024), device="cuda", dtype=torch.int32)
-    model.prefill(params, tokens)
-    torch.cuda.synchronize()
-    rn.counter.reset()
-    model.prefill(params, tokens)
-    launches = rn.counter.launches
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        model.prefill(params, tokens)
-        torch.cuda.synchronize()
-    prof.export_chrome_trace(str(trace_path))
-    events = json.loads(trace_path.read_text())["traceEvents"]
-    norms = {}
-    for e in events:
-        if e.get("ph") == "X" and e.get("name") == "repro:norm":
-            norms.setdefault(e["tid"], []).append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
-
-    def inside(e) -> bool:
-        t = float(e["ts"])
-        return any(a <= t <= b for a, b in norms.get(e["tid"], ()))
-
-    ops, launched = {}, set()
-    for e in events:
-        if e.get("ph") != "X" or not inside(e):
-            continue
-        if e.get("cat") == "cpu_op":
-            ops[e["name"]] = ops.get(e["name"], 0) + 1
-        elif e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {}):
-            launched.add(e["args"]["correlation"])
-    kernels = {}
-    for e in events:
-        if e.get("ph") == "X" and e.get("cat") == "kernel" \
-                and e.get("args", {}).get("correlation") in launched:
-            name = e["name"][:60]
-            kernels[name] = kernels.get(name, 0) + 1
-    return {"n_layers": cfg.n_layers, "launches_a_prefill": launches,
-            "norm_ranges": sum(len(v) for v in norms.values()),
-            "ops_in_norm": ops, "kernels_in_norm": kernels}
 
 
 def main() -> int:
@@ -137,15 +49,15 @@ def main() -> int:
     ap.add_argument("--prefill", action="store_true")
     args = ap.parse_args()
     import torch
+    from repro_torch.kernels import rms_norm as rn
     out_dir = ROOT / "build" / "rms_norm_probe"
-    print(ptxas_report(out_dir), flush=True)
+    print(ptxas_report("rms_norm.cu", out_dir), flush=True)
     result = {"kernel_table": kernel_table(torch)}
     if args.prefill:
-        result["prefill"] = prefill(torch, out_dir / "prefill_trace.json")
+        result["prefill"] = yi_prefill(torch, rn.counter, "repro:norm",
+                                       out_dir / "prefill_trace.json")
     print("RESULT " + json.dumps(result), flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], stdout=subprocess.PIPE, text=True)
-    print(smi.stdout.strip(), flush=True)
+    print(card_line(), flush=True)
     return 0
 
 

@@ -9,6 +9,9 @@ version:
   linear_scan    — the RG-LRU recurrence h_t = a_t * h_{t-1} + b_t
   flash_attention — the forward / prefill pass's causal and windowed attention
   decode_attention — one decode token's GQA attention over the KV cache
+  rms_norm       — the model zoo's RMSNorm (no TPU counterpart)
+  rope           — the model zoo's rotary position embedding of q and k (no TPU
+                   counterpart)
 
 ``ops`` is the engine-facing surface; ``ref`` holds the plain versions.  The
 kernels build on first launch (``_build``), never at import.

@@ -26,7 +26,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("segment_reduce.cu", "block_transpose.cu", "onehot_encode.cu",
            "window_scan.cu", "decode_attention.cu", "decode_attention_tc.cu",
-           "linear_scan.cu", "flash_attention.cu", "flash_attention_tc.cu", "rms_norm.cu")
+           "linear_scan.cu", "flash_attention.cu", "flash_attention_tc.cu", "rms_norm.cu",
+           "rope.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -57,6 +58,8 @@ _SIGNATURES = {
                               _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _I64,
                               _I32, _I64, _F32, _P),
     "repro_rms_norm": (_P, _P, _P, _I64, _I32, _I64, _I32, _I32, _I32, _I32, _F32, _P),
+    "repro_rope": (_P, _P, _P, _P, _I64, _I32, _I32, _I64, _I64, _I64, _I64, _I64, _I32, _I32,
+                   _I32, _I32, _I32, _I32, _P),
 }
 
 _LOCK = threading.Lock()

@@ -1,6 +1,7 @@
 """Shared helpers for the kernel wrappers: storage-dtype widening at the
-kernel boundary, device dispatch checks, launch counters, and the analytic
-charge a wrapper makes on meta tensors.
+kernel boundary, device dispatch checks, launch counters, the folding of a
+tensor's axes into one stride, and the analytic charge a wrapper makes on
+meta tensors.
 
 **Meta tensors** (the dry-run, ``launch/dryrun.py``) reach a kernel's
 wrapper with shapes and no data.  No kernel launches and no plain version
@@ -21,7 +22,7 @@ import threading
 import torch
 
 __all__ = ["widen_for_kernel", "narrow_from_kernel", "on_cpu", "on_meta", "on_device",
-           "cuda_stream", "refuse_grad", "LaunchCounter", "charge", "charging"]
+           "cuda_stream", "refuse_grad", "LaunchCounter", "charge", "charging", "fold_axes"]
 
 
 # The kernels move float32 and int32 words; bools and narrow ints are widened
@@ -39,6 +40,23 @@ def narrow_from_kernel(x: torch.Tensor, orig: torch.dtype) -> torch.Tensor:
     if x.dtype != orig:
         return x.to(orig)
     return x
+
+
+def fold_axes(sizes: tuple[int, ...], strides: tuple[int, ...]) -> tuple[int, int | None] | None:
+    """(count, stride) of axes taken as one, the last fastest: the product of
+    their sizes and the stride of the innermost axis of size > 1 (None where
+    there is none); None where they do not fold into one stride."""
+    count, step, expect = 1, None, None
+    for size, st in zip(reversed(sizes), reversed(strides)):
+        if size == 1:
+            continue
+        if step is None:
+            step = st
+        elif st != expect:
+            return None
+        expect = st * size
+        count *= size
+    return count, step
 
 
 def on_cpu(kernel: str, *tensors: torch.Tensor) -> bool:

@@ -5,14 +5,14 @@ plain PyTorch versions, CUDA tensors the hand-written kernels (or the wrapper
 raises).  There is no environment override and no capability fallback.
 Inputs are widened to the kernels' storage types here (``_util``).
 
-**DTensors.**  K5, K6, K7 and the norm also take DTensors (a model whose
+**DTensors.**  K5, K6, K7, the norm and RoPE also take DTensors (a model whose
 parameters ``launch.sharding.distribute`` placed on a ``DeviceMesh``): the
 kernel runs on each device's shards through ``torch.distributed.tensor.
 experimental.local_map``, with the output placed as the query (K6, K7),
-``a`` (K5) or x (the norm) is.  A placement that keeps the kernel from
+``a`` (K5) or x (the norm, RoPE) is.  A placement that keeps the kernel from
 running on the shards is redistributed first, and an accounting below
 counts that as a collective: a sharded head dim, a Partial, a sharded
-sequence dim of K6's keys, the norm's sharded last dim.  Heads
+sequence dim of K6's keys, the norm's and RoPE's sharded last dim.  Heads
 may stay sharded: where the KV heads
 divide as the query heads do, both stay sharded; where they do not (yi-6b's
 4 KV heads over 16 devices), the KV heads are gathered and each device
@@ -37,11 +37,13 @@ keep the route above.
 ``kernel:<entry>`` (a profiler range ``repro:kernel:<entry>`` while one
 records) that holds the call as the program makes it, casts included, so a
 kernel's device time is read by the entry it serves, whatever the kernel
-is named.  The exception is ``rmsnorm``, which opens no span of its own: it
-runs inside its caller's ``norm`` span (``models/layers.rmsnorm``), and the
-benchmark gives each launch to the innermost range open at it, so a
-``kernel:rmsnorm`` range would take the kernel's device time out of
-``norm``'s self time, which ``norm_roofline.prefill`` reads.
+is named.  The exceptions are ``rmsnorm`` and ``rope``, which open no span
+of their own: each runs inside its caller's ``norm`` or ``rope`` span
+(``models/layers.rmsnorm``, ``models/layers.rope``), and the benchmark gives
+each launch to the innermost range open at it, so a ``kernel:rmsnorm`` or
+``kernel:rope`` range would take the kernel's device time out of ``norm``'s
+or ``rope``'s self time, which ``norm_roofline.prefill`` and
+``rope_roofline.prefill`` read.
 """
 from __future__ import annotations
 
@@ -59,12 +61,14 @@ from .linear_scan import linear_scan as _linscan
 from .onehot_encode import onehot_encode as _onehot
 from .rms_norm import rmsnorm as _rmsnorm
 from .rms_norm import rmsnorm_plain as _rmsnorm_plain
+from .rope import rope as _rope
+from .rope import rope_plain as _rope_plain
 from .segment_reduce import segment_reduce as _segred
 from .window_scan import window_scan as _winscan
 
 __all__ = ["transpose", "segment_reduce", "segment_reduce_multi",
            "window_scan", "linear_scan", "onehot_encode", "flash_attention",
-           "decode_attention", "rmsnorm", "attention_on_shards"]
+           "decode_attention", "rmsnorm", "rope", "attention_on_shards"]
 
 _FLT_MAX = torch.finfo(torch.float32).max
 
@@ -178,6 +182,18 @@ def rmsnorm(x, scale, eps: float = 1e-6) -> torch.Tensor:
     if x._local_tensor.is_meta:
         return _rmsnorm_plain(x, scale, eps)
     return _sharded_norm(x, scale, eps)
+
+
+def rope(x, positions, theta: float = 10000.0) -> torch.Tensor:
+    """x (..., S, H, D) rotated by ``positions`` (..., S), in x's dtype; no
+    span of its own (see Spans).  Meta tensors take the plain version, and
+    so do DTensors whose shards are meta (the dry-run), on the DTensors as
+    they are."""
+    if not _is_dtensor(x):
+        return _rope(x, positions, theta)
+    if x._local_tensor.is_meta:
+        return _rope_plain(x, positions, theta)
+    return _sharded_rope(x, positions, theta)
 
 
 # =============================================================================
@@ -369,3 +385,29 @@ def _sharded_norm(x, scale, eps: float):
     s_pl = [p if mesh.size(i) == 1 and not p.is_partial() else Replicate()
             for i, p in enumerate(scale.placements)]
     return _run_local(lambda x, s: _rmsnorm(x, s, eps), mesh, x_pl, [x, scale], [x_pl, s_pl])
+
+
+def _sharded_rope(x, positions, theta: float):
+    """RoPE on DTensors (..., S, H, D): shards of the batch, sequence and
+    head dims stay as ``x``'s are, and the positions are placed to match
+    (sharded as x where they have the dim, else whole); a sharded or Partial
+    last dim is gathered."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = x.device_mesh
+    pos = _as_dtensor(positions, mesh)
+    last, off = x.ndim - 1, x.ndim - 2 - pos.ndim     # x's dim of pos's dim 0: dim - off
+    x_pl, p_pl = [], []
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard) and p.dim % x.ndim < last and mesh.size(i) > 1:
+            d = p.dim % x.ndim
+            x_pl.append(p)
+            whole = d == last - 1 or d < off or pos.shape[d - off] == 1
+            p_pl.append(Replicate() if whole else Shard(d - off))
+        elif mesh.size(i) == 1 and not p.is_partial():
+            x_pl.append(p)
+            q = pos.placements[i]
+            p_pl.append(Replicate() if q.is_partial() else q)
+        else:
+            x_pl.append(Replicate())
+            p_pl.append(Replicate())
+    return _run_local(lambda x, p: _rope(x, p, theta), mesh, x_pl, [x, pos], [x_pl, p_pl])

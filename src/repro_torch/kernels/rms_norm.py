@@ -29,7 +29,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from . import _build
-from ._util import LaunchCounter, cuda_stream, on_cpu, on_device, on_meta
+from ._util import LaunchCounter, cuda_stream, fold_axes, on_cpu, on_device, on_meta
 
 __all__ = ["rmsnorm", "rmsnorm_plain", "launch_shape", "chunk_elems", "rows_and_stride",
            "counter", "MAX_D"]
@@ -57,17 +57,11 @@ def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Ten
 def rows_and_stride(shape: tuple[int, ...], strides: tuple[int, ...]) -> tuple[int, int]:
     """(rows, row stride in elements) of a tensor's leading axes taken as
     one; raises where they do not fold into one stride."""
-    rows, step, expect = 1, None, None
-    for size, st in zip(reversed(shape[:-1]), reversed(strides[:-1])):
-        if size == 1:
-            continue
-        if step is None:
-            step = st
-        elif st != expect:
-            raise ValueError(f"rmsnorm: the leading axes of a {tuple(shape)} tensor with "
-                             f"strides {tuple(strides)} do not fold into one row stride")
-        expect = st * size
-        rows *= size
+    folded = fold_axes(shape[:-1], strides[:-1])
+    if folded is None:
+        raise ValueError(f"rmsnorm: the leading axes of a {tuple(shape)} tensor with "
+                         f"strides {tuple(strides)} do not fold into one row stride")
+    rows, step = folded
     return rows, shape[-1] if step is None else step
 
 

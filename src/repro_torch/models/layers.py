@@ -8,7 +8,8 @@ Conventions, as in the reference (``repro/models/layers.py``):
     arrays convert with no transpose
   * the norms, RoPE and the MLPs each run in a ``core.trace.scope`` span
     (``norm``, ``rope``, ``mlp``), a profiler range while one records; the
-    rmsnorm kernel launches in ``norm`` itself, under no span of its own
+    rmsnorm and RoPE kernels launch in ``norm`` and ``rope`` themselves, under
+    no span of their own
 """
 from __future__ import annotations
 
@@ -73,17 +74,11 @@ def layernorm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 # rotary position embeddings
 # -----------------------------------------------------------------------------
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
-    """x: (..., S, H, D) with D even; positions: (..., S)."""
+    """x: (..., S, H, D) with D even; positions: (..., S).  The float32 chain
+    on CPU and meta tensors, the one-pass kernel on the card
+    (``kernels/rope.py``), run directly inside this ``rope`` span."""
     with trace.scope("rope", "model"):
-        d = x.shape[-1]
-        half = d // 2
-        freq = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
-        angles = positions[..., :, None].float() * freq              # (..., S, half)
-        cos = torch.cos(angles)[..., :, None, :]                     # (..., S, 1, half)
-        sin = torch.sin(angles)[..., :, None, :]
-        xf1, xf2 = x[..., :half].float(), x[..., half:].float()
-        out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
-        return out.to(x.dtype)
+        return kops.rope(x, positions, theta)
 
 
 # -----------------------------------------------------------------------------

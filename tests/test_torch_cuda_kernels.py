@@ -15,7 +15,8 @@ tests/test_kernels.py has them; decode_attention (K7) float32 2e-3, bf16
 4e-3; flash_attention (K6) float32 2e-3, bf16 one bf16 ulp (2^-7 |x|) plus
 1e-5; rmsnorm bf16 one bf16 ulp, float32 1e-6 relative (its sum of squares
 runs in another order than torch.mean's), its backward equal to autograd
-through rmsnorm_plain (``torch.equal``).
+through rmsnorm_plain (``torch.equal``); rope bit-equal to rope_plain and its
+backward to autograd through rope_plain (``torch.equal``).
 """
 import numpy as np
 import pytest
@@ -27,6 +28,7 @@ from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import linear_scan as ls_mod
 from repro_torch.kernels import onehot_encode as oh_mod
 from repro_torch.kernels import rms_norm as rn_mod
+from repro_torch.kernels import rope as rp_mod
 from repro_torch.kernels import segment_reduce as sr_mod
 from repro_torch.kernels import window_scan as ws_mod
 
@@ -742,3 +744,176 @@ def test_cuda_rmsnorm_refuses_other_dtypes(cuda, dtype):
     x = torch.ones((4, 64), device=cuda).to(dtype)
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         rn_mod.rmsnorm(x, torch.ones(64, device=cuda))
+
+
+# ---- rope: the one-pass rotary embedding (no TPU counterpart) ------------------------
+def _rope_inputs(cuda, shape, dtype, positions="arange", seed=0):
+    """x (..., S, H, D) and its positions: a prefill's arange(S).expand(B, S),
+    or a decode step's ragged per-slot lengths[:, None] (int32)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = (3 * torch.randn(shape, generator=g, device=cuda)).to(dtype)
+    b, s = shape[0], shape[-3]
+    if positions == "ragged":
+        pos = torch.randint(0, 4096, (b,), generator=g, device=cuda, dtype=torch.int32)[:, None]
+    else:
+        pos = torch.arange(s, device=cuda).expand(b, s)
+    return x, pos
+
+
+def _rope_checked(x, pos):
+    """One launch, equal (``torch.equal``) to rope_plain and to a rerun."""
+    rp_mod.counter.reset()
+    out = rp_mod.rope(x, pos)
+    assert rp_mod.counter.routes == {"fwd": 1} and out.dtype == x.dtype
+    assert out.shape == x.shape and out.is_contiguous()
+    assert torch.equal(out, rp_mod.rope_plain(x, pos))
+    assert torch.equal(out, rp_mod.rope(x, pos))
+    return out
+
+
+ROPE_CUDA_SHAPES = [
+    ((4, 4096, 32, 128), "arange"),   # yi-6b's and trinity-mini's q at 4 x 4096
+    ((4, 4096, 4, 128), "arange"),    # their k
+    ((4, 1024, 32, 128), "arange"),
+    ((2, 2048, 8, 256), "arange"),    # gemma3's D 256
+    ((3, 37, 5, 12), "arange"),       # D 12: one element a piece
+    ((3, 37, 5, 16), "arange"),       # D 16: one piece a half
+    ((8, 1, 32, 128), "ragged"),      # a decode step, ragged positions
+    ((8, 1, 4, 128), "ragged"),
+    ((1, 1, 1, 2), "arange"),
+]
+
+
+@pytest.mark.parametrize("shape,positions", ROPE_CUDA_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_rope_matches_plain(cuda, dtype, shape, positions):
+    _rope_checked(*_rope_inputs(cuda, shape, dtype, positions))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_rope_reads_strided_and_unaligned_views(cuda, dtype):
+    """Views read in place, equal to the kernel on a contiguous copy and to
+    rope_plain: the first halves of wider heads (a head stride of its own),
+    some heads' middle halves, one batch row's tokens after the first (the
+    axes before the heads fold into one stride),
+    a base one element off 16 bytes (one element a piece), and positions of
+    int16 and of a (S,) row."""
+    x, pos = _rope_inputs(cuda, (2, 64, 8, 256), dtype)
+    for view in (x[..., :128], x[:, :, 2:6, 64:192], x[1:, 5:]):
+        p = pos[: view.shape[0], : view.shape[1]]
+        assert torch.equal(_rope_checked(view, p), rp_mod.rope(view.contiguous(), p))
+    d = 16
+    shifted = torch.empty(2 * 64 * 8 * d + 1, dtype=dtype, device=cuda)[1:].view(2, 64, 8, d)
+    shifted.copy_(x[..., :d])
+    assert torch.equal(_rope_checked(shifted, pos), rp_mod.rope(shifted.contiguous(), pos))
+    assert torch.equal(_rope_checked(x, pos.to(torch.int16)), rp_mod.rope(x, pos))
+    assert torch.equal(_rope_checked(x, torch.arange(64, device=cuda)), rp_mod.rope(x, pos))
+
+
+def test_cuda_rope_50_reruns_bit_identical(cuda):
+    x, pos = _rope_inputs(cuda, (4, 4096, 32, 128), torch.bfloat16)
+    out = rp_mod.rope(x, pos)
+    for _ in range(50):
+        assert torch.equal(out, rp_mod.rope(x, pos))
+
+
+@pytest.mark.parametrize("shape,positions", [((4, 7, 3, 48), "arange"),
+                                             ((2, 33, 32, 128), "arange"),
+                                             ((8, 1, 4, 128), "ragged"), ((3, 5, 2, 12), "arange")])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_rope_backward_is_autograd_through_plain(cuda, dtype, shape, positions):
+    """The Function's backward, the kernel rotating by −angle, equal
+    (``torch.equal``) to autograd through rope_plain; one forward and one
+    backward launch."""
+    x, pos = _rope_inputs(cuda, shape, dtype, positions)
+    w = torch.randn(shape, generator=torch.Generator(device=cuda).manual_seed(1),
+                    device=cuda).to(dtype)
+
+    def grad(fn):
+        xs = x.clone().requires_grad_(True)
+        return torch.autograd.grad((fn(xs, pos) * w).sum(), (xs,))[0]
+
+    rp_mod.counter.reset()
+    got = grad(rp_mod.rope)
+    assert rp_mod.counter.routes == {"fwd": 1, "bwd": 1}
+    assert torch.equal(got, grad(rp_mod.rope_plain))
+
+
+def _full_depth(name: str):
+    """``name``'s configuration with its layers, heads and head dim as
+    published and its other widths cut (d 256, vocab 512, few experts): a
+    prefill meets every layer's q and k as the full model does."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    cut = dict(d_model=256, d_ff=256, vocab=512, head_dim=cfg.head_dim_)
+    if cfg.mlp == "moe":
+        cut.update(n_experts=16, top_k=4, d_ff_dense=256)
+    return dataclasses.replace(cfg, **cut)
+
+
+@pytest.mark.parametrize("name,launches", [("yi-6b", 64), ("trinity-mini", 48)])
+def test_cuda_rope_launches_on_the_prefill(cuda, name, launches):
+    """The main path goes through the kernel: two launches (q, k) a RoPE
+    layer, yi-6b's 32 layers and trinity-mini's 24 sliding ones (its 8 full
+    layers take no positions), at the published depth and heads."""
+    from repro_torch.models.model import build_model
+    cfg = _full_depth(name)
+    model = build_model(cfg, cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    tokens = torch.randint(3, cfg.vocab, (2, 64), device=cuda, dtype=torch.int32)
+    rp_mod.counter.reset()
+    with torch.no_grad():
+        model.prefill(params, tokens)
+    assert rp_mod.counter.routes == {"fwd": launches}
+
+
+@pytest.mark.parametrize("policy", ["nothing", "dots"])
+def test_cuda_rope_in_training(cuda, monkeypatch, policy):
+    """yi-6b's smoke loss on the card, RoPE through the Function: remat (the
+    "nothing" and "dots" policies) re-runs each layer's two forward launches
+    in the recompute, the backward launches two a layer, and the gradients
+    equal those without remat, and those with rope_plain in the kernel's
+    place, bit for bit."""
+    from repro_torch.kernels import ops as kops
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import build_model
+    from repro_torch.train.tree import leaves
+    cfg = dataclasses.replace(get_smoke_config("yi-6b"), remat_policy=policy)
+    tokens = torch.randint(3, cfg.vocab, (2, 16), device=cuda, dtype=torch.int32,
+                           generator=torch.Generator(device=cuda).manual_seed(2))
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+
+    def grads(remat: bool):
+        m = build_model(dataclasses.replace(cfg, remat=remat), cuda)
+        p = m.init(torch.Generator(device=cuda).manual_seed(1))
+        for t in leaves(p):
+            t.requires_grad_(True)
+        loss, _ = m.loss_fn(p, batch)
+        return torch.autograd.grad(loss, leaves(p))
+
+    n = cfg.n_layers
+    rp_mod.counter.reset()
+    remat = grads(True)
+    assert rp_mod.counter.routes == {"fwd": 4 * n, "bwd": 2 * n}
+    rp_mod.counter.reset()
+    whole = grads(False)
+    assert rp_mod.counter.routes == {"fwd": 2 * n, "bwd": 2 * n}
+    assert all(torch.equal(a, b) for a, b in zip(remat, whole))
+    monkeypatch.setattr(kops, "_rope", rp_mod.rope_plain)
+    assert all(torch.equal(a, b) for a, b in zip(whole, grads(False)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64, torch.int32])
+def test_cuda_rope_refuses_other_dtypes(cuda, dtype):
+    x = torch.ones((2, 4, 2, 64), device=cuda).to(dtype)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        rp_mod.rope(x, torch.arange(4, device=cuda))
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 2, 63), (2, 4, 2, 1)])
+def test_cuda_rope_refuses_odd_d(cuda, shape):
+    with pytest.raises(ValueError, match="D even"):
+        rp_mod.rope(torch.ones(shape, device=cuda), torch.arange(4, device=cuda))
+

@@ -160,6 +160,41 @@ def test_dryrun_accounting_of_the_norm_is_unchanged(mesh_shape, kind, monkeypatc
     assert "rmsnorm" not in got["kernels"]
 
 
+def _chain_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
+    """``layers.rope`` before RoPE had a kernel: the float32 chain in its
+    span."""
+    with trace.scope("rope", "model"):
+        half = x.shape[-1] // 2
+        freq = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+        angles = positions[..., :, None].float() * freq
+        cos = torch.cos(angles)[..., :, None, :]
+        sin = torch.sin(angles)[..., :, None, :]
+        xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+        out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
+        return out.to(x.dtype)
+
+
+@pytest.mark.parametrize("kind", sorted(CELL_SHAPES))
+@pytest.mark.parametrize("mesh_shape", [(1, 1), (2, 2)])
+def test_dryrun_accounting_of_rope_is_unchanged(mesh_shape, kind, monkeypatch):
+    """yi-6b's smoke cells on meta shards: every ``hlo_analysis`` number
+    with RoPE's dispatch equals the one with ``layers.rope`` put back to the
+    chain it ran before (meta tensors, DTensors on meta among them, take the
+    plain version; no kernel is charged for RoPE); both after one warm-up,
+    as the norm's test above."""
+    cfg, shape = get_smoke_config("yi-6b"), CELL_SHAPES[kind]
+
+    def analyzed():
+        with abstract_world(mesh_shape[0] * mesh_shape[1]):
+            return dryrun.analyze_cell(cfg, shape, _mesh(mesh_shape))["hlo_analysis"]
+
+    analyzed()
+    got = analyzed()
+    monkeypatch.setattr(layers, "rope", _chain_rope)
+    assert got == analyzed()
+    assert "rope" not in got["kernels"]
+
+
 
 
 def _cache_row_gathers(collectives: list, kvh: int, head_dim: int) -> float:

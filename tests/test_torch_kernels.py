@@ -1096,3 +1096,169 @@ def test_rmsnorm_rows_that_do_not_fold_raise():
     x = torch.zeros(4, 16, 64)[:, 3:7]
     with pytest.raises(ValueError, match="do not fold"):
         rn_mod.rows_and_stride(tuple(x.shape), tuple(x.stride()))
+
+
+# ---- rope -------------------------------------------------------------------------
+# The JAX package has no RoPE kernel (XLA fuses its chain); ``rope_plain`` is held
+# to the JAX package through ``layers.rope`` in tests/test_torch_models.py, and here
+# to the chain ``layers.rope`` ran before the kernel, bit for bit.
+from repro_torch.kernels import rope as rp_mod  # noqa: E402
+
+
+def _chain_rope(x, positions, theta=10000.0):
+    """``layers.rope``'s body before RoPE had a kernel."""
+    d = x.shape[-1]
+    half = d // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    angles = positions[..., :, None].float() * freq
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+ROPE_CASES = [
+    ((2, 16, 4, 64), "arange"),       # a prefill: arange(S).expand(B, S)
+    ((3, 5, 2, 12), "arange"),        # D 12: no 16-byte piece
+    ((2, 7, 3, 16), "arange"),
+    ((8, 1, 4, 128), "ragged"),       # a decode step: length[:, None]
+    ((5, 3, 256), "seq"),             # no batch axis: positions (S,)
+]
+
+
+def _rope_input(rng, shape, kind, dtype):
+    x = _t((rng.standard_normal(shape) * 3).astype(np.float32)).to(dtype)
+    s = shape[-3]
+    if kind == "arange":
+        pos = torch.arange(s).expand(shape[0], s)
+    elif kind == "ragged":
+        pos = _t(rng.integers(0, 4096, shape[0]).astype(np.int32))[:, None]
+    else:
+        pos = torch.arange(s)
+    return x, pos
+
+
+@pytest.mark.parametrize("shape,kind", ROPE_CASES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rope_plain_is_the_chain_it_replaces(rng, dtype, shape, kind):
+    """Bit for bit, through the plain version, the wrapper, ``ops.rope`` and
+    the layer (CPU: the plain version); nothing launched."""
+    x, pos = _rope_input(rng, shape, kind, dtype)
+    want = _chain_rope(x, pos)
+    rp_mod.counter.reset()
+    for got in (rp_mod.rope_plain(x, pos), rp_mod.rope(x, pos), tops.rope(x, pos),
+                tlayers.rope(x, pos)):
+        assert got.dtype == dtype and torch.equal(got, want)
+    assert rp_mod.counter.launches == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rope_plain_gradient_is_the_chains(rng, dtype):
+    x, pos = _rope_input(rng, (2, 9, 3, 48), "arange", dtype)
+    x.requires_grad_(True)
+    w = _t(rng.standard_normal((2, 9, 3, 48)).astype(np.float32)).to(dtype)
+    (got,) = torch.autograd.grad((tops.rope(x, pos) * w).sum(), (x,))
+    (want,) = torch.autograd.grad((_chain_rope(x, pos) * w).sum(), (x,))
+    assert torch.equal(got, want)
+
+
+def test_rope_meta_takes_the_plain_path():
+    """Meta tensors (the dry-run) run the plain chain: a meta result of x's
+    shape and dtype, nothing launched, nothing charged as a kernel."""
+    from repro_torch.kernels._util import charging
+    charged = []
+    rp_mod.counter.reset()
+    x = torch.empty((2, 8, 4, 64), dtype=torch.bfloat16, device="meta")
+    pos = torch.arange(8, device="meta").expand(2, 8)
+    with charging(lambda *a: charged.append(a)):
+        out = tops.rope(x, pos)
+    assert out.is_meta and out.shape == x.shape and out.dtype == x.dtype
+    assert rp_mod.counter.launches == 0 and charged == []
+
+
+@pytest.mark.parametrize("x_dev,p_dev", [("cpu", "meta"), ("meta", "cpu")])
+def test_rope_mixed_devices_raise(x_dev, p_dev):
+    x = torch.zeros((2, 4, 2, 8), device=x_dev)
+    with pytest.raises(ValueError, match="all be on the CPU or all on one CUDA"):
+        rp_mod.rope(x, torch.arange(4, device=p_dev))
+
+
+def test_rope_frequencies_are_the_chains_and_kept():
+    for half, theta in ((64, 10000.0), (6, 10000.0), (128, 1e6)):
+        freq = rp_mod.frequencies(half, theta, torch.device("cpu"))
+        want = theta ** (-torch.arange(0, half, dtype=torch.float32) / half)
+        assert torch.equal(freq, want)
+        assert rp_mod.frequencies(half, theta, torch.device("cpu")) is freq
+
+
+ROPE_SHAPES = [
+    ((16384, 8), (32, 256)),   # yi-6b's / trinity-mini's q and k at 4 x 4096, bf16
+    ((4096, 8), (32, 256)),    # at 4 x 1024
+    ((8, 8), (8, 64)),         # a decode step's 8 slots: one CTA
+    ((1, 8), (1, 32)),         # one slot
+    ((16384, 16), (16, 256)),  # float32 pieces of 4
+    ((8192, 16), (16, 256)),   # gemma3's D 256 in bf16
+    ((100, 6), (42, 256)),     # D 12: one element a piece
+    ((1, 1), (1, 32)),
+    ((7, 256), (1, 256)),      # the most pieces a half-row
+    ((3, 100), (2, 224)),      # a CTA's threads rounded up to a warp
+]
+
+
+@pytest.mark.parametrize("args,want", ROPE_SHAPES)
+def test_rope_launch_shape(args, want):
+    """Tokens a CTA and threads a CTA from tokens and pieces alone; the
+    tokens' pieces fit one CTA."""
+    tokens, pieces = args
+    per_cta, threads = rp_mod.launch_shape(tokens, pieces)
+    assert (per_cta, threads) == want
+    assert per_cta * pieces <= threads <= rp_mod.MAX_THREADS and threads % 32 == 0
+    assert per_cta <= tokens
+
+
+def test_rope_launch_shape_refuses_past_max():
+    with pytest.raises(ValueError, match="past the kernel's"):
+        rp_mod.launch_shape(4, rp_mod.MAX_THREADS + 1)
+
+
+@pytest.mark.parametrize("dtype,half,x_tok,x_head,addresses,want", [
+    (torch.bfloat16, 64, 4096, 128, (0, 256), 8),         # q (B, S, 32, 128)
+    (torch.bfloat16, 64, 512, 128, (512, 0), 8),          # k (B, S, 4, 128)
+    (torch.bfloat16, 64, 0, 128, (0, 0), 8),              # one token
+    (torch.float32, 64, 4096, 128, (0, 0), 4),
+    (torch.bfloat16, 6, 36, 12, (0, 0), 1),               # D 12
+    (torch.bfloat16, 8, 48, 16, (0, 0), 8),               # D 16: one piece a half
+    (torch.bfloat16, 8, 48, 16, (2, 0), 1),               # a base off 16 bytes
+    (torch.bfloat16, 64, 8196, 128, (0, 0), 1),           # a token stride that is not
+    (torch.float32, 64, 4096, 130, (0, 0), 1),            # a head stride that is not
+])
+def test_rope_piece_elems(dtype, half, x_tok, x_head, addresses, want):
+    assert rp_mod.piece_elems(dtype, half, x_tok, x_head, addresses) == want
+
+
+@pytest.mark.parametrize("make,want", [
+    (lambda: torch.zeros(4, 16, 32, 128), (64, 4096, 128)),
+    (lambda: torch.zeros(4, 16, 32, 256)[..., :128], (64, 8192, 256)),   # heads' halves
+    (lambda: torch.zeros(4, 16, 3, 8)[1:3], (32, 24, 8)),              # tokens fold
+    (lambda: torch.zeros(8, 1, 4, 64), (8, 256, 64)),
+    (lambda: torch.zeros(1, 1, 32, 128), (1, 0, 128)),
+    (lambda: torch.zeros(2, 5, 1, 16), (10, 16, 0)),
+    (lambda: torch.zeros(16, 32, 64), (16, 2048, 64)),
+])
+def test_rope_layout(make, want):
+    x = make()
+    assert rp_mod.layout(tuple(x.shape), x.stride()) == want
+
+
+@pytest.mark.parametrize("make,match", [
+    (lambda: torch.zeros(16, 4, 32, 64).transpose(0, 1), "do not fold"),
+    (lambda: torch.zeros(4, 16, 3, 8)[:, 5:], "do not fold"),
+    (lambda: torch.zeros(4, 16, 64, 32).transpose(2, 3), "contiguous"),
+    (lambda: torch.zeros(4, 16, 2, 7), "D even"),
+    (lambda: torch.zeros(16, 64), "D even"),
+])
+def test_rope_layout_refuses(make, match):
+    x = make()
+    with pytest.raises(ValueError, match=match):
+        rp_mod.layout(tuple(x.shape), x.stride())

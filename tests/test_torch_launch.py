@@ -178,6 +178,35 @@ def test_rmsnorm_dtensor_route_matches_plain(pl, dtype):
     assert all(torch.equal(g, w) for g, w in zip(grads, torch.autograd.grad(want.sum(), (xs, ss))))
 
 
+@pytest.mark.parametrize("pl", [Replicate(), Shard(0), Shard(1), Shard(2), Shard(3)], ids=str)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rope_dtensor_route_matches_plain(pl, dtype):
+    """On a real one-rank gloo mesh: ``kernels.ops.rope`` on DTensors (the
+    rotation on each device's shards, through ``local_map``, the positions a
+    plain tensor placed to match) equals the plain version on the whole
+    tensors, with x's placement kept, and so does its gradient."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.rope import rope_plain
+    from repro_torch.launch.mesh import close_local_group, make_local_mesh
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((2, 6, 4, 48)).astype(np.float32)).to(dtype)
+    pos = torch.arange(6).expand(2, 6)
+    try:
+        mesh = make_local_mesh("cpu")
+        dx = distribute_tensor(x, mesh, [pl, Replicate()]).requires_grad_(True)
+        out = kops.rope(dx, pos)
+        assert list(out.placements) == [pl, Replicate()]
+        got = out.full_tensor()
+        grad = torch.autograd.grad((out * out).sum(), (dx,))[0].full_tensor()
+    finally:
+        close_local_group()
+    xs = x.clone().requires_grad_(True)
+    want = rope_plain(xs, pos)
+    assert torch.equal(got, want)
+    assert torch.equal(grad, torch.autograd.grad((want * want).sum(), (xs,))[0])
+
+
 def test_pipeline_cell_collectives_on_a_fake_mesh():
     """On a fake (2, 2) mesh: one all-reduce each for groupby(n) and
     groupby(1) and one all-gather of the shard totals, over the one DP dim;
@@ -269,6 +298,7 @@ def _gloo_rank(rank: int, store_path: str, out_path: str) -> None:
             report[arch] = {"err": [float((a - g).abs().max()) for a, g in zip(plain, got)],
                             "replicated": rec.replicated}
         report["sp"] = _sp_decode(mesh)
+        report["rope"] = _rope_on_shards(mesh)
         if rank == 0:
             with open(out_path, "w") as f:
                 json.dump(report, f)
@@ -354,6 +384,43 @@ def _sp_direct(mesh) -> dict:
     return out
 
 
+# (x's placements, positions' kind, the output's placements): batch, sequence and
+# head shards kept with the positions placed to match, a sharded head dim gathered
+ROPE_PLACEMENTS = (
+    ((Shard(0), Shard(1)), "arange", (Shard(0), Shard(1))),
+    ((Shard(1), Shard(2)), "arange", (Shard(1), Shard(2))),
+    ((Replicate(), Shard(3)), "arange", (Replicate(), Replicate())),
+    ((Shard(0), Shard(2)), "ragged", (Shard(0), Shard(2))),
+    ((Replicate(), Shard(2)), "sharded", (Replicate(), Shard(2))),
+)
+
+
+def _rope_on_shards(mesh) -> list:
+    """``kernels.ops.rope`` on DTensors of ROPE_PLACEMENTS against
+    ``rope_plain`` on the whole tensors: [(bit-equal, the output's placements
+    as expected)] a case.  Positions: a prefill's arange(S).expand(B, S), a
+    decode step's ragged (B, 1), or a (B, S) DTensor sharded over "data"."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.rope import rope_plain
+    gen = torch.Generator().manual_seed(4)
+    out = []
+    for placements, kind, want_pl in ROPE_PLACEMENTS:
+        s = 1 if kind == "ragged" else 6
+        x = torch.randn(4, s, 4, 8, generator=gen).to(torch.bfloat16)
+        if kind == "ragged":
+            pos = torch.randint(0, 100, (4,), generator=gen, dtype=torch.int32)[:, None]
+        else:
+            pos = torch.arange(s).expand(4, s)
+        want = rope_plain(x, pos)
+        if kind == "sharded":
+            pos = distribute_tensor(pos.contiguous(), mesh, [Shard(0), Replicate()])
+        got = kops.rope(distribute_tensor(x, mesh, list(placements)), pos)
+        out.append((bool(torch.equal(got.full_tensor(), want)),
+                    tuple(got.placements) == want_pl))
+    return out
+
+
 @pytest.fixture(scope="module")
 def gloo_report(tmp_path_factory):
     """One spawn of the four gloo ranks for the tests below."""
@@ -391,3 +458,12 @@ def test_sequence_sharded_decode_matches_plain_on_four_gloo_ranks(gloo_report):
         assert rep["seq_dims"] == want_dims, (b, rep)
     for name, rep in gloo_report["sp"]["direct"].items():
         assert rep["err"] <= 1e-5 and rep["zero"], (name, rep)
+
+
+def test_rope_on_dtensors_matches_plain_on_four_gloo_ranks(gloo_report):
+    """RoPE's DTensor route on the 2 x 2 mesh of four gloo processes: batch,
+    sequence and head shards stay as x's are (the positions, plain, ragged or
+    sharded otherwise, placed to match) and a sharded last dim is gathered;
+    every output equals rope_plain on the whole tensors bit for bit."""
+    assert gloo_report["rope"] == [[True, True]] * len(ROPE_PLACEMENTS)
+
